@@ -7,12 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
   1. device  — the card's name and power limit, the CUDA and torch versions;
   2. build   — compiles csrc/taint_ports.cu for sm_90a from this checkout;
   3. kernel  — the taint/host-port kernel against its plain PyTorch version
-               on seeded worlds at the main path's shapes (exact equality);
+               on seeded worlds at the main path's shapes and at the
+               kernel's edges (taint_ports.EDGE_TABLES; exact equality),
+               then timed on a dense world, on a world with no toleration
+               and no port (its store path alone), and beside a plain
+               fill of the same two outputs (the card's write rate);
   4. round   — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
                30 000-pod backlog; the store's bindings must respect every
                resource, taint, host-port and nodeSelector constraint, and
-               the kernel must have launched during the run. The host time
+               the kernel must have launched during the run, on the live
+               waves' rows only (printed per round). The host time
                of each phase of the rounds is printed; then the kernel and
                its plain version are timed with CUDA events on the inputs
                the round gave the kernel, beside the kernel's bound;
@@ -39,11 +44,13 @@ SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
 SMALL_NODES, SMALL_PODS = 500, 1000
 WAVE = 128
-# H100 SXM peaks (NVIDIA data sheet, as tabled in the on-chip measurement
-# notes): HBM bandwidth, and the non-tensor-core scalar rate, which is
-# the rate the kernel's integer compares run at (at best)
+# H100 SXM HBM bandwidth (NVIDIA data sheet). The kernel's compares and
+# logic are 32-bit integer work: an SM has 64 INT32 lanes a clock (the
+# 128 FP32 lanes, and the 67 TFLOP/s that count an FMA as two, do not
+# apply), so the integer rate is SMs x 64 x the SM clock, read from the
+# card at run time
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
 
 
 def fail(msg: str) -> None:
@@ -190,38 +197,26 @@ def bindings(store) -> dict:
 # --- kernel phase --------------------------------------------------------------
 
 
-def random_kernel_world(torch, enc, P, N, seed, T=4, TL=4, PP=8, PQ=4):
-    """Seeded feature tables at the round's widths: ids drawn from small
-    vocabularies so every branch of both predicates is taken."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    nt = dict(
-        taint_key=rng.randint(0, 5, (N, T)), taint_val=rng.randint(0, 4, (N, T)),
-        taint_effect=rng.randint(0, 4, (N, T)),
-        ports=np.where(rng.rand(N, PP) < 0.3, rng.randint(1, 12, (N, PP)), 0))
-    pb = dict(
-        tol_key=rng.randint(-2, 5, (P, TL)), tol_val=rng.randint(-1, 4, (P, TL)),
-        tol_op=rng.randint(-1, 2, (P, TL)), tol_effect=rng.randint(0, 4, (P, TL)),
-        ports=np.where(rng.rand(P, PQ) < 0.2, rng.randint(1, 12, (P, PQ)), 0))
-    dev = torch.device("cuda")
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
-    ntt = enc.NodeTensors(*[t(nt[f]) if f in nt else None
-                            for f in enc.NodeTensors._fields])
-    pbt = enc.PodBatch(*[t(pb[f]) if f in pb else None
-                         for f in enc.PodBatch._fields])
-    return ntt, pbt
+def int_ops_per_s(torch):
+    """(integer ops per second, SMs, SM MHz): SMs x 64 INT32 lanes x the
+    card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm: {smi.stderr.strip()}")
+    mhz = float(smi.stdout.split()[0])
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, sms, mhz
 
 
-def kernel_bound(nt, pb, effects):
-    """(least ms, what bounds it): the bytes the function must move (each
-    input read once, each output written once) over HBM bandwidth, and
-    the integer work these inputs need over the scalar rate. Work per
-    (pod, node): 8 ops per (relevant node taint, live pod toleration)
-    pair, 2 per (live pod port, node port slot)."""
+def kernel_bound(nt, pb, effects, int_rate):
+    """(least ms, what bounds it, bytes, ops): the bytes the function
+    must move (each input read once, each output written once) over HBM
+    bandwidth, and the integer work these inputs need over the card's
+    integer rate. Work: 8 ops per (relevant node taint, live pod
+    toleration) pair, 2 per (live pod port, live node port) pair; a pad
+    slot needs no compare."""
     N, T = nt.taint_key.shape
     PP = nt.ports.shape[1]
     P, TL = pb.tol_key.shape
@@ -230,28 +225,51 @@ def kernel_bound(nt, pb, effects):
     out_bytes = 2 * P * N
     relevant = sum(int((nt.taint_effect == e).sum()) for e in effects)
     live_tol = int((pb.tol_op != -1).sum())
-    live_ports = int((pb.ports > 0).sum())
-    ops = 8 * relevant * live_tol + 2 * PP * N * live_ports
+    node_ports = int((nt.ports > 0).sum())
+    pod_ports = int((pb.ports > 0).sum())
+    ops = 8 * relevant * live_tol + 2 * node_ports * pod_ports
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             in_bytes + out_bytes, ops)
 
 
-def cuda_ms(torch, fn, reps=25, warm=3) -> float:
-    """Median milliseconds of fn over reps runs, CUDA events, after warm-up."""
+def check_kernel(torch, tp, nt, pb, effects, what):
+    """The kernel against its plain version on one world: exact equality
+    of both masks, launched once. Returns the largest |kernel - plain|."""
+    before = tp.taint_ports_masks.launches
+    got = tp.taint_ports_masks(nt, pb, effects=effects)
+    torch.cuda.synchronize()
+    if tp.taint_ports_masks.launches != before + 1:
+        fail(f"the kernel did not launch once ({what})")
+    want = tp.taint_ports_plain(nt, pb, effects)
+    err = 0
+    for g, w, name in zip(got, want, ("taints", "ports")):
+        err = max(err, int((g.to(torch.int32) - w.to(torch.int32))
+                           .abs().max()))
+        if not torch.equal(g, w):
+            fail(f"kernel != plain ({name}, {what})")
+    return err
+
+
+def cuda_ms(torch, fn, reps=25, warm=3, runs=5) -> float:
+    """Device milliseconds of one call of fn: CUDA events around reps
+    calls in a row, divided by reps (so the host's time to issue a call
+    overlaps the device's work on the previous one); the median of runs
+    such runs, after warm-up."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -317,33 +335,50 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log(f"[build]   {line.strip()}")
 
-    # 3. kernel against its plain version at the main path's shapes
+    # 3. kernel against its plain version at the main path's shapes and
+    # at its edges
+    int_rate, sms, mhz = int_ops_per_s(torch)
+    log(f"[kernel] integer rate {int_rate / 1e12:.3f} T ops/s = {sms} SMs x "
+        f"{INT32_LANES_PER_SM} INT32 lanes x {mhz:.0f} MHz (clocks.max.sm)")
     n_bucket = bucket_size(FULL_NODES)
     round_rows = WAVE * 128  # PIPELINE_MAX_WAVES waves of WAVE pods
     effects_all = {"noschedule+noexecute": tp.DEFAULT_EFFECTS,
                    "noexecute": (enc.EFFECT_NO_EXECUTE,)}
     max_err = 0
-    cases = [(WAVE, FULL_NODES), (round_rows, FULL_NODES),
-             (round_rows - 37, FULL_NODES + 3), (round_rows, n_bucket)]
-    for k, (P, N) in enumerate(cases):
-        nt, pb = random_kernel_world(torch, enc, P, N, SEED + k)
+    cases = [(WAVE, FULL_NODES, {}), (round_rows, FULL_NODES, {}),
+             (round_rows - 37, FULL_NODES + 3, {}), (round_rows, n_bucket, {}),
+             (1000, FULL_NODES, dict(tolerations="none")),
+             (1000, FULL_NODES, dict(tolerations="all", TL=8, PQ=8,
+                                     port_rate=0.9)),
+             (1000, FULL_NODES, dict(port_rate=0.0))]
+    cases += [(P, N, kw) for P, N, kw in tp.EDGE_TABLES]
+    for k, (P, N, kw) in enumerate(cases):
+        nt, pb = tp.random_tables(P, N, SEED + k, **kw)
         for ename, eff in effects_all.items():
-            got = tp.taint_ports_masks(nt, pb, effects=eff)
-            torch.cuda.synchronize()
-            want = tp.taint_ports_plain(nt, pb, eff)
-            for g, w, what in zip(got, want, ("taints", "ports")):
-                err = int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
-                max_err = max(max_err, err)
-                if err != 0 or not torch.equal(g, w):
-                    fail(f"kernel != plain ({what}, P={P}, N={N}, {ename})")
-        log(f"[kernel] P={P} N={N}: kernel == plain (both effect sets)")
-    # the same shape with dense tolerations: the kernel's worst case
-    nt, pb = random_kernel_world(torch, enc, round_rows, n_bucket, SEED)
-    dense_ms = cuda_ms(torch, lambda: tp.taint_ports_masks(nt, pb))
-    dense_bound = kernel_bound(nt, pb, tp.DEFAULT_EFFECTS)[0]
-    log(f"[kernel] dense random world P={round_rows} N={n_bucket}: kernel "
-        f"{dense_ms:.4f} ms, bound {dense_bound:.4f} ms")
-    del nt, pb
+            max_err = max(max_err, check_kernel(
+                torch, tp, nt, pb, eff, f"P={P}, N={N}, {kw}, {ename}"))
+        plan = tp.launch_plan(nt, pb)
+        log(f"[kernel] P={P} N={N} {kw or ''}: kernel == plain (both effect "
+            f"sets; grid {plan['grid']}, block {plan['block']})")
+    # the round's shape three ways: dense tolerations and ports (the most
+    # compare work), no toleration and no port (the store path alone),
+    # and a plain fill of the same two outputs (the card's write rate)
+    for name, kw in (("dense", {}),
+                     ("store-only", dict(tolerations="none", port_rate=0.0))):
+        nt, pb = tp.random_tables(round_rows, n_bucket, SEED, **kw)
+        ms = cuda_ms(torch, lambda: tp.taint_ports_masks(nt, pb))
+        b_ms, b_by, nbytes, nops = kernel_bound(nt, pb, tp.DEFAULT_EFFECTS,
+                                                int_rate)
+        log(f"[kernel] {name} random world P={round_rows} N={n_bucket}: "
+            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+            f"{nops} ops)")
+    outs = [torch.empty((round_rows, n_bucket), dtype=torch.bool,
+                        device="cuda") for _ in range(2)]
+    fill_ms = cuda_ms(torch, lambda: [o.fill_(True) for o in outs])
+    log(f"[kernel] fill of the two [{round_rows}, {n_bucket}] outputs: "
+        f"{fill_ms:.4f} ms = {2 * round_rows * n_bucket / fill_ms / 1e9:.3f} "
+        "TB/s")
+    del nt, pb, outs
 
     # 4. the main path at full size
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
@@ -362,16 +397,27 @@ def main() -> None:
                                           sync)
     sched._commit = clock.wrap("commit", sched._commit)
     captured = []
+    rounds = []  # (live rows, launched rows) of each round
     kernel_launch = kernel_mod.taint_ports_masks
 
     def capture(nt_, pb_, **kw):
         if not captured:
             captured.append((nt_, pb_))
+        rounds[-1][1] += pb_.tol_key.shape[0]
         return kernel_launch(nt_, pb_, **kw)
 
     kernel_mod.taint_ports_masks = capture
     round_fn = sched_mod.schedule_round
-    sched_mod.schedule_round = clock.wrap("device_round", round_fn, sync)
+    timed_round = clock.wrap("device_round", round_fn, sync)
+
+    def counted_round(nt_, pm_, tt_, pbs, *args, **kw):
+        # the waves up to the last live one are the round's live rows
+        active = pbs.valid.any(dim=1).tolist()
+        n_live = max((i + 1 for i, a in enumerate(active) if a), default=0)
+        rounds.append([n_live * pbs.valid.shape[1], 0])
+        return timed_round(nt_, pm_, tt_, pbs, *args, **kw)
+
+    sched_mod.schedule_round = counted_round
     tp.taint_ports_masks.launches = 0
     t0 = time.monotonic()
     placed = sched.schedule_pending()
@@ -389,6 +435,11 @@ def main() -> None:
         fail(f"only {placed} of {FULL_PODS} pods placed")
     kernel_mod.taint_ports_masks = kernel_launch
     sched_mod.schedule_round = round_fn
+    for i, (live, launched) in enumerate(rounds):
+        log(f"[round] round {i}: live rows {live}, launched rows {launched}")
+        if launched != live:
+            fail(f"round {i} launched the kernel on {launched} rows, not on "
+                 f"its {live} live rows")
     log(f"[round] {FULL_NODES} nodes, {FULL_PODS} pods: placed {placed} in "
         f"{wall:.3f} s = {placed / wall:.1f} pods/s; kernel launches "
         f"{launches}; invariants hold")
@@ -408,15 +459,25 @@ def main() -> None:
         if not torch.equal(g, w):
             fail("kernel != plain on the round's inputs")
     k_ms = cuda_ms(torch, lambda: tp.taint_ports_masks(nt, pb))
-    p_ms = cuda_ms(torch, lambda: tp.taint_ports_plain(nt, pb), reps=5)
+    p_ms = cuda_ms(torch, lambda: tp.taint_ports_plain(nt, pb), reps=3,
+                   runs=3)
     k_ms2 = cuda_ms(torch, lambda: tp.taint_ports_masks(nt, pb))
     bound_ms, bound_by, nbytes, nops = kernel_bound(nt, pb,
-                                                     tp.DEFAULT_EFFECTS)
+                                                     tp.DEFAULT_EFFECTS,
+                                                     int_rate)
     P, N = pb.tol_key.shape[0], nt.taint_key.shape[0]
+    dims = (nt.taint_key.shape[1], pb.tol_key.shape[1], nt.ports.shape[1],
+            pb.ports.shape[1])
+    plan = tp.launch_plan(nt, pb)
+    log(f"[kernel] round inputs (T, TL, PP, PQ) = {dims}: grid "
+        f"{plan['grid']} blocks of {plan['block']} threads, "
+        f"{plan['shared_bytes']} B of shared memory a block, "
+        f"{plan['blocks_per_sm']} blocks an SM")
     log(f"[kernel] round inputs P={P} N={N}: kernel == plain; kernel "
         f"{k_ms:.4f} / {k_ms2:.4f} ms, plain {p_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops); no single "
-        "PyTorch call computes this function, so no library time")
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops), "
+        f"{bound_ms / k_ms:.1%} of bound; no single PyTorch call computes "
+        "this function, so no library time")
     del nt, pb, captured, got, want
 
     # 5. card against CPU on the reduced world

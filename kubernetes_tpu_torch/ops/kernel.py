@@ -321,17 +321,17 @@ def _stage_placements(pm: enc.PodMatrix, tt: enc.TermTable, chosen,
     return pm2, tt2
 
 
-def _flat_taint_ports(nt: enc.NodeTensors, pbs: enc.PodBatch):
-    """One taint/port kernel launch over every wave's pod rows: [W*P]
-    flattened rows in, (taints, ports) bool [W, P, N] out. At full
-    width the two outputs are 2 * W*P * N bytes — 128 waves of 128 pods
-    against an 8192-node bucket is 268 MB — so the round does not
-    chunk them."""
-    W, P = pbs.req.shape[:2]
+def _flat_taint_ports(nt: enc.NodeTensors, pbs: enc.PodBatch, W: int):
+    """One taint/port kernel launch over the pod rows of the first W
+    waves: [W*P] flattened rows in, (taints, ports) bool [W, P, N] out.
+    At full width the two outputs are 2 * W*P * N bytes — 128 waves of
+    128 pods against an 8192-node bucket is 268 MB — so the round does
+    not chunk them."""
+    P = pbs.req.shape[1]
     N = nt.valid.shape[0]
 
     def flat(a):
-        return a.reshape(W * P, -1)
+        return a[:W].reshape(W * P, -1)
 
     flat_pb = pbs._replace(
         req=flat(pbs.req), tol_key=flat(pbs.tol_key),
@@ -355,10 +355,12 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     valid=False rows and schedule nothing). pm_rows [W, P] / term_rows
     [W, P, TPP]: pre-staged row ids (-1 pads).
 
-    The taint/port masks of EVERY wave come from one kernel launch
+    The taint/port masks of every live wave come from one kernel launch
     before the wave loop (the JAX round hoists its Pallas call the same
-    way). Pad waves skip the wave body. Which waves are live is read on
-    the host once, from the stacked inputs, before any wave is queued.
+    way). Which waves are live is read on the host once, from the
+    stacked inputs, before any wave is queued; pad waves (the bucket's
+    trailing ones) skip the wave body, and the launch covers the waves
+    up to the last live one only, since no pad wave reads its masks.
 
     Returns (chosen [W, P], fail_counts [W, Q, P], usage', rr_end, deco,
     finite [W, P]); deco is None (collect_scores is a later slice)."""
@@ -372,7 +374,9 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     Q = len(enc.MASK_STACK_NAMES)
     ones = torch.ones((P, N), dtype=torch.bool, device=dev)
     active = pbs.valid.any(dim=1).tolist()
-    taints_all, ports_all = _flat_taint_ports(nt, pbs)
+    n_live = max((wi + 1 for wi, a in enumerate(active) if a), default=0)
+    if n_live:
+        taints_all, ports_all = _flat_taint_ports(nt, pbs, n_live)
 
     pm_c, tt_c = pm, tt
     usage_c = tuple(usage)

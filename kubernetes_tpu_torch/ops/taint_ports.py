@@ -28,6 +28,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from . import encoding as enc
@@ -38,14 +39,10 @@ DEFAULT_EFFECTS = (enc.EFFECT_NO_SCHEDULE, enc.EFFECT_NO_EXECUTE)
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "taint_ports.cu"
 BUILD_DIR = _PKG / "_build"
-# the kernel keeps a node's taint triples and port slots in registers,
-# sized by template instantiation: these are the largest it was built for
+# the largest taint and port slot counts per node the kernel is held to
+# its plain version at (its per-node counts are 8-bit fields)
 MAX_TAINTS = 16
 MAX_NODE_PORTS = 64
-# pods per block (one grid row each) and its CUDA grid-dimension limit
-_PODS_PER_BLOCK = 32
-_MAX_GRID_Y = 65535
-_SHARED_LIMIT = 48 * 1024
 
 
 # --- plain versions (reference: kubernetes_tpu/ops/filters.py :46, :102) ----
@@ -106,6 +103,66 @@ def taint_ports_plain(nt: NodeTensors, pb: PodBatch,
     return tolerates_taints(nt, pb, effects), host_ports(nt, pb)
 
 
+# Seeded feature tables at the kernel's edges, as (P pod rows, N nodes,
+# random_tables keyword arguments): N < 16 and N not a multiple of 16
+# (unaligned rows, ragged node edge), P not a multiple of the 64-row pod
+# chunk and several chunks to a node tile, the largest taint and port
+# slot counts, every toleration dead, every toleration live with more
+# live entries than a row keeps in registers, and no pod port.
+EDGE_TABLES = (
+    (45, 7, {}),
+    (77, 37, {}),
+    (300, 48, {}),
+    (33, 1000, dict(T=MAX_TAINTS, PP=MAX_NODE_PORTS)),
+    (70, 531, dict(tolerations="none")),
+    (70, 531, dict(tolerations="all", TL=8, PQ=8, port_rate=0.9)),
+    (64, 200, dict(port_rate=0.0)),
+)
+
+
+def random_tables(P: int, N: int, seed: int, *, T: int = 4, TL: int = 4,
+                  PP: int = 8, PQ: int = 4, tolerations: str = "mixed",
+                  port_rate: float = 0.2, device="cuda"):
+    """Seeded feature tables for holding the kernel to its plain version:
+    (NodeTensors, PodBatch) with only the taint, toleration and port
+    fields set. Ids come from small vocabularies so both outcomes of
+    every compare occur; pad slots sit anywhere in a row.
+
+    tolerations: "mixed" (about 2/3 of the slots live), "none" (every
+    slot a pad) or "all" (every slot live). port_rate: the share of a
+    pod's port slots that ask for a port (0: none do)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    nt = dict(
+        taint_key=rng.randint(0, 5, (N, T)),
+        taint_val=rng.randint(0, 4, (N, T)),
+        taint_effect=rng.randint(0, 4, (N, T)),
+        ports=np.where(rng.rand(N, PP) < 0.3, rng.randint(1, 12, (N, PP)),
+                       0))
+    pb = dict(
+        tol_key=rng.randint(-2, 5, (P, TL)),
+        tol_val=rng.randint(-1, 4, (P, TL)),
+        tol_op=rng.randint(enc.TOL_PAD, enc.TOL_EXISTS + 1, (P, TL)),
+        tol_effect=rng.randint(0, 4, (P, TL)),
+        ports=np.where(rng.rand(P, PQ) < port_rate,
+                       rng.randint(1, 12, (P, PQ)), 0))
+    if tolerations == "none":
+        pb["tol_op"][:] = enc.TOL_PAD
+    elif tolerations == "all":
+        pb["tol_op"][pb["tol_op"] == enc.TOL_PAD] = enc.TOL_EQUAL
+    elif tolerations != "mixed":
+        raise ValueError(f"tolerations={tolerations!r}")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return (NodeTensors(*[t(nt[f]) if f in nt else None
+                          for f in NodeTensors._fields]),
+            PodBatch(*[t(pb[f]) if f in pb else None
+                       for f in PodBatch._fields]))
+
+
 # --- build -----------------------------------------------------------------
 
 _LOCK = threading.Lock()
@@ -156,6 +213,10 @@ def build() -> ctypes.CDLL:
         lib.ktt_taint_ports.argtypes = (
             [ptr] * 11 + [ctypes.c_int] * 6 + [ctypes.c_uint, ptr])
         lib.ktt_taint_ports.restype = ctypes.c_int
+        lib.ktt_block_width.argtypes = [ctypes.c_int] * 4
+        lib.ktt_block_width.restype = ctypes.c_int
+        lib.ktt_launch_plan.argtypes = [ctypes.c_int] * 6 + [ptr]
+        lib.ktt_launch_plan.restype = ctypes.c_int
         lib.ktt_error_string.argtypes = [ctypes.c_int]
         lib.ktt_error_string.restype = ctypes.c_char_p
         build_info.update(seconds=time.monotonic() - t0, log=log,
@@ -165,6 +226,22 @@ def build() -> ctypes.CDLL:
 
 
 # --- the wrapper -----------------------------------------------------------
+
+
+def launch_plan(nt: NodeTensors, pb: PodBatch) -> dict:
+    """The launch taint_ports_masks makes for these tables: grid and
+    block shape, shared memory a block and blocks an SM. Builds the
+    kernel and needs a card."""
+    N, T = nt.taint_key.shape
+    P, TL = pb.tol_key.shape
+    out = (ctypes.c_int * 6)()
+    err = build().ktt_launch_plan(P, N, T, TL, nt.ports.shape[1],
+                                  pb.ports.shape[1], out)
+    if err != 0:
+        raise RuntimeError("taint_ports kernel has no launch for these "
+                           f"tables: {build().ktt_error_string(err).decode()}")
+    return dict(grid=(out[0], out[1]), block=(out[2], out[3]),
+                shared_bytes=out[4], blocks_per_sm=out[5])
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -216,12 +293,8 @@ def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
         raise ValueError(
             f"taint_ports kernel is built for at most {MAX_TAINTS} taint "
             f"and {MAX_NODE_PORTS} port slots per node, got T={T}, PP={PP}")
-    if -(-P // _PODS_PER_BLOCK) > _MAX_GRID_Y:
-        raise ValueError(f"taint_ports kernel: P={P} pod rows exceed the "
-                         "grid limit")
-    if _PODS_PER_BLOCK * (4 * TL + PQ) * 4 > _SHARED_LIMIT:
-        raise ValueError(f"taint_ports kernel: TL={TL}, PQ={PQ} need more "
-                         "shared memory than a block gets by default")
+    if max(P, N) >= 2**31:
+        raise ValueError(f"taint_ports kernel: P={P}, N={N} exceed int32")
     eff_mask = 0
     for e in effects:
         if not 0 <= int(e) < 32:
@@ -232,6 +305,10 @@ def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
     if P == 0 or N == 0:
         return taints, ports
     lib = build()
+    if lib.ktt_block_width(T, PP, TL, PQ) == 0:
+        raise ValueError(f"taint_ports kernel: T={T}, PP={PP}, TL={TL}, "
+                         f"PQ={PQ} need more shared memory than a block "
+                         "can have")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ktt_taint_ports(
         *[t.data_ptr() for _, t in named], taints.data_ptr(),

@@ -23,6 +23,10 @@ pytestmark = pytest.mark.cuda
 EFFECT_SETS = ((tenc.EFFECT_NO_SCHEDULE, tenc.EFFECT_NO_EXECUTE),
                (tenc.EFFECT_NO_EXECUTE,))
 SHAPES = [(0, 23, 11), (1, 37, 29), (2, 5, 3), (3, 261, 145)]
+# featurized worlds (seed, nodes, pending pods), then the kernel's edges
+# as seeded feature tables (P, N, random_tables arguments)
+CASES = ([("world", shape) for shape in SHAPES]
+         + [("tables", edge) for edge in ttp.EDGE_TABLES])
 
 
 @pytest.fixture
@@ -32,11 +36,23 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("seed,n_nodes,n_pending", SHAPES)
-def test_kernel_matches_plain_on_card(cuda, seed, n_nodes, n_pending):
-    snap, pb, _ = op_world("kubernetes_tpu_torch", seed, n_nodes=n_nodes,
-                           n_pending=n_pending)
-    nt, pb = tenc.to_torch(snap.node_tensors(), None, None, pb, cuda)[::3]
+@pytest.mark.parametrize("kind,case", CASES,
+                         ids=[f"{k}{i}" for i, (k, _) in enumerate(CASES)])
+def test_kernel_matches_plain_on_card(cuda, kind, case):
+    if kind == "world":
+        seed, n_nodes, n_pending = case
+        snap, pb, _ = op_world("kubernetes_tpu_torch", seed,
+                               n_nodes=n_nodes, n_pending=n_pending)
+        nt, pb = tenc.to_torch(snap.node_tensors(), None, None, pb,
+                               cuda)[::3]
+    else:
+        P, N, kw = case
+        nt, pb = ttp.random_tables(P, N, seed=P + N, device=cuda, **kw)
+    plan = ttp.launch_plan(nt, pb)
+    tx, rows = plan["block"]
+    assert tx in (32, 16) and tx * rows == 256
+    assert plan["grid"][0] == -(-nt.taint_key.shape[0] // (16 * tx))
+    assert plan["blocks_per_sm"] >= 1
     for eff in EFFECT_SETS:
         before = ttp.taint_ports_masks.launches
         got = ttp.taint_ports_masks(nt, pb, effects=eff)

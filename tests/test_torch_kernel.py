@@ -83,10 +83,9 @@ def _round_inputs(seed, wave_sizes):
     return snap, (nt, pm, tt, stacked, rows, trows)
 
 
-@pytest.mark.parametrize("seed,wave_sizes,weights", [
-    (0, (8, 8, 5), "default"), (1, (9, 3), "vector"),
-    (2, (8, 8, 8, 8, 2), "default"), (3, (8, 8, 8, 8, 2), "vector")])
-def test_schedule_round(seed, wave_sizes, weights):
+def _compare_rounds(seed, wave_sizes, weights):
+    """The JAX round and the port's round on the same inputs: every
+    output bit-equal. Returns the stacked pod batch."""
     snap, (nt, pm, tt, pbs, rows, trows) = _round_inputs(seed, wave_sizes)
     W = pbs.req.shape[0]
     assert W > len(wave_sizes)  # the bucket pads with skipped waves
@@ -116,6 +115,36 @@ def test_schedule_round(seed, wave_sizes, weights):
     # the carried usage is a new tensor: the inputs are untouched
     np.testing.assert_array_equal(ntt.requested.numpy(), nt.requested)
     assert (got[0].numpy()[len(wave_sizes):] == -1).all()
+    return pbs
+
+
+@pytest.mark.parametrize("seed,wave_sizes,weights", [
+    (0, (8, 8, 5), "default"), (1, (9, 3), "vector"),
+    (2, (8, 8, 8, 8, 2), "default"), (3, (8, 8, 8, 8, 2), "vector")])
+def test_schedule_round(seed, wave_sizes, weights):
+    _compare_rounds(seed, wave_sizes, weights)
+
+
+@pytest.mark.parametrize("seed,wave_sizes", [(4, (8, 8, 5)),
+                                             (5, (8, 8, 8, 8, 2))])
+def test_round_launches_the_kernel_on_live_waves_only(seed, wave_sizes,
+                                                       monkeypatch):
+    """The trailing pad waves of the bucket get no taint/port rows: the
+    one launch covers the live waves' rows, and the round's outputs
+    still equal the JAX round's."""
+    launched = []
+    launch = tk.taint_ports_masks
+
+    def counting(nt, pb, **kw):
+        launched.append(pb.tol_key.shape[0])
+        return launch(nt, pb, **kw)
+
+    monkeypatch.setattr(tk, "taint_ports_masks", counting)
+    pbs = _compare_rounds(seed, wave_sizes, "default")
+    W, P = pbs.req.shape[:2]
+    live = int(np.asarray(pbs.valid).any(axis=1).sum())
+    assert live == len(wave_sizes) < W
+    assert launched == [live * P]
 
 
 def test_stage_placements_drops_pad_entries():

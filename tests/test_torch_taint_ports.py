@@ -55,6 +55,25 @@ def test_plain_matches_pallas_and_xla(seed, n_nodes, n_pending, effects):
     assert want_t.any() and not want_t.all()
 
 
+@pytest.mark.parametrize("effects", sorted(EFFECT_SETS))
+@pytest.mark.parametrize("edge", range(len(ttp.EDGE_TABLES)))
+def test_plain_matches_pallas_on_edge_tables(edge, effects):
+    """The seeded feature tables that hold the CUDA kernel to its plain
+    version at its edges (test_torch_cuda.py, chip_smoke.py): there the
+    plain version equals the Pallas kernel too."""
+    P, N, kw = ttp.EDGE_TABLES[edge]
+    eff = EFFECT_SETS[effects]
+    nt, pb = ttp.random_tables(P, N, seed=P + N, device="cpu", **kw)
+    np_nt = jenc.NodeTensors(*[None if t is None else t.numpy()
+                               for t in nt])
+    np_pb = jenc.PodBatch(*[None if t is None else t.numpy() for t in pb])
+    want_t, want_p = jax_masks(np_nt, np_pb, effects=eff, interpret=True)
+    got_t, got_p = ttp.taint_ports_masks(nt, pb, effects=eff)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    assert tuple(got_t.shape) == (P, N)
+
+
 def test_cpu_tensors_take_the_plain_version_uncounted():
     nt, pb = _world(4, 17, 9)
     ntt, _, _, pbt = tenc.to_torch(nt, None, None, pb, "cpu")
