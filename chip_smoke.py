@@ -12,20 +12,43 @@ Phases (any failure exits non-zero and prints no result line):
                then timed on a dense world, on a world with no toleration
                and no port (its store path alone), and beside a plain
                fill of the same two outputs (the card's write rate);
-  4. round   — the main path at full size: Scheduler(store,
+  4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
                30 000-pod backlog; the store's bindings must respect every
                resource, taint, host-port and nodeSelector constraint, and
                the kernel must have launched during the run, on the live
                waves' rows only (printed per round). The host time
-               of each phase of the rounds is printed; then the kernel and
-               its plain version are timed with CUDA events on the inputs
-               the round gave the kernel, beside the kernel's bound;
-  5. parity  — a reduced world of the same shape (500 nodes, 1 000 pods,
-               same seed) scheduled on the card and on the CPU: identical
-               bindings.
-Then it prints the kernel table as one JSON line, the card's name and
-power limit, and last {"ok": true, "device": {...}}.
+               of each phase of the rounds is printed; then the kernel is
+               held against its plain version on a copy of the inputs the
+               rounds gave it (one of each row count; exact equality), as
+               it is after phases 6 and 7, and timed with its plain
+               version by CUDA events on the first round's, beside the
+               kernel's bound;
+  5. parity  — reduced worlds of the density, mixed and spread shapes
+               (500 nodes, 1 000 pods, same seed) scheduled on the card and
+               on the CPU: identical bindings;
+  6. mixed   — bench.py's mixed5k shape at full width: 5 000 nodes with
+               node-affinity labels, 30 000 pods in four quarters (density,
+               required node affinity, service spreading, required hostname
+               anti-affinity in 50 groups). Every placement invariant
+               holds (resources, node affinity, no two pods of one
+               anti-group on a node), every round runs at most 64 waves
+               and launches the kernel on its live rows only, and at least
+               one round runs with inter-pod affinity. Printed: pods/s,
+               host seconds by phase, each round's has_ipa, waves and
+               device_round seconds, ms per pod with and without ipa, the
+               implicit host syncs of one ipa round (that round is left
+               out of the per-pod and per-wave times), and
+               incoming_statics timed on one full-width wave;
+  7. spread  — 5 000 nodes and 10 000 pods of 20 Deployments, each pod
+               with a hard zone spread (maxSkew 1) and a soft hostname
+               spread: every Deployment's zone counts differ by at most 1,
+               every round runs with topology spread; the same timing
+               lines, and topo_statics timed on one full-width wave.
+Each drain sets the kernel's launch count to 0 before it and reads it
+after. Then it prints the kernel table as one JSON line (launches of
+every drain), the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 
 It needs the kubernetes_tpu_torch package beside it, and a CUDA card.
 """
@@ -37,13 +60,19 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
+SPREAD_PODS, SPREAD_APPS = 10000, 20
 SMALL_NODES, SMALL_PODS = 500, 1000
 WAVE = 128
+# the round's wave cap with inter-pod affinity (sched/scheduler.py)
+IPA_MAX_WAVES = 64
+ZONE = "failure-domain.beta.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
 # H100 SXM HBM bandwidth (NVIDIA data sheet). The kernel's compares and
 # logic are 32-bit integer work: an SM has 64 INT32 lanes a clock (the
 # 128 FP32 lanes, and the 67 TFLOP/s that count an FMA as two, do not
@@ -51,6 +80,9 @@ WAVE = 128
 # card at run time
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+# the fields of the node and pod tensors that taint_ports_masks reads
+KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
+KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
 
 def fail(msg: str) -> None:
@@ -90,8 +122,7 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
             port_nodes.append(f"node-{i}")
         store.create("nodes", api.Node(
             metadata=api.ObjectMeta(name=f"node-{i}", labels={
-                "failure-domain.beta.kubernetes.io/zone": f"zone-{i % 3}",
-                "kubernetes.io/hostname": f"node-{i}"}),
+                ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"}),
             spec=api.NodeSpec(taints=taints),
             status=api.NodeStatus(
                 allocatable=api.resource_list(cpu="16", memory="32Gi",
@@ -120,8 +151,7 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
                     uid="rc-density", controller=True)]),
             spec=api.PodSpec(
                 node_name=node_name,
-                node_selector=({"failure-domain.beta.kubernetes.io/zone":
-                                zone} if zone else {}),
+                node_selector=({ZONE: zone} if zone else {}),
                 tolerations=tolerations,
                 containers=[api.Container(
                     resources=api.ResourceRequirements(
@@ -139,16 +169,134 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
     return store, len(port_nodes)
 
 
-def scheduler_caps(enc, bucket_size, n_nodes, n_pods, n_bound):
+def add_plain_nodes(api, store, n_nodes: int, affinity_labels: int = 0):
+    """bench.py build_cluster: 3 zones, 16 CPU, 32Gi, 110 pods a node, and
+    with affinity_labels one of K `aff-{i % K}=yes` labels a node."""
+    for i in range(n_nodes):
+        labels = {ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"}
+        if affinity_labels:
+            labels[f"aff-{i % affinity_labels}"] = "yes"
+        store.create("nodes", api.Node(
+            metadata=api.ObjectMeta(name=f"node-{i}", labels=labels),
+            status=api.NodeStatus(
+                allocatable=api.resource_list(cpu="16", memory="32Gi",
+                                              pods=110,
+                                              ephemeral_storage="200Gi"),
+                conditions=[api.NodeCondition(api.NODE_READY,
+                                              api.COND_TRUE)])))
+
+
+def build_mixed(api, lbl, store_mod, n_nodes: int, n_pods: int):
+    """bench.py's `mixed` workload (make_pods "mixed" over build_cluster
+    with affinity_labels=10), rebuilt here without the JAX package: four
+    quarters of 100m / 128Mi pods, created in this order — density;
+    required node affinity `aff-{i % 10} In (yes)`; spreading over 10
+    services `svc=s{i % 10}`; required anti-affinity on the hostname
+    within 50 groups `anti-group=g{i % 50}` (the last quarter takes the
+    remainder). Returns (store, 0 bound pods)."""
+    store = store_mod.ObjectStore()
+    add_plain_nodes(api, store, n_nodes, affinity_labels=10)
+    for s in range(10):
+        store.create("services", api.Service(
+            metadata=api.ObjectMeta(name=f"svc-{s}"),
+            spec=api.ServiceSpec(selector={"svc": f"s{s}"})))
+
+    def pod(name, prefix, labels=None, affinity=None):
+        return api.Pod(
+            metadata=api.ObjectMeta(
+                name=name, labels=labels or {"type": prefix},
+                owner_references=[api.OwnerReference(
+                    kind="ReplicationController", name=prefix,
+                    uid=f"rc-{prefix}", controller=True)]),
+            spec=api.PodSpec(affinity=affinity, containers=[api.Container(
+                resources=api.ResourceRequirements(
+                    requests=api.resource_list(cpu="100m",
+                                               memory="128Mi")))]))
+
+    quarter = n_pods // 4
+    for wl in ("density", "affinity", "spreading", "antiaffinity"):
+        prefix = f"{wl}-pod"
+        for i in range(quarter if wl != "antiaffinity"
+                       else n_pods - 3 * quarter):
+            name = f"{prefix}-{i}"
+            if wl == "density":
+                p = pod(name, prefix)
+            elif wl == "affinity":
+                p = pod(name, prefix, affinity=api.Affinity(
+                    node_affinity=api.NodeAffinity(
+                        required=api.NodeSelector([api.NodeSelectorTerm(
+                            match_expressions=[lbl.Requirement(
+                                f"aff-{i % 10}", "In", ("yes",))])]))))
+            elif wl == "spreading":
+                p = pod(name, prefix, labels={"type": prefix,
+                                              "svc": f"s{i % 10}"})
+            else:
+                group = i % 50
+                p = pod(name, prefix,
+                        labels={"type": prefix, "anti-group": f"g{group}"},
+                        affinity=api.Affinity(
+                            pod_anti_affinity=api.PodAntiAffinity(
+                                required=[api.PodAffinityTerm(
+                                    label_selector=lbl.LabelSelector(
+                                        match_labels={
+                                            "anti-group": f"g{group}"}),
+                                    topology_key=HOSTNAME)])))
+            store.create("pods", p)
+    return store, 0
+
+
+def build_spread(api, lbl, store_mod, n_nodes: int, n_pods: int,
+                 n_apps: int):
+    """Deployments spread evenly across zones as a hard rule and across
+    nodes as a preference: n_apps Deployments `app=d{k}` whose ReplicaSets
+    create their pods one Deployment after another, each pod 100m /
+    128Mi with a zone spread (maxSkew 1, DoNotSchedule) and a hostname
+    spread (maxSkew 1, ScheduleAnyway) on its own app. Nodes as
+    bench.py build_cluster. Returns (store, 0 bound pods)."""
+    store = store_mod.ObjectStore()
+    add_plain_nodes(api, store, n_nodes)
+    per_app = n_pods // n_apps
+    for k in range(n_apps):
+        app = f"d{k}"
+        sel = lbl.LabelSelector(match_labels={"app": app})
+        for i in range(per_app if k < n_apps - 1
+                       else n_pods - per_app * (n_apps - 1)):
+            store.create("pods", api.Pod(
+                metadata=api.ObjectMeta(
+                    name=f"{app}-{i}", labels={"app": app},
+                    owner_references=[api.OwnerReference(
+                        kind="ReplicaSet", name=f"{app}-rs", uid=f"rs-{app}",
+                        controller=True)]),
+                spec=api.PodSpec(
+                    topology_spread_constraints=[
+                        api.TopologySpreadConstraint(
+                            max_skew=1, topology_key=ZONE,
+                            when_unsatisfiable=api.DO_NOT_SCHEDULE,
+                            label_selector=sel),
+                        api.TopologySpreadConstraint(
+                            max_skew=1, topology_key=HOSTNAME,
+                            when_unsatisfiable=api.SCHEDULE_ANYWAY,
+                            label_selector=sel)],
+                    containers=[api.Container(
+                        resources=api.ResourceRequirements(
+                            requests=api.resource_list(
+                                cpu="100m", memory="128Mi")))])))
+    return store, 0
+
+
+def scheduler_caps(enc, bucket_size, n_nodes, n_pods, n_bound, n_terms=0):
     """Pre-sized as bench.py run_config does, so no capacity grows (and
-    no shape changes) mid-run."""
+    no shape changes) mid-run: E holds one term row per anti-affinity
+    pod."""
     return enc.Caps(M=bucket_size(n_pods + n_bound + 64), P=WAVE,
+                    E=bucket_size(n_terms + 64) if n_terms else 8,
                     LV=bucket_size(n_nodes + 256, 64))
 
 
 def check_bindings(api, store) -> int:
-    """The invariants of a placement, read back from the store. Returns
-    the number of bound pods."""
+    """The invariants of a placement, read back from the store: taints,
+    nodeSelector and required node affinity, host ports, resources and
+    pod counts. Returns the number of bound pods."""
     nodes = {n.metadata.name: n for n in store.list("nodes")}
     used = {}
     bound = 0
@@ -165,11 +313,9 @@ def check_bindings(api, store) -> int:
                     api.tolerations_tolerate_taint(p.spec.tolerations, taint):
                 fail(f"{p.metadata.name} on {name} does not tolerate "
                      f"{taint}")
-        labels = node.metadata.labels or {}
-        for k, v in (p.spec.node_selector or {}).items():
-            if labels.get(k) != v:
-                fail(f"{p.metadata.name} on {name} misses nodeSelector "
-                     f"{k}={v}")
+        if not api.pod_matches_node_selector(p, node):
+            fail(f"{p.metadata.name} on {name} misses its nodeSelector or "
+                 "required node affinity")
         u = used.setdefault(name, {"cpu": 0, "memory": 0, "pods": 0,
                                    "ports": set()})
         req = api.get_resource_request(p)
@@ -188,6 +334,51 @@ def check_bindings(api, store) -> int:
                 fail(f"{name} over-committed on {res}: {u[res]} > "
                      f"{alloc.get(res, 0)}")
     return bound
+
+
+def check_anti_affinity(store) -> int:
+    """No bound pod shares a topology domain with a pod its required
+    anti-affinity terms select (in the terms' namespaces). Returns the
+    number of bound pods carrying such terms."""
+    node_labels = {n.metadata.name: n.metadata.labels or {}
+                   for n in store.list("nodes")}
+    bound = [p for p in store.list("pods") if p.spec.node_name]
+    by_domain = {}
+    for p in bound:
+        for key, value in node_labels[p.spec.node_name].items():
+            by_domain.setdefault((key, value), []).append(p)
+    checked = 0
+    for p in bound:
+        aff = p.spec.affinity
+        if aff is None or aff.pod_anti_affinity is None:
+            continue
+        checked += 1
+        for term in aff.pod_anti_affinity.required:
+            value = node_labels[p.spec.node_name].get(term.topology_key)
+            if value is None:
+                continue
+            namespaces = set(term.namespaces) or {p.namespace}
+            for q in by_domain[(term.topology_key, value)]:
+                if q is not p and q.namespace in namespaces and \
+                        term.label_selector.matches(q.metadata.labels):
+                    fail(f"{p.metadata.name} and {q.metadata.name} share "
+                         f"{term.topology_key}={value} against "
+                         f"{p.metadata.name}'s anti-affinity")
+    return checked
+
+
+def zone_counts(store) -> dict:
+    """app -> {zone: bound pods of the app}."""
+    zone_of = {n.metadata.name: n.metadata.labels[ZONE]
+               for n in store.list("nodes")}
+    zones = sorted(set(zone_of.values()))
+    out = {}
+    for p in store.list("pods"):
+        if p.spec.node_name:
+            c = out.setdefault(p.metadata.labels["app"],
+                               dict.fromkeys(zones, 0))
+            c[zone_of[p.spec.node_name]] += 1
+    return out
 
 
 def bindings(store) -> dict:
@@ -252,6 +443,19 @@ def check_kernel(torch, tp, nt, pb, effects, what):
     return err
 
 
+def check_captured(torch, tp, name, captured):
+    """The kernel against its plain version on the inputs each drain's
+    rounds gave it, one of each row count: exact equality of both masks.
+    Returns the largest |kernel - plain|."""
+    err = 0
+    for rows, (nt, pb) in captured.items():
+        err = max(err, check_kernel(torch, tp, nt, pb, tp.DEFAULT_EFFECTS,
+                                    f"{name} round inputs, P={rows}"))
+        log(f"[{name}] kernel == plain on the round's inputs P={rows} "
+            f"N={nt.taint_key.shape[0]}")
+    return err
+
+
 def cuda_ms(torch, fn, reps=25, warm=3, runs=5) -> float:
     """Device milliseconds of one call of fn: CUDA events around reps
     calls in a row, divided by reps (so the host's time to issue a call
@@ -295,6 +499,167 @@ class PhaseClock:
         return timed
 
 
+# --- drains ----------------------------------------------------------------------
+
+
+def drain(torch, mods, name, store, caps, n_bound, statics=None,
+          sync_probe=False):
+    """One Scheduler(store, device="cuda").schedule_pending(), watched:
+    the kernel's launch count is set to 0 just before and read just
+    after; every round's live and launched kernel rows, waves, pods,
+    has_ipa / has_ts and device_round seconds are recorded; the host
+    seconds of each phase are summed. statics names the statics function
+    of ops/kernel.py whose first call's arguments are kept for timing;
+    sync_probe counts the implicit host syncs of the first ipa round
+    (torch.cuda.set_sync_debug_mode("warn")); that round's seconds go to
+    a phase of their own and into no per-pod or per-wave time, since the
+    warnings it records cost time of their own. The bindings must hold
+    every invariant of check_bindings, every round must launch the
+    kernel on its live rows only, and the scheduler must report the
+    card. Returns a dict of what was seen."""
+    api, tp, kernel_mod, sched_mod, Scheduler = mods
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda")
+    clock = PhaseClock()
+    sync = torch.cuda.synchronize
+    sched.featurizer.featurize = clock.wrap("featurize",
+                                            sched.featurizer.featurize)
+    sched.snapshot.stage_pending = clock.wrap("stage",
+                                              sched.snapshot.stage_pending)
+    sched.snapshot.to_device = clock.wrap("upload", sched.snapshot.to_device,
+                                          sync)
+    sched._commit = clock.wrap("commit", sched._commit)
+    seen = {"rounds": [], "captured": {}, "statics_args": None,
+            "syncs": None}
+    kernel_launch = kernel_mod.taint_ports_masks
+    round_fn = sched_mod.schedule_round
+    statics_fn = getattr(kernel_mod, statics) if statics else None
+
+    def capture(nt_, pb_, **kw):
+        # a copy of the first inputs of each row count the rounds gave
+        # the kernel (the node tensors are updated in place later)
+        if pb_.tol_key.shape[0] not in seen["captured"]:
+            seen["captured"][pb_.tol_key.shape[0]] = (
+                nt_._replace(**{f: getattr(nt_, f).clone()
+                                for f in KERNEL_NODE_FIELDS}),
+                pb_._replace(**{f: getattr(pb_, f).clone()
+                                for f in KERNEL_POD_FIELDS}))
+        seen["rounds"][-1]["launched"] += pb_.tol_key.shape[0]
+        return kernel_launch(nt_, pb_, **kw)
+
+    def capture_statics(*args):
+        if seen["statics_args"] is None:
+            seen["statics_args"] = args
+        return statics_fn(*args)
+
+    def counted_round(nt_, pm_, tt_, pbs, *args, **kw):
+        # the waves up to the last live one are the round's live rows
+        active = pbs.valid.any(dim=1).tolist()
+        n_live = max((i + 1 for i, a in enumerate(active) if a), default=0)
+        rec = {"live": n_live * pbs.valid.shape[1], "launched": 0,
+               "waves": n_live, "W": pbs.valid.shape[0],
+               "pods": int(pbs.valid.sum()),
+               "has_ipa": bool(kw.get("has_ipa")),
+               "has_ts": bool(pbs.ts_valid.any()), "probed": False}
+        seen["rounds"].append(rec)
+        probe = sync_probe and rec["has_ipa"] and seen["syncs"] is None
+        rec["probed"] = probe
+        t0 = time.monotonic()
+        if probe:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = round_fn(nt_, pm_, tt_, pbs, *args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            # (file:line -> count) of the Python lines that synced
+            seen["syncs"] = {}
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    where = f"{Path(w.filename).name}:{w.lineno}"
+                    seen["syncs"][where] = seen["syncs"].get(where, 0) + 1
+        else:
+            out = round_fn(nt_, pm_, tt_, pbs, *args, **kw)
+        sync()
+        rec["seconds"] = time.monotonic() - t0
+        phase = "sync_probe_round" if probe else "device_round"
+        clock.seconds[phase] = clock.seconds.get(phase, 0.0) + rec["seconds"]
+        return out
+
+    kernel_mod.taint_ports_masks = capture
+    sched_mod.schedule_round = counted_round
+    if statics:
+        setattr(kernel_mod, statics, capture_statics)
+    tp.taint_ports_masks.launches = 0
+    try:
+        t0 = time.monotonic()
+        placed = sched.schedule_pending()
+        sync()
+        wall = time.monotonic() - t0
+        launches = tp.taint_ports_masks.launches
+    finally:
+        kernel_mod.taint_ports_masks = kernel_launch
+        sched_mod.schedule_round = round_fn
+        if statics:
+            setattr(kernel_mod, statics, statics_fn)
+    if launches < 1:
+        fail(f"{name}: the rounds never launched the taint/port kernel")
+    if sched.wave_path() != "cuda":
+        fail(f"{name}: wave_path() is {sched.wave_path()!r}, expected "
+             "'cuda'")
+    bound = check_bindings(api, store)
+    if bound != placed + n_bound:
+        fail(f"{name}: store holds {bound} bound pods, expected "
+             f"{placed + n_bound}")
+    for i, r in enumerate(seen["rounds"]):
+        log(f"[{name}] round {i}: pods {r['pods']}, waves {r['waves']} "
+            f"(bucket {r['W']}), has_ipa {r['has_ipa']}, has_ts "
+            f"{r['has_ts']}, device_round {r['seconds']:.3f} s = "
+            f"{1e3 * r['seconds'] / max(r['pods'], 1):.3f} ms/pod"
+            f"{' (sync probe, untimed)' if r['probed'] else ''}; live "
+            f"rows {r['live']}, launched rows {r['launched']}")
+        if r["launched"] != r["live"]:
+            fail(f"{name}: round {i} launched the kernel on "
+                 f"{r['launched']} rows, not on its {r['live']} live rows")
+    phases = dict(clock.seconds)
+    phases["other"] = wall - sum(phases.values())
+    log(f"[{name}] placed {placed} in {wall:.3f} s = {placed / wall:.1f} "
+        f"pods/s; kernel launches {launches}; invariants hold")
+    log(f"[{name}] host seconds by phase: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()))
+    seen.update(placed=placed, wall=wall, launches=launches)
+    return seen
+
+
+def per_pod_ms(rounds, flag):
+    """Device_round ms per pod over the rounds with and without `flag`,
+    the sync-probed round left out (None where no round falls in a
+    group)."""
+    out = {}
+    for want in (True, False):
+        rs = [r for r in rounds if r[flag] == want and not r["probed"]]
+        pods = sum(r["pods"] for r in rs)
+        out[want] = (1e3 * sum(r["seconds"] for r in rs) / pods
+                     if pods else None)
+    return out
+
+
+def time_statics(torch, name, fn, args, rounds, flag):
+    """The statics function once on one full-width wave's inputs (CUDA
+    events, the median of 3 runs of 5 calls), against the mean
+    device_round time of a wave in the rounds with `flag`, the
+    sync-probed round left out."""
+    ms = cuda_ms(torch, lambda: fn(*args), reps=5, warm=1, runs=3)
+    rs = [r for r in rounds if r[flag] and not r["probed"]]
+    wave_ms = (1e3 * sum(r["seconds"] for r in rs)
+               / sum(r["waves"] for r in rs))
+    log(f"[{name}] {fn.__name__} on one wave (P={WAVE}, N="
+        f"{args[0].valid.shape[0]}, M={args[1].valid.shape[0]}): {ms:.4f} ms"
+        f", {ms / wave_ms:.1%} of a {flag} wave's {wave_ms:.3f} ms "
+        "device_round")
+    return ms
+
+
 # --- main ----------------------------------------------------------------------
 
 
@@ -307,13 +672,19 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card")
     sys.path.insert(0, str(REPO))
+    from kubernetes_tpu_torch.api import labels as lbl
     from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.ops import affinity
     from kubernetes_tpu_torch.ops import encoding as enc
+    from kubernetes_tpu_torch.ops import kernel as kernel_mod
     from kubernetes_tpu_torch.ops import taint_ports as tp
+    from kubernetes_tpu_torch.ops import topology
     from kubernetes_tpu_torch.runtime import store as store_mod
+    from kubernetes_tpu_torch.sched import scheduler as sched_mod
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
     from kubernetes_tpu_torch.state.vocab import bucket_size
 
+    mods = (api, tp, kernel_mod, sched_mod, Scheduler)
     t_start = time.monotonic()
     # 1. device
     smi = subprocess.run(
@@ -380,84 +751,19 @@ def main() -> None:
         "TB/s")
     del nt, pb, outs
 
-    # 4. the main path at full size
-    from kubernetes_tpu_torch.ops import kernel as kernel_mod
-    from kubernetes_tpu_torch.sched import scheduler as sched_mod
-
+    # 4. the density drain at full size
     store, n_bound = build_store(api, store_mod, FULL_NODES, FULL_PODS, SEED)
     caps = scheduler_caps(enc, bucket_size, FULL_NODES, FULL_PODS, n_bound)
-    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda")
-    clock = PhaseClock()
-    sync = torch.cuda.synchronize
-    sched.featurizer.featurize = clock.wrap("featurize",
-                                            sched.featurizer.featurize)
-    sched.snapshot.stage_pending = clock.wrap("stage",
-                                              sched.snapshot.stage_pending)
-    sched.snapshot.to_device = clock.wrap("upload", sched.snapshot.to_device,
-                                          sync)
-    sched._commit = clock.wrap("commit", sched._commit)
-    captured = []
-    rounds = []  # (live rows, launched rows) of each round
-    kernel_launch = kernel_mod.taint_ports_masks
+    dens = drain(torch, mods, "density", store, caps, n_bound)
+    if dens["placed"] < FULL_PODS // 2:
+        fail(f"density: only {dens['placed']} of {FULL_PODS} pods placed")
+    del store
 
-    def capture(nt_, pb_, **kw):
-        if not captured:
-            captured.append((nt_, pb_))
-        rounds[-1][1] += pb_.tol_key.shape[0]
-        return kernel_launch(nt_, pb_, **kw)
-
-    kernel_mod.taint_ports_masks = capture
-    round_fn = sched_mod.schedule_round
-    timed_round = clock.wrap("device_round", round_fn, sync)
-
-    def counted_round(nt_, pm_, tt_, pbs, *args, **kw):
-        # the waves up to the last live one are the round's live rows
-        active = pbs.valid.any(dim=1).tolist()
-        n_live = max((i + 1 for i, a in enumerate(active) if a), default=0)
-        rounds.append([n_live * pbs.valid.shape[1], 0])
-        return timed_round(nt_, pm_, tt_, pbs, *args, **kw)
-
-    sched_mod.schedule_round = counted_round
-    tp.taint_ports_masks.launches = 0
-    t0 = time.monotonic()
-    placed = sched.schedule_pending()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = tp.taint_ports_masks.launches
-    if launches < 1:
-        fail("the round never launched the taint/port kernel")
-    if sched.wave_path() != "cuda":
-        fail(f"wave_path() is {sched.wave_path()!r}, expected 'cuda'")
-    bound = check_bindings(api, store)
-    if bound != placed + n_bound:
-        fail(f"store holds {bound} bound pods, expected {placed + n_bound}")
-    if placed < FULL_PODS // 2:
-        fail(f"only {placed} of {FULL_PODS} pods placed")
-    kernel_mod.taint_ports_masks = kernel_launch
-    sched_mod.schedule_round = round_fn
-    for i, (live, launched) in enumerate(rounds):
-        log(f"[round] round {i}: live rows {live}, launched rows {launched}")
-        if launched != live:
-            fail(f"round {i} launched the kernel on {launched} rows, not on "
-                 f"its {live} live rows")
-    log(f"[round] {FULL_NODES} nodes, {FULL_PODS} pods: placed {placed} in "
-        f"{wall:.3f} s = {placed / wall:.1f} pods/s; kernel launches "
-        f"{launches}; invariants hold")
-    phases = dict(clock.seconds)
-    phases["other"] = wall - sum(phases.values())
-    log("[round] host seconds by phase: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in phases.items()))
-    del sched, store
-
-    # the kernel and its plain version on the inputs the round gave it
-    nt, pb = captured[0]
-    want = tp.taint_ports_plain(nt, pb)
-    got = tp.taint_ports_masks(nt, pb)
-    for g, w in zip(got, want):
-        max_err = max(max_err, int((g.to(torch.int32)
-                                    - w.to(torch.int32)).abs().max()))
-        if not torch.equal(g, w):
-            fail("kernel != plain on the round's inputs")
+    # the kernel and its plain version on the inputs the rounds gave it;
+    # the first round's (the full round) are timed
+    captured = dens.pop("captured")
+    max_err = max(max_err, check_captured(torch, tp, "density", captured))
+    nt, pb = next(iter(captured.values()))
     k_ms = cuda_ms(torch, lambda: tp.taint_ports_masks(nt, pb))
     p_ms = cuda_ms(torch, lambda: tp.taint_ports_plain(nt, pb), reps=3,
                    runs=3)
@@ -478,28 +784,97 @@ def main() -> None:
         f"{bound_ms:.4f} ms ({bound_by}: {nbytes} B, {nops} ops), "
         f"{bound_ms / k_ms:.1%} of bound; no single PyTorch call computes "
         "this function, so no library time")
-    del nt, pb, captured, got, want
+    del nt, pb, captured
+    torch.cuda.empty_cache()
 
-    # 5. card against CPU on the reduced world
-    got = {}
-    for device in ("cuda", "cpu"):
-        store, n_bound = build_store(api, store_mod, SMALL_NODES, SMALL_PODS,
-                                     SEED)
-        caps = scheduler_caps(enc, bucket_size, SMALL_NODES, SMALL_PODS,
-                              n_bound)
-        s = Scheduler(store, wave_size=WAVE, caps=caps, device=device)
-        t0 = time.monotonic()
-        n = s.schedule_pending()
-        check_bindings(api, store)
-        got[device] = bindings(store)
-        log(f"[parity] {device}: placed {n} in "
-            f"{time.monotonic() - t0:.3f} s")
-    if got["cuda"] != got["cpu"]:
-        diff = [k for k in got["cpu"] if got["cpu"][k] != got["cuda"][k]]
-        fail(f"card and CPU bindings differ for {len(diff)} pods, e.g. "
-             f"{diff[:5]}")
-    log(f"[parity] {SMALL_NODES} nodes, {SMALL_PODS} pods: card == CPU "
-        f"bindings; total {time.monotonic() - t_start:.1f} s")
+    # 5. card against CPU on reduced worlds of the three shapes
+    worlds = {  # name -> (store maker, anti-affinity pods)
+        "density": (lambda: build_store(api, store_mod, SMALL_NODES,
+                                        SMALL_PODS, SEED), 0),
+        "mixed": (lambda: build_mixed(api, lbl, store_mod, SMALL_NODES,
+                                      SMALL_PODS),
+                  SMALL_PODS - 3 * (SMALL_PODS // 4)),
+        "spread": (lambda: build_spread(api, lbl, store_mod, SMALL_NODES,
+                                        SMALL_PODS, SPREAD_APPS), 0),
+    }
+    for wname, (build, n_terms) in worlds.items():
+        got = {}
+        for device in ("cuda", "cpu"):
+            store, n_bound = build()
+            caps = scheduler_caps(enc, bucket_size, SMALL_NODES, SMALL_PODS,
+                                  n_bound, n_terms)
+            s = Scheduler(store, wave_size=WAVE, caps=caps, device=device)
+            t0 = time.monotonic()
+            n = s.schedule_pending()
+            check_bindings(api, store)
+            check_anti_affinity(store)
+            got[device] = bindings(store)
+            log(f"[parity] {wname} {device}: placed {n} in "
+                f"{time.monotonic() - t0:.3f} s")
+        if got["cuda"] != got["cpu"]:
+            diff = [k for k in got["cpu"] if got["cpu"][k] != got["cuda"][k]]
+            fail(f"{wname}: card and CPU bindings differ for {len(diff)} "
+                 f"pods, e.g. {diff[:5]}")
+        log(f"[parity] {wname}, {SMALL_NODES} nodes, {SMALL_PODS} pods: "
+            "card == CPU bindings")
+
+    # 6. the mixed5k drain at full width
+    store, n_bound = build_mixed(api, lbl, store_mod, FULL_NODES, FULL_PODS)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, FULL_PODS, n_bound,
+                          FULL_PODS - 3 * (FULL_PODS // 4))
+    mixed = drain(torch, mods, "mixed", store, caps, n_bound,
+                  statics="incoming_statics", sync_probe=True)
+    if mixed["placed"] != FULL_PODS:
+        fail(f"mixed: placed {mixed['placed']} of {FULL_PODS} pods")
+    n_anti = check_anti_affinity(store)
+    log(f"[mixed] {n_anti} anti-affinity pods: no two of one group share "
+        "a node")
+    rounds = mixed["rounds"]
+    if not any(r["has_ipa"] for r in rounds):
+        fail("mixed: no round ran with inter-pod affinity")
+    if max(r["W"] for r in rounds) > IPA_MAX_WAVES:
+        fail(f"mixed: a round ran more than {IPA_MAX_WAVES} waves")
+    ms = per_pod_ms(rounds, "has_ipa")
+    syncs = mixed["syncs"]
+    log(f"[mixed] device_round ms per pod: with ipa {ms[True]:.3f}, without "
+        f"{ms[False]:.3f}; implicit host syncs in the first ipa round: "
+        f"{sum(syncs.values())} (" + ", ".join(
+            f"{k} x{v}" for k, v in sorted(syncs.items())) + ")")
+    time_statics(torch, "mixed", affinity.incoming_statics,
+                 mixed.pop("statics_args"), rounds, "has_ipa")
+    max_err = max(max_err, check_captured(torch, tp, "mixed",
+                                          mixed.pop("captured")))
+    del store
+    torch.cuda.empty_cache()
+
+    # 7. the spread drain
+    store, n_bound = build_spread(api, lbl, store_mod, FULL_NODES,
+                                  SPREAD_PODS, SPREAD_APPS)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, SPREAD_PODS,
+                          n_bound)
+    spread = drain(torch, mods, "spread", store, caps, n_bound,
+                   statics="topo_statics")
+    if spread["placed"] != SPREAD_PODS:
+        fail(f"spread: placed {spread['placed']} of {SPREAD_PODS} pods")
+    counts = zone_counts(store)
+    worst = max(max(c.values()) - min(c.values()) for c in counts.values())
+    if worst > 1 or len(counts) != SPREAD_APPS:
+        fail(f"spread: a Deployment's zone counts differ by {worst}")
+    log(f"[spread] {len(counts)} Deployments: zone counts differ by at most "
+        f"{worst}")
+    if not all(r["has_ts"] for r in spread["rounds"]):
+        fail("spread: a round ran without topology spread")
+    ms = per_pod_ms(spread["rounds"], "has_ts")
+    log(f"[spread] device_round ms per pod with ts {ms[True]:.3f}")
+    time_statics(torch, "spread", topology.topo_statics,
+                 spread.pop("statics_args"), spread["rounds"], "has_ts")
+    max_err = max(max_err, check_captured(torch, tp, "spread",
+                                          spread.pop("captured")))
+    del store
+    launches = dens["launches"] + mixed["launches"] + spread["launches"]
+    log(f"[smoke] kernel launches: density {dens['launches']}, mixed "
+        f"{mixed['launches']}, spread {spread['launches']}; total "
+        f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

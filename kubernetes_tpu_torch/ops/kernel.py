@@ -25,11 +25,13 @@ ordering (generic_scheduler.go:503 breaks at the first failed predicate;
 predicates.go:133 predicatesOrdering): a node is charged only to its
 first failing predicate.
 
-This slice runs the round without inter-pod affinity (`has_ipa`),
-topology spread (`has_ts`) and the score decomposition
-(`collect_scores`); each raises NotImplementedError until its slice
-lands. Every op follows the JAX kernel's f32 op order (see ops/scores.py)
-so the outputs are bit-equal to it.
+Inter-pod affinity (`has_ipa`, ops/affinity.py) and topology spread
+(`has_ts`, ops/topology.py) add per-wave statics and a step each to the
+per-pod loop, which sees the wave's earlier placements through its
+`placed` tensor. The score decomposition (`collect_scores`) raises
+NotImplementedError until its slice lands. Every op follows the JAX
+kernel's f32 op order (see ops/scores.py) so the outputs are bit-equal
+to it.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import encoding as enc
+from .affinity import IncomingStatics, gather_domains, incoming_statics
 from .filters import resource_fit, static_predicate_masks
 from .scores import (
     W_AFFINITY,
@@ -46,11 +49,14 @@ from .scores import (
     W_BALANCED,
     W_COMPACT,
     W_IMAGE,
+    W_INTERPOD,
     W_LEAST,
     W_MOST,
     W_SPREAD,
     W_TAINT,
+    W_TOPO_SPREAD,
     balanced_allocation,
+    floor_div,
     image_locality,
     least_requested,
     most_requested,
@@ -63,6 +69,7 @@ from .scores import (
     taint_intolerable_raw,
 )
 from .taint_ports import taint_ports_masks
+from .topology import TopoStatics, topo_statics
 
 
 class Weights(NamedTuple):
@@ -103,19 +110,79 @@ class WaveResult(NamedTuple):
     finite: Optional[torch.Tensor] = None
 
 
-def _not_in_slice(has_ipa: bool, has_ts: bool, collect_scores: bool) -> None:
-    if has_ipa:
-        raise NotImplementedError(
-            "has_ipa: inter-pod affinity (kubernetes_tpu/ops/affinity.py) "
-            "is a later slice of the port")
-    if has_ts:
-        raise NotImplementedError(
-            "has_ts: topology spread (kubernetes_tpu/ops/topology.py) is a "
-            "later slice of the port")
+def _not_in_slice(collect_scores: bool) -> None:
     if collect_scores:
         raise NotImplementedError(
             "collect_scores: the score decomposition is a later slice of "
             "the port")
+
+
+def _ipa_step(ipa: IncomingStatics, pb: enc.PodBatch, i: int, active,
+              safe_pl):
+    """MatchInterPodAffinity of wave pod i against the resident pods
+    (the statics) and the pods placed earlier in this wave (`active`,
+    `safe_pl`: placed mask and clamped node of every wave pod). bool [N].
+    Every per-pod flag stays a device tensor: no host read."""
+    dra_row = ipa.node_dom_ra[i]
+    drn_row = ipa.node_dom_rn[i]
+    # incoming required affinity vs pods placed earlier this wave
+    pl_dom = dra_row[safe_pl]  # [P] placement domain under MY aff tk
+    src = ipa.wm_aff[i] & active & (pl_dom > 0)
+    wave_aff = ((src[:, None] & (pl_dom[:, None] == dra_row[None, :]))
+                .any(dim=0) & (dra_row > 0))
+    # bootstrap existence check is topology-independent
+    # (predicates.go:1410: matchingPods counts props matches on ANY
+    # node, labeled or not)
+    any_aff = ipa.any_aff[i] | (ipa.wm_aff[i] & active).any()
+    ok_aff = ipa.ok_aff[i] | wave_aff | (~any_aff & pb.ra_self[i])
+    ok_aff = torch.where(pb.ra_has[i], ok_aff, True)
+    # incoming required anti-affinity vs wave placements
+    pl_dom_n = drn_row[safe_pl]
+    srcn = ipa.wm_anti[i] & active & (pl_dom_n > 0)
+    wave_anti = ((srcn[:, None] & (pl_dom_n[:, None] == drn_row[None, :]))
+                 .any(dim=0) & (drn_row > 0))
+    ok_anti = ~(pb.rn_has[i] & (ipa.blocked_anti[i] | wave_anti))
+    # symmetry: wave pod j's required anti terms vs me, under j's tk
+    pd_sym = ipa.node_dom_rn.gather(1, safe_pl[:, None])[:, 0]  # [P]
+    srcs = ipa.wm_anti[:, i] & active & (pd_sym > 0)
+    sym_wave = (srcs[:, None] & (pd_sym[:, None] == ipa.node_dom_rn)
+                & (ipa.node_dom_rn > 0)).any(dim=0)
+    return ~(ipa.sym_blocked[i] | sym_wave) & ok_aff & ok_anti
+
+
+def _ts_step(topo: TopoStatics, pb: enc.PodBatch, i: int, active, safe_pl,
+             seg_dom, cnt_pad):
+    """PodTopologySpread of wave pod i against the resident pods and this
+    wave's earlier placements (upstream's assume semantics). Returns
+    (ts_ok bool [N], cnt_dyn f32 [TS, LV], cnt_at f32 [TS, N],
+    anyp bool [TS]).
+
+    seg_dom: i32 [TS, N] topo.node_dom[i] with ids >= LV sent to a dump
+    column LV; cnt_pad: f32 [TS, LV + 1] topo.counts[i] with that column
+    appended. The placements are added to the resident counts by one
+    scatter of 0/1 values — the JAX kernel's one-hot sum, exact in any
+    order — and the dump column is cut off, as the one-hot sum drops
+    such ids."""
+    tsv, tsh, tss = pb.ts_valid[i], pb.ts_hard[i], pb.ts_skew[i]
+    tdom = topo.node_dom[i]  # [TS, N]
+    LV = topo.counts.shape[2]
+    tpres = topo.present[i]  # [TS, LV]
+    pl_seg = seg_dom[:, safe_pl]  # [TS, P] placement domains
+    addm = topo.wm[i] & active[None, :] & (pl_seg > 0)
+    cnt_dyn = cnt_pad.scatter_add(1, pl_seg.long(),
+                                  addm.to(torch.float32))[:, :LV]
+    cnt_at = gather_domains(cnt_dyn, tdom)  # [TS, N]
+    key_ok = tdom > 0  # node has the constraint's topology key
+    anyp = tpres.any(dim=1)  # [TS]
+    minm = torch.where(
+        anyp, torch.where(tpres, cnt_dyn, float("inf")).amin(dim=1), 0.0)
+    # skew = count-if-placed-here minus global min; self counts only
+    # when the pod matches its own selector (selfMatchNum)
+    cand = cnt_at + topo.selfm[i][:, None].to(torch.float32)
+    hard = (tsv & tsh)[:, None]
+    ok_rows = torch.where(
+        hard, key_ok & ((cand - minm[:, None]) <= tss[:, None]), True)
+    return ok_rows.all(dim=0), cnt_dyn, cnt_at, anyp
 
 
 def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
@@ -131,25 +198,40 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     [P, N] from the round's single kernel launch. Returns
     (WaveResult, usage_out).
 
+    has_ipa / has_ts: compute the inter-pod affinity / topology spread
+    statics and run their steps for every pod of the wave, as the JAX
+    kernel's static flags compile them in.
+
     weight_vec: optional f32 [S] SCORE_STACK-aligned weight vector on the
     device; it supplies the multipliers of the weighted sum. The static
     `weights` gates which score planes are computed. None uses
     stack_weights(weights)."""
-    _not_in_slice(has_ipa, has_ts, collect_scores)
+    _not_in_slice(collect_scores)
     dev = nt.valid.device
     N = nt.valid.shape[0]
     P = pb.req.shape[0]
     R = nt.alloc.shape[1]
     is_core = torch.arange(R, device=dev) < enc.RES_FIXED
     masks = static_predicate_masks(nt, pb, is_core, taint_ports)
-    # placeholder rows for the scan-filled predicates (PodTopologySpread,
+    # placeholder rows for the loop-filled predicates (PodTopologySpread,
     # MatchInterPodAffinity), in DEVICE_PREDICATES order
     placeholder = torch.ones((1, P, N), dtype=torch.bool, device=dev)
     masks = torch.cat([masks, placeholder, placeholder, extra_mask[None]],
                       dim=0)
     res_i = enc.PRED_IDX["PodFitsResources"]
+    ipa_i = enc.PRED_IDX["MatchInterPodAffinity"]
+    ts_i = enc.PRED_IDX["PodTopologySpread"]
     static_nonres = torch.cat([masks[:res_i], masks[res_i + 1:]]).all(dim=0)
     alloc2 = nt.alloc[:, :2]
+    ipa = (incoming_statics(nt, pm, tt, pb, num_label_values,
+                            weights.hard_pod_affinity)
+           if has_ipa else None)
+    if has_ts:
+        topo = topo_statics(nt, pm, pb, num_label_values)
+        seg_dom = torch.where(topo.node_dom < num_label_values,
+                              topo.node_dom, num_label_values)
+        cnt_pad = torch.cat([topo.counts, topo.counts.new_zeros(
+            topo.counts.shape[:2] + (1,))], dim=2)
 
     w = weights
     wv = (weight_vec if weight_vec is not None
@@ -179,16 +261,42 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     rr = torch.as_tensor(rr_start, dtype=torch.int32, device=dev).clone()
     rack = nt.rack_id.long()
     superpod = nt.superpod_id.long()
+    # node of each wave pod placed so far (-1: not placed), written in
+    # place as the loop commits
+    placed = torch.full((P,), -1, dtype=torch.int32, device=dev)
 
-    chosen_l, best_l, fits_l, feas_l = [], [], [], []
+    chosen_l, best_l, fits_l, feas_l, ipa_l, ts_l = [], [], [], [], [], []
     for i in range(P):
         preq, pnz = pb.req[i], pb.nonzero[i]
         fits = resource_fit(nt.alloc, nt.allowed_pods, req_c, cnt_c,
                             preq[None, :], is_core)[0]  # [N]
         feasible = static_nonres[i] & fits & nt.valid & pb.valid[i]
+        if has_ipa or has_ts:
+            active = placed >= 0
+            safe_pl = placed.clamp(min=0).long()
+        if has_ipa:
+            ipa_ok = _ipa_step(ipa, pb, i, active, safe_pl)
+            feasible = feasible & ipa_ok
+            ipa_l.append(ipa_ok)
+        if has_ts:
+            ts_ok, cnt_dyn, cnt_at, anyp = _ts_step(
+                topo, pb, i, active, safe_pl, seg_dom[i], cnt_pad[i])
+            feasible = feasible & ts_ok
+            ts_l.append(ts_ok)
         # the weighted sum, plane by plane in the JAX kernel's order
         # (kernel.py:504-576); each `total + wv * plane` is two ops
         total = static_score[i]
+        if has_ipa and w.interpod:
+            counts_row = ipa.counts[i]
+            cmasked = torch.where(feasible, counts_row, 0.0)
+            cmin = torch.clamp(cmasked.min(), max=0.0)
+            cmax = torch.clamp(cmasked.max(), min=0.0)
+            crange = cmax - cmin
+            # a tensor divisor: IEEE division on every device
+            fscore = torch.where(
+                crange > 0, floor_div(10.0 * (counts_row - cmin) / crange),
+                0.0)
+            total = total + wv[W_INTERPOD] * fscore
         if w.node_affinity:
             aff_n = normalize_reduce(aff_raw[i], feasible, False)
             total = total + wv[W_AFFINITY] * aff_n
@@ -206,6 +314,19 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
                 nz_c, alloc2, pnz)
         if w.most_requested:
             total = total + wv[W_MOST] * most_requested(nz_c, alloc2, pnz)
+        if has_ts and w.topology_spread:
+            # raw spread score: headroom below the fullest domain — a
+            # node in a less-crowded domain scores higher; key-less
+            # nodes score 0. The TS-axis sum adds integer-valued f32:
+            # exact in any order.
+            maxm = torch.where(
+                anyp, torch.where(topo.present[i], cnt_dyn,
+                                  float("-inf")).amax(dim=1), 0.0)
+            ts_raw = torch.where(
+                (topo.node_dom[i] > 0) & pb.ts_valid[i][:, None],
+                torch.clamp(maxm[:, None] - cnt_at, min=0.0), 0.0).sum(dim=0)
+            ts_n = normalize_reduce(ts_raw, feasible, False)
+            total = total + wv[W_TOPO_SPREAD] * ts_n
         if w.topology_compactness:
             # count this wave's placements per rack/superpod (ids intern
             # into the shared zone vocabulary, so num_zones bounds both
@@ -238,6 +359,8 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
         nz_c.index_add_(0, safe, (pnz * gain)[None, :])
         cnt_c.index_add_(0, safe, has.to(torch.int32).reshape(1))
         rr = rr + has.to(torch.int32)
+        if has_ipa or has_ts:
+            placed[i] = chosen
         chosen_l.append(chosen)
         best_l.append(best)
         fits_l.append(fits)
@@ -246,6 +369,10 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     chosen = torch.stack(chosen_l)
     best = torch.stack(best_l)
     masks[res_i] = torch.stack(fits_l)
+    if has_ts:
+        masks[ts_i] = torch.stack(ts_l)
+    if has_ipa:
+        masks[ipa_i] = torch.stack(ipa_l)
     # short-circuit first-fail attribution in predicate order
     prefix_ok = torch.cumprod(masks.to(torch.int8), 0,
                               dtype=torch.int8).to(torch.bool)
@@ -298,7 +425,10 @@ def _stage_placements(pm: enc.PodMatrix, tt: enc.TermTable, chosen,
     Pad/unplaced entries go to one extra dump row past the end that is
     cut off afterwards — the JAX kernel's scatter mode="drop". Clipping
     them to row 0 instead would race real updates to row 0, and torch
-    indexing raises on an out-of-range index."""
+    indexing raises on an out-of-range index. The valid flags are set
+    with index_fill_: an index assignment of a Python scalar copies it
+    to the card first, which blocks the host until the queued waves
+    have run."""
     ok = (chosen >= 0) & (pm_rows >= 0)
     safe_choice = chosen.clamp(min=0)
     M = pm.node.shape[0]
@@ -306,7 +436,7 @@ def _stage_placements(pm: enc.PodMatrix, tt: enc.TermTable, chosen,
     node = torch.cat([pm.node, pm.node.new_zeros(1)])
     node[target] = safe_choice
     valid = torch.cat([pm.valid, pm.valid.new_zeros(1)])
-    valid[target] = True
+    valid.index_fill_(0, target, True)
     pm2 = pm._replace(node=node[:M], valid=valid[:M])
     TPP = term_rows.shape[1]
     E = tt.node.shape[0]
@@ -316,7 +446,7 @@ def _stage_placements(pm: enc.PodMatrix, tt: enc.TermTable, chosen,
     tnode = torch.cat([tt.node, tt.node.new_zeros(1)])
     tnode[ttarget] = tchoice
     tvalid = torch.cat([tt.valid, tt.valid.new_zeros(1)])
-    tvalid[ttarget] = True
+    tvalid.index_fill_(0, ttarget, True)
     tt2 = tt._replace(node=tnode[:E], valid=tvalid[:E])
     return pm2, tt2
 
@@ -362,11 +492,17 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     trailing ones) skip the wave body, and the launch covers the waves
     up to the last live one only, since no pad wave reads its masks.
 
+    has_ipa: run every wave with the inter-pod affinity statics and step
+    (the scheduler resolves it from the snapshot's terms and the round's
+    batches). has_ts defaults to whether any pod of the round carries a
+    spread constraint: one host read, as the JAX entry point derives it
+    from its numpy inputs.
+
     Returns (chosen [W, P], fail_counts [W, Q, P], usage', rr_end, deco,
     finite [W, P]); deco is None (collect_scores is a later slice)."""
     if has_ts is None:
         has_ts = bool(pbs.ts_valid.any())
-    _not_in_slice(has_ipa, has_ts, collect_scores)
+    _not_in_slice(collect_scores)
     dev = nt.valid.device
     W = pbs.req.shape[0]
     P = pbs.req.shape[1]
@@ -393,9 +529,9 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
         pb = enc.PodBatch(*[a[wi] for a in pbs])
         res, usage_c = _wave_body(
             nt, pm_c, tt_c, pb, ones, rr_c, None, weights, num_zones,
-            num_label_values, usage_in=usage_c,
+            num_label_values, has_ipa, usage_in=usage_c,
             taint_ports=(taints_all[wi], ports_all[wi]),
-            weight_vec=weight_vec)
+            weight_vec=weight_vec, has_ts=has_ts)
         pm_c, tt_c = _stage_placements(pm_c, tt_c, res.chosen, pm_rows[wi],
                                        term_rows[wi])
         rr_c = res.rr_end

@@ -14,16 +14,20 @@ rounds (`_run_pipeline`), each of which
 
 Pods are ordered by (-priority, arrival seq), as the JAX scheduling
 queue orders them. A round places at most PIPELINE_MAX_WAVES waves of
-`wave_size` pods; the rest go back to the queue before the round runs,
+`wave_size` pods (PIPELINE_MAX_WAVES_IPA when inter-pod affinity is in
+play anywhere); the rest go back to the queue before the round runs,
 and the pods the round leaves unplaced go back after its commit, as the
 JAX round sends them. A round that places nothing parks its pods as
 unschedulable until a node event or a pod deletion moves them back:
 the JAX scheduler attributes and parks such pods through its per-wave
 loop, which this slice does not carry.
 
-Not in this slice (each raises NotImplementedError rather than
-diverging in silence): inter-pod affinity, topology spread, gangs and
-volumes. Left out with no stand-in: preemption, the circuit breakers,
+Inter-pod affinity and topology spread ride the round. Not in the
+port yet (each raises NotImplementedError and drops no pod, rather
+than diverging in silence): gangs, volumes, and pods whose required
+pod (anti-)affinity terms span more than one topology key, which the
+JAX package places through its exact host path (plugins/golden.py).
+Left out with no stand-in: preemption, the circuit breakers,
 the bind journal and reconciler, extenders, tracing, the mesh and the
 memory governor.
 """
@@ -52,8 +56,11 @@ from ..state.snapshot import Snapshot
 
 # Max chained waves per device-resident round; rounds are bucketed per
 # power-of-two wave count (a fixed W would make small rounds pay for 128
-# waves). Longer backlogs run multiple rounds.
+# waves). Longer backlogs run multiple rounds. A round with inter-pod
+# affinity anywhere (bound or pending) is capped lower, as the JAX
+# scheduler caps it: the placements depend on where each round ends.
 PIPELINE_MAX_WAVES = 128
+PIPELINE_MAX_WAVES_IPA = 64
 SCHEDULER_NAME = "default-scheduler"
 
 
@@ -116,19 +123,22 @@ class GroupLister:
         return out
 
 
+def _pod_has_ipa_terms(pod: api.Pod) -> bool:
+    aff = pod.spec.affinity
+    return aff is not None and (aff.pod_affinity is not None
+                                or aff.pod_anti_affinity is not None)
+
+
 def _later_slice(pod: api.Pod) -> Optional[str]:
     """Why this pod needs a part of the scheduler a later slice ports,
     or None."""
-    aff = pod.spec.affinity
-    if aff is not None and (aff.pod_affinity is not None
-                            or aff.pod_anti_affinity is not None):
-        return "inter-pod affinity (kubernetes_tpu/ops/affinity.py)"
-    if any(t.topology_key for t in pod.spec.topology_spread_constraints):
-        return "topology spread (kubernetes_tpu/ops/topology.py)"
     if api.pod_group_name(pod) is not None:
         return "gang scheduling (kubernetes_tpu/ops/gang.py)"
     if pod.spec.volumes:
         return "volume predicates and binding"
+    if PodFeaturizer.needs_host_path(pod):
+        return ("the exact host path for required pod (anti-)affinity over "
+                "more than one topology key (kubernetes_tpu/plugins/golden.py)")
     return None
 
 
@@ -314,13 +324,6 @@ class Scheduler:
                         raise NotImplementedError(
                             f"pod {pod.full_name()} needs {reason}, a later "
                             "slice of the port")
-                if self.snapshot.has_affinity_terms:
-                    for p in pods:
-                        self._enqueue(p)
-                    raise NotImplementedError(
-                        "bound pods carry inter-pod affinity terms "
-                        "(kubernetes_tpu/ops/affinity.py), a later slice "
-                        "of the port")
                 n, retry = self._run_pipeline(pods)
                 placed += n
                 if n == 0:
@@ -335,13 +338,19 @@ class Scheduler:
         """One device-resident round over `pods` (queue order). Returns
         (placed, the pods it left unplaced and requeued)."""
         W = self.wave_size
+        # ipa anywhere in the backlog (or already placed) caps the round
+        # at the ipa wave count, even for ipa-free leading rounds
+        max_waves = (PIPELINE_MAX_WAVES_IPA
+                     if (self.snapshot.has_affinity_terms
+                         or any(_pod_has_ipa_terms(p) for p in pods))
+                     else PIPELINE_MAX_WAVES)
         waves = [pods[i:i + W] for i in range(0, len(pods), W)]
-        if len(waves) > PIPELINE_MAX_WAVES:
+        if len(waves) > max_waves:
             # bound the round; the leftover goes back to the queue first
-            keep = PIPELINE_MAX_WAVES * W
+            keep = max_waves * W
             for p in pods[keep:]:
                 self._enqueue(p)
-            pods, waves = pods[:keep], waves[:PIPELINE_MAX_WAVES]
+            pods, waves = pods[:keep], waves[:max_waves]
         # pass 1 grows every vocab/cap to its final size; when it grew,
         # pass 2 re-emits every batch at the uniform final shapes
         sig0 = (self.featurizer.vocabs.version(),
@@ -358,7 +367,12 @@ class Scheduler:
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
         wv = enc.weight_vec_to_torch(stack_weights(self.weights), dev)
-        wbucket = pipeline_bucket(len(waves))
+        # inter-pod affinity anywhere: bound pods' terms, or a required or
+        # preferred term in any of the round's batches (host numpy)
+        has_ipa = bool(self.snapshot.has_affinity_terms
+                       or any(pb.ra_has.any() or pb.rn_has.any()
+                              or (pb.pa_w != 0).any() for pb in pbs))
+        wbucket = pipeline_bucket(len(waves), hi=max_waves)
         pbs_stacked, pm_rows, term_rows = assemble_round(
             pbs, waves, pm_rows_all, term_rows_all, wbucket, tpp)
         pbs_t = enc.to_torch(None, None, None, pbs_stacked, dev)[3]
@@ -369,7 +383,7 @@ class Scheduler:
             nt, pm, tt, pbs_t, usage, self._rr, pm_rows_t, term_rows_t,
             weights=self.weights, num_zones=self.snapshot.caps.Z,
             num_label_values=self.snapshot.num_label_values,
-            weight_vec=wv)
+            has_ipa=has_ipa, weight_vec=wv)
         # the round's one fetch: chosen and the sentinel together
         chosen_all = chosen_d.cpu().numpy()
         fin_all = fin_d.cpu().numpy()

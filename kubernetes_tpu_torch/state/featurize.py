@@ -361,6 +361,27 @@ class PodFeaturizer:
 
     # -- inter-pod affinity ----------------------------------------------------
 
+    @staticmethod
+    def needs_host_path(pod: api.Pod) -> bool:
+        """True when the pod's required pod-(anti)affinity terms span more
+        than one distinct topology key. The device encoding
+        (ops/affinity.py) collapses all required terms to one shared
+        topology key — the reference semantics
+        (predicates.go anyPodsMatchingTopologyTerms: one target node must
+        satisfy ALL terms' topologies) need a composite domain otherwise,
+        so such pods take an exact host path (the JAX package's
+        plugins/golden.py; the port's scheduler refuses them)."""
+        aff = pod.spec.affinity
+        if aff is None:
+            return False
+        for group in (aff.pod_affinity, aff.pod_anti_affinity):
+            if group is None:
+                continue
+            tks = {t.topology_key for t in group.required}
+            if len(tks) > 1:
+                return True
+        return False
+
     def _ns_set(self, pod: api.Pod, terms) -> List[int]:
         """Intersection of the terms' namespace sets (each term: explicit
         list, or the pod's own namespace) as interned ids."""
@@ -445,8 +466,8 @@ class PodFeaturizer:
             ns_row = np.zeros((c.TNS,), np.int32)
             ns_row[: len(ns_ids)] = ns_ids
             d[f"{req_name}_ns"] = ns_row
-            # shared topology key (single-tk fast path; multi-tk pods were
-            # routed host-side by needs_host_path)
+            # shared topology key (single-tk fast path; needs_host_path
+            # flags multi-tk pods, which the scheduler keeps out of a round)
             tk = terms[0].topology_key if terms else ""
             d[f"{req_name}_tk"] = np.int32(self.snap.label_key_col(tk) if tk else 0)
         # bootstrap rule input: does the pod match its own affinity props?

@@ -1,6 +1,7 @@
 """kubernetes_tpu_torch on a CUDA card: the hand-written taint/host-port
 kernel against its plain PyTorch version, and the scheduler's round on
-the card against the same round on the CPU. Every test is marked `cuda`
+the card against the same round on the CPU (with inter-pod affinity and
+topology spread too). Every test is marked `cuda`
 and skips without a card (the kernel has no CPU mode).
 
 This file imports neither JAX nor kubernetes_tpu, so it also runs where
@@ -16,7 +17,8 @@ from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import taint_ports as ttp
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
-from torch_worlds import bindings, op_world, store_world
+from torch_worlds import (bindings, ipa_store_world, op_world,
+                          spread_store_world, store_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +88,18 @@ def test_scheduler_on_card_matches_cpu(cuda, seed):
         assert sched.wave_path() == ("cuda" if device == "cuda"
                                      else "torch-cpu")
     assert got["cuda"] == got["cpu"]
+
+
+@pytest.mark.parametrize("world", ["affinity", "spread"])
+def test_affinity_and_spread_rounds_on_card_match_cpu(cuda, world):
+    got = {}
+    for device in ("cuda", "cpu"):
+        if world == "affinity":
+            store, _ = ipa_store_world("kubernetes_tpu_torch", 0, 32, 300)
+        else:
+            store, _ = spread_store_world("kubernetes_tpu_torch", 0, 24, 240,
+                                          6)
+        Scheduler(store, device=device).schedule_pending()
+        got[device] = bindings(store)
+    assert got["cuda"] == got["cpu"]
+    assert any(got["cuda"].values())

@@ -9,29 +9,14 @@ import pytest
 import torch
 
 from kubernetes_tpu.ops import kernel as jk
-from kubernetes_tpu.ops.scores import stack_weights
-from kubernetes_tpu.sched.scheduler import assemble_round, pipeline_bucket
-from kubernetes_tpu.state.featurize import PodFeaturizer
 from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import kernel as tk
 from kubernetes_tpu_torch.sched import scheduler as tsched
 
-from torch_worlds import group_selectors, op_world
-
-WAVE_PLANES = ("chosen", "score", "feasible_count", "fail_counts", "masks",
-               "rr_end", "finite")
-# gating weights that switch on the optional planes, and a live vector
-# whose values differ from the gating ones (the traced weight_vec path)
-RICH_WEIGHTS = dict(most_requested=1.0, image_locality=1.0)
-LIVE_VECTOR = np.asarray([2, 1, 3, 1, 2, 1, 10000, 1, 1, 1, 4, 1],
-                         np.float32)
-
-
-def _eq(a, b, name=""):
-    a = np.asarray(a)
-    b = b.numpy()
-    assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
-    np.testing.assert_array_equal(a, b, err_msg=name)
+from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_parity import (LIVE_VECTOR, RICH_WEIGHTS, WAVE_PLANES,
+                          compare_rounds, eq, round_inputs)
+from torch_worlds import op_world
 
 
 @pytest.mark.parametrize("weights", ["default", "vector"])
@@ -60,61 +45,22 @@ def test_schedule_wave(seed, weights):
                            torch.tensor(seed, dtype=torch.int32),
                            torch.from_numpy(extra_scores), **kw_t, **zl)
     for name in WAVE_PLANES:
-        _eq(getattr(want, name), getattr(got, name), name)
+        eq(getattr(want, name), getattr(got, name), name)
     assert got.deco is None
     chosen = got.chosen.numpy()
     assert (chosen[:14] >= 0).any() and (chosen[14:] == -1).all()
 
 
-def _round_inputs(seed, wave_sizes):
-    snap, _, pods = op_world("kubernetes_tpu", seed,
-                             n_pending=sum(wave_sizes))
-    feat = PodFeaturizer(snap, group_selectors("kubernetes_tpu"))
-    waves, start = [], 0
-    for n in wave_sizes:
-        waves.append(pods[start:start + n])
-        start += n
-    pbs = [feat.featurize(w) for w in waves]
-    pm_rows, term_rows = snap.stage_pending(pods)
-    nt, pm, tt = snap.host_tensors()
-    wbucket = pipeline_bucket(len(waves))
-    stacked, rows, trows = assemble_round(pbs, waves, pm_rows, term_rows,
-                                          wbucket, term_rows.shape[1])
-    return snap, (nt, pm, tt, stacked, rows, trows)
-
-
 def _compare_rounds(seed, wave_sizes, weights):
-    """The JAX round and the port's round on the same inputs: every
-    output bit-equal. Returns the stacked pod batch."""
-    snap, (nt, pm, tt, pbs, rows, trows) = _round_inputs(seed, wave_sizes)
-    W = pbs.req.shape[0]
-    assert W > len(wave_sizes)  # the bucket pads with skipped waves
-    vec = (stack_weights(jk.Weights()) if weights == "default"
-           else LIVE_VECTOR)
-    gating = {} if weights == "default" else RICH_WEIGHTS
-    zl = dict(num_zones=snap.caps.Z, num_label_values=snap.num_label_values)
-    usage = (nt.requested, nt.nonzero, nt.pod_count)
-    want = jk.schedule_round(nt, pm, tt, pbs, usage, np.int32(7), rows,
-                             trows, weights=jk.Weights(**gating),
-                             weight_vec=vec, **zl)
-    ntt, pmt, ttt, pbst = tenc.to_torch(nt, pm, tt, pbs, "cpu")
-    usage_t = (ntt.requested, ntt.nonzero, ntt.pod_count)
-    got = tk.schedule_round(ntt, pmt, ttt, pbst, usage_t,
-                            torch.tensor(7, dtype=torch.int32),
-                            torch.from_numpy(rows), torch.from_numpy(trows),
-                            weights=tk.Weights(**gating),
-                            weight_vec=tenc.weight_vec_to_torch(vec, "cpu"),
-                            **zl)
-    _eq(want[0], got[0], "chosen")
-    _eq(want[1], got[1], "fail_counts")
-    for i in range(3):
-        _eq(want[2][i], got[2][i], f"usage[{i}]")
-    _eq(want[3], got[3], "rr_end")
-    assert want[4] is None and got[4] is None
-    _eq(want[5], got[5], "finite")
-    # the carried usage is a new tensor: the inputs are untouched
-    np.testing.assert_array_equal(ntt.requested.numpy(), nt.requested)
-    assert (got[0].numpy()[len(wave_sizes):] == -1).all()
+    """The JAX round and the port's round on the same op_world inputs:
+    every output bit-equal. Returns the stacked pod batch."""
+    snap, inputs = round_inputs(seed, wave_sizes, world=op_world, caps=None)
+    pbs = inputs[3]
+    assert pbs.req.shape[0] > len(wave_sizes)  # the bucket pads
+    chosen = compare_rounds(
+        snap, inputs, vector=weights == "vector",
+        gating=None if weights == "default" else RICH_WEIGHTS)
+    assert (chosen[len(wave_sizes):] == -1).all()
     return pbs
 
 
@@ -169,9 +115,10 @@ def test_stage_placements_drops_pad_entries():
     assert pm2.node.shape == pm.node.shape
 
 
-@pytest.mark.parametrize("flag", ["has_ipa", "has_ts", "collect_scores"])
+@pytest.mark.parametrize("flag", ["collect_scores"])
 def test_later_slice_flags_raise(flag):
-    snap, (nt, pm, tt, pbs, rows, trows) = _round_inputs(0, (4,))
+    snap, (nt, pm, tt, pbs, rows, trows) = round_inputs(
+        0, (4,), world=op_world, caps=None)
     ntt, pmt, ttt, pbst = tenc.to_torch(nt, pm, tt, pbs, "cpu")
     zl = dict(num_zones=snap.caps.Z, num_label_values=snap.num_label_values)
     with pytest.raises(NotImplementedError, match=flag):

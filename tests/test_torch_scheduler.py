@@ -21,6 +21,7 @@ from kubernetes_tpu_torch.api import types as tapi
 from kubernetes_tpu_torch.ops.encoding import Caps
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
+from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
 from torch_worlds import bindings, store_world
 
 REPO = Path(__file__).resolve().parent.parent
@@ -105,29 +106,43 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
         Scheduler(ObjectStore(), device="cuda")
 
 
-@pytest.mark.parametrize("kind", ["pod_affinity", "topology_spread", "gang"])
-def test_later_slice_backlogs_raise(kind):
+@pytest.mark.parametrize("kind,names", [
+    ("gang", "ops/gang.py"), ("volume", "volume"),
+    ("multi_topology_key", "plugins/golden.py")])
+def test_later_slice_backlogs_raise(kind, names):
+    """Pods the port does not take yet raise for the whole backlog and
+    are all left pending: gangs, volumes, and required pod
+    anti-affinity over two topology keys (the JAX package's exact host
+    path)."""
     store, _ = store_world("kubernetes_tpu_torch", 5, 8, 20)
     sched = Scheduler(store, device="cpu")
     sched.schedule_pending()
     spec, meta = {}, {}
-    if kind == "pod_affinity":
+    if kind == "multi_topology_key":
+        sel = tlbl.LabelSelector(match_labels={"app": "a"})
         spec["affinity"] = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
             required=[tapi.PodAffinityTerm(
-                label_selector=tlbl.LabelSelector(match_labels={"app": "a"}),
-                topology_key="kubernetes.io/hostname")]))
-    elif kind == "topology_spread":
-        spec["topology_spread_constraints"] = [
-            tapi.TopologySpreadConstraint(
-                max_skew=1, topology_key="kubernetes.io/hostname")]
+                label_selector=sel, topology_key="kubernetes.io/hostname"),
+                tapi.PodAffinityTerm(
+                label_selector=sel,
+                topology_key="failure-domain.beta.kubernetes.io/zone")]))
+    elif kind == "volume":
+        spec["volumes"] = [tapi.Volume(name="data")]
     else:
         meta["annotations"] = {tapi.POD_GROUP_NAME_ANNOTATION: "g"}
     store.create("pods", tapi.Pod(
         metadata=tapi.ObjectMeta(name="later", uid="later", **meta),
         spec=tapi.PodSpec(containers=[tapi.Container()], **spec)))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    store.create("pods", tapi.Pod(
+        metadata=tapi.ObjectMeta(name="plain", uid="plain"),
+        spec=tapi.PodSpec(containers=[tapi.Container()])))
+    pending = sched.pending_count()
+    with pytest.raises(NotImplementedError, match=names):
         sched.schedule_pending()
-    assert sched.pending_count() >= 1  # nothing was dropped
+    assert sched.pending_count() == pending  # nothing was dropped
+    assert {"later", "plain"} <= {p.metadata.name
+                                  for p in sched._active.values()}
+    assert not bindings(store)["later"] and not bindings(store)["plain"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -141,6 +156,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                      or n == "kubernetes_tpu" or n.startswith("kubernetes_tpu."))
         print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))
         assert not bad, bad
+        assert {"kubernetes_tpu_torch.ops.affinity",
+                "kubernetes_tpu_torch.ops.topology"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

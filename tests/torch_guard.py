@@ -1,0 +1,46 @@
+"""Guards for the port's parity tests: the JAX dispatch watchdog
+disarmed, and one PyTorch intra-op thread.
+
+kubernetes_tpu's dispatch watchdog is process-global
+(kubernetes_tpu/ops/kernel.py `set_watchdog`): a JAX Scheduler built
+with `wave_deadline_s` arms it, and a test that never disarms it leaves
+it armed for every later test on the same worker. A cold JAX program
+(the first has_ipa / has_ts compile takes seconds on the CPU) then
+overruns its deadline and raises DispatchTimeout. Import the fixture
+into a test module that dispatches JAX programs:
+
+    from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+
+It saves the watchdog, disarms it for the test and restores it after;
+nothing in the JAX package changes.
+
+The parity tests' tensors are small, and the suite runs in several
+worker processes at once: PyTorch's default of one intra-op thread per
+core then oversubscribes the cores many times over, and the per-pod
+loops of small ops slow down several-fold, taking CPU time from the
+timing-sensitive tests of other workers. `torch_one_thread` runs each
+test on one thread and restores the count after. The thread count
+cannot change a result: the port's reductions are over booleans,
+integers and integer-valued floats.
+"""
+
+import pytest
+import torch
+
+from kubernetes_tpu.ops import kernel as jax_kernel
+
+
+@pytest.fixture(autouse=True)
+def jax_watchdog_off():
+    saved = jax_kernel._WATCHDOG
+    jax_kernel.set_watchdog(None)
+    yield
+    jax_kernel.set_watchdog(saved)
+
+
+@pytest.fixture(autouse=True)
+def torch_one_thread():
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)

@@ -3,12 +3,18 @@
 Each builder takes a package (`kubernetes_tpu` or `kubernetes_tpu_torch`)
 and draws the same objects from the same numpy seed in either one, so a
 test can build one world in both packages, or build it once and carry
-its numpy tensors across with `to_torch`. The worlds cover the features
-of the port's first slice: taints of every effect, tolerations, host
-ports, nodeSelectors, required and preferred node affinity (In, NotIn,
-Exists, DoesNotExist, Gt, Lt, matchFields), node conditions, spreading
-selectors, preferAvoidPods, priorities, zones and racks — and no
-inter-pod affinity or topology spread.
+its numpy tensors across with `to_torch`. `op_world` and
+`store_world` cover taints of every effect, tolerations, host ports,
+nodeSelectors, required and preferred node affinity (In, NotIn, Exists,
+DoesNotExist, Gt, Lt, matchFields), node conditions, spreading
+selectors, preferAvoidPods, priorities, zones and racks. `ipa_world`
+and `ipa_store_world` add inter-pod affinity and topology spread: bound
+pods with required anti-affinity terms (the symmetry plane) and with
+required and preferred terms (the priority counts), pending pods with
+required and preferred pod (anti-)affinity over zone and hostname, term
+namespaces, the bootstrap rule (a required affinity that only the pod
+itself matches), hard and soft spread constraints on zone and hostname,
+and nodes without a zone label.
 """
 
 from __future__ import annotations
@@ -161,15 +167,17 @@ def group_selectors(pkg: str):
 
 
 def op_world(pkg: str, seed: int, n_nodes: int = 24, n_existing: int = 16,
-             n_pending: int = 12):
+             n_pending: int = 12, caps=None, featurize: bool = True):
     """(snapshot, featurized PodBatch, pending pods) of a seeded world,
-    built with the package's own cache, snapshot and featurizer."""
+    built with the package's own cache, snapshot and featurizer. caps:
+    pre-sized Caps; featurize=False leaves the batch to the caller
+    (None)."""
     state = importlib.import_module(f"{pkg}.state.snapshot")
     cache_mod = importlib.import_module(f"{pkg}.state.cache")
     feat_mod = importlib.import_module(f"{pkg}.state.featurize")
     rng = np.random.RandomState(seed)
     cache = cache_mod.SchedulerCache()
-    snap = state.Snapshot()
+    snap = state.Snapshot(caps=caps)
     for node in make_nodes(pkg, rng, n_nodes):
         cache.add_node(node)
         snap.set_node(cache.node_infos[node.name])
@@ -181,7 +189,7 @@ def op_world(pkg: str, seed: int, n_nodes: int = 24, n_existing: int = 16,
         snap.add_pod(p)
     feat = feat_mod.PodFeaturizer(snap, group_selectors(pkg))
     pods = [make_pod(pkg, rng, f"p{i}", n_nodes) for i in range(n_pending)]
-    return snap, feat.featurize(pods), pods
+    return snap, feat.featurize(pods) if featurize else None, pods
 
 
 def store_world(pkg: str, seed: int, n_nodes: int, n_pods: int):
@@ -221,3 +229,251 @@ def store_world(pkg: str, seed: int, n_nodes: int, n_pods: int):
 def bindings(store) -> dict:
     """pod name -> node name ('' while pending)."""
     return {p.metadata.name: p.spec.node_name for p in store.list("pods")}
+
+
+# --- inter-pod affinity and topology spread -------------------------------
+
+HOSTNAME = "kubernetes.io/hostname"
+ZONE = "failure-domain.beta.kubernetes.io/zone"
+NAMESPACES = ("default", "prod")
+
+
+def _term(api, lbl, rng, tk=None):
+    """One PodAffinityTerm over the `grp` or `app` label, in the pod's own
+    namespace or an explicit list."""
+    r = rng.rand()
+    if r < 0.5:
+        sel = lbl.LabelSelector(match_labels={"grp": f"g{rng.randint(3)}"})
+    elif r < 0.8:
+        sel = lbl.LabelSelector(match_labels={"app": "abc"[rng.randint(3)]})
+    else:
+        sel = lbl.LabelSelector(match_expressions=(lbl.Requirement(
+            "grp", lbl.NOT_IN, (f"g{rng.randint(3)}",)),))
+    ns = [[], [], ["prod"], list(NAMESPACES)][rng.randint(4)]
+    return api.PodAffinityTerm(
+        label_selector=sel, namespaces=ns,
+        topology_key=tk or (HOSTNAME, ZONE)[rng.randint(2)])
+
+
+def _preferred(api, lbl, rng):
+    return [api.WeightedPodAffinityTerm(weight=int(rng.randint(1, 101)),
+                                        pod_affinity_term=_term(api, lbl, rng))
+            for _ in range(rng.randint(1, 3))]
+
+
+def _ipa_affinity(api, lbl, rng, bound: bool, solo: str):
+    """The pod's Affinity or None. Required terms of one kind share one
+    topology key (the port refuses pods whose terms span two)."""
+    r = rng.rand()
+    if bound:
+        if r < 0.4:
+            return api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
+                required=[_term(api, lbl, rng)]))
+        if r < 0.55:
+            return api.Affinity(pod_affinity=api.PodAffinity(
+                required=[_term(api, lbl, rng, ZONE)]))
+        if r < 0.75:
+            return api.Affinity(pod_affinity=api.PodAffinity(
+                preferred=_preferred(api, lbl, rng)),
+                pod_anti_affinity=api.PodAntiAffinity(
+                    preferred=_preferred(api, lbl, rng)))
+        return None
+    tk = (HOSTNAME, ZONE)[rng.randint(2)]
+    if r < 0.2:
+        return api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
+            required=[_term(api, lbl, rng, tk)
+                      for _ in range(rng.randint(1, 3))]))
+    if r < 0.35:
+        return api.Affinity(pod_affinity=api.PodAffinity(
+            required=[_term(api, lbl, rng, tk)]))
+    if r < 0.45:
+        # bootstrap: only pods of this `solo` set match the term
+        return api.Affinity(pod_affinity=api.PodAffinity(required=[
+            api.PodAffinityTerm(
+                label_selector=lbl.LabelSelector(match_labels={"solo": solo}),
+                topology_key=tk)]))
+    if r < 0.6:
+        return api.Affinity(pod_affinity=api.PodAffinity(
+            preferred=_preferred(api, lbl, rng)),
+            pod_anti_affinity=api.PodAntiAffinity(
+                preferred=_preferred(api, lbl, rng)))
+    if r < 0.7:
+        return api.Affinity(
+            pod_affinity=api.PodAffinity(required=[_term(api, lbl, rng,
+                                                         ZONE)]),
+            pod_anti_affinity=api.PodAntiAffinity(
+                required=[_term(api, lbl, rng, HOSTNAME)]))
+    return None
+
+
+def _spread(api, lbl, rng, app: str):
+    out = []
+    if rng.rand() < 0.5:
+        sel = (lbl.LabelSelector(match_labels={"app": app})
+               if rng.rand() < 0.9 else None)
+        out.append(api.TopologySpreadConstraint(
+            max_skew=int(rng.randint(1, 3)), topology_key=ZONE,
+            when_unsatisfiable=api.DO_NOT_SCHEDULE, label_selector=sel))
+    if rng.rand() < 0.3:
+        out.append(api.TopologySpreadConstraint(
+            max_skew=1, topology_key=HOSTNAME,
+            when_unsatisfiable=api.SCHEDULE_ANYWAY,
+            label_selector=lbl.LabelSelector(match_labels={"app": app})))
+    return out
+
+
+def make_ipa_pod(pkg: str, rng: np.random.RandomState, name: str,
+                 node_name: str = ""):
+    """One pod of an affinity/spread world: no host ports, random
+    namespace, labels app/grp (and `solo` for some), an Affinity, and for
+    pending pods topology spread constraints."""
+    api, lbl = _mods(pkg)
+    app = "abc"[rng.randint(3)]
+    solo = f"s{rng.randint(2)}"
+    labels = {"app": app, "grp": f"g{rng.randint(3)}"}
+    if rng.rand() < 0.15:
+        labels["solo"] = solo
+    aff = _ipa_affinity(api, lbl, rng, bool(node_name), solo)
+    spread = [] if node_name else _spread(api, lbl, rng, app)
+    return api.Pod(
+        metadata=api.ObjectMeta(name=name, uid=name, labels=labels,
+                                namespace=NAMESPACES[rng.randint(2)]),
+        spec=api.PodSpec(
+            node_name=node_name, affinity=aff,
+            topology_spread_constraints=spread,
+            priority=[None, 0, 5][rng.randint(3)],
+            containers=[api.Container(resources=api.ResourceRequirements(
+                requests=api.resource_list(
+                    cpu=f"{rng.randint(1, 6) * 100}m",
+                    memory=f"{rng.randint(1, 5) * 128}Mi")))]))
+
+
+def _ipa_nodes(pkg: str, rng: np.random.RandomState, n: int):
+    """make_nodes, with the zone label taken off about one node in eight
+    (spread constraints on zone then fail there)."""
+    nodes = make_nodes(pkg, rng, n)
+    for node in nodes:
+        if rng.rand() < 0.125:
+            del node.metadata.labels[ZONE]
+    return nodes
+
+
+def ipa_world(pkg: str, seed: int, n_nodes: int = 12, n_existing: int = 10,
+              n_pending: int = 14, caps=None, featurize: bool = True):
+    """(snapshot, featurized PodBatch, pending pods) of a seeded
+    affinity/spread world, built with the package's own cache, snapshot
+    and featurizer. caps: pre-sized Caps (fewer distinct shapes);
+    featurize=False leaves the batch to the caller (None)."""
+    state = importlib.import_module(f"{pkg}.state.snapshot")
+    cache_mod = importlib.import_module(f"{pkg}.state.cache")
+    feat_mod = importlib.import_module(f"{pkg}.state.featurize")
+    rng = np.random.RandomState(seed)
+    cache = cache_mod.SchedulerCache()
+    snap = state.Snapshot(caps=caps)
+    for node in _ipa_nodes(pkg, rng, n_nodes):
+        cache.add_node(node)
+        snap.set_node(cache.node_infos[node.name])
+    for i in range(n_existing):
+        p = make_ipa_pod(pkg, rng, f"e{i}", f"n{rng.randint(n_nodes)}")
+        cache.add_pod(p)
+        snap.refresh_node_resources(cache.node_infos[p.spec.node_name])
+        snap.add_pod(p)
+    feat = feat_mod.PodFeaturizer(snap, group_selectors(pkg))
+    pods = [make_ipa_pod(pkg, rng, f"p{i}") for i in range(n_pending)]
+    return snap, feat.featurize(pods) if featurize else None, pods
+
+
+def ipa_store_world(pkg: str, seed: int, n_nodes: int, n_pods: int):
+    """A store holding nodes, bound pods with affinity terms, services on
+    `app`, and a pending backlog with pod (anti-)affinity and spread
+    constraints. Returns (store, pending pod names)."""
+    api, _ = _mods(pkg)
+    store_mod = importlib.import_module(f"{pkg}.runtime.store")
+    rng = np.random.RandomState(seed)
+    store = store_mod.ObjectStore()
+    for node in _ipa_nodes(pkg, rng, n_nodes):
+        store.create("nodes", node)
+    for ns in NAMESPACES:
+        for app in ("a", "b"):
+            store.create("services", api.Service(
+                metadata=api.ObjectMeta(name=f"svc-{app}", namespace=ns,
+                                        uid=f"svc-{ns}-{app}"),
+                selector={"app": app}))
+    for i in range(n_pods // 10):
+        store.create("pods", make_ipa_pod(pkg, rng, f"e{i}",
+                                          f"n{rng.randint(n_nodes)}"))
+    names = []
+    for i in range(n_pods):
+        pod = make_ipa_pod(pkg, rng, f"p{i}")
+        store.create("pods", pod)
+        names.append(pod.metadata.name)
+    return store, names
+
+
+def spread_store_world(pkg: str, seed: int, n_nodes: int, n_pods: int,
+                       n_apps: int):
+    """Deployments spread the way users spread them: every pod of
+    Deployment `app=d{k}` carries a hard zone spread (maxSkew 1,
+    DoNotSchedule) and a soft hostname spread (ScheduleAnyway), both
+    selecting its own app. Nodes sit in three zones; a tenth of the
+    backlog's apps already have bound pods. Returns (store, pending pod
+    names)."""
+    api, lbl = _mods(pkg)
+    store_mod = importlib.import_module(f"{pkg}.runtime.store")
+    rng = np.random.RandomState(seed)
+    store = store_mod.ObjectStore()
+    for i in range(n_nodes):
+        size = int(rng.randint(4, 9))
+        store.create("nodes", api.Node(
+            metadata=api.ObjectMeta(name=f"n{i}", uid=f"node-{i}", labels={
+                ZONE: f"z{i % 3}", HOSTNAME: f"n{i}"}),
+            status=api.NodeStatus(
+                allocatable=api.resource_list(cpu=str(size),
+                                              memory=f"{size}Gi", pods=40),
+                conditions=[api.NodeCondition(api.NODE_READY,
+                                              api.COND_TRUE)])))
+
+    def pod(name, app, node_name=""):
+        sel = lbl.LabelSelector(match_labels={"app": app})
+        return api.Pod(
+            metadata=api.ObjectMeta(name=name, uid=name, labels={"app": app}),
+            spec=api.PodSpec(
+                node_name=node_name,
+                topology_spread_constraints=[
+                    api.TopologySpreadConstraint(
+                        max_skew=1, topology_key=ZONE,
+                        when_unsatisfiable=api.DO_NOT_SCHEDULE,
+                        label_selector=sel),
+                    api.TopologySpreadConstraint(
+                        max_skew=1, topology_key=HOSTNAME,
+                        when_unsatisfiable=api.SCHEDULE_ANYWAY,
+                        label_selector=sel)],
+                containers=[api.Container(resources=api.ResourceRequirements(
+                    requests=api.resource_list(
+                        cpu=f"{rng.randint(1, 4) * 100}m",
+                        memory=f"{rng.randint(1, 4) * 128}Mi")))]))
+
+    for i in range(n_pods // 10):
+        store.create("pods", pod(f"e{i}", f"d{rng.randint(n_apps)}",
+                                 f"n{rng.randint(n_nodes)}"))
+    names = []
+    for i in range(n_pods):
+        p = pod(f"p{i}", f"d{rng.randint(n_apps)}")
+        store.create("pods", p)
+        names.append(p.metadata.name)
+    return store, names
+
+
+def zone_skew(store) -> dict:
+    """app -> max minus min count of its bound pods over the zones."""
+    zone_of = {n.metadata.name: n.metadata.labels.get(ZONE)
+               for n in store.list("nodes")}
+    zones = sorted({z for z in zone_of.values() if z})
+    counts: dict = {}
+    for p in store.list("pods"):
+        if p.spec.node_name:
+            c = counts.setdefault(p.metadata.labels["app"], dict.fromkeys(
+                zones, 0))
+            c[zone_of[p.spec.node_name]] += 1
+    return {app: max(c.values()) - min(c.values())
+            for app, c in counts.items()}
