@@ -5,13 +5,18 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device  — the card's name and power limit, the CUDA and torch versions;
-  2. build   — compiles csrc/taint_ports.cu for sm_90a from this checkout;
+  2. build   — compiles csrc/taint_ports.cu and csrc/preempt_whatif.cu
+               for sm_90a from this checkout, one nvcc each, together;
   3. kernel  — the taint/host-port kernel against its plain PyTorch version
                on seeded worlds at the main path's shapes and at the
                kernel's edges (taint_ports.EDGE_TABLES; exact equality),
                then timed on a dense world, on a world with no toleration
                and no port (its store path alone), and beside a plain
-               fill of the same two outputs (the card's write rate);
+               fill of the same two outputs (the card's write rate); the
+               what-if kernel against its plain version run on a CPU copy
+               of the same inputs (preempt.EDGE_WORLDS and two worlds at
+               the drains' widths; exact equality — the plain version on
+               the card sums by atomics in no fixed order);
   4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
                30 000-pod backlog; the store's bindings must respect every
@@ -26,7 +31,10 @@ Phases (any failure exits non-zero and prints no result line):
                kernel's bound;
   5. parity  — reduced worlds of the density, mixed and spread shapes
                (500 nodes, 1 000 pods, same seed) scheduled on the card and
-               on the CPU: identical bindings;
+               on the CPU: identical bindings; then bench.py's preempt
+               shape (50 nodes, 100 hogs, 100 vips) and its gangstorm
+               shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
+               clock: identical bindings and victim sets;
   6. mixed   — bench.py's mixed5k shape at full width: 5 000 nodes with
                node-affinity labels, 30 000 pods in four quarters (density,
                required node affinity, service spreading, required hostname
@@ -44,11 +52,31 @@ Phases (any failure exits non-zero and prints no result line):
                with a hard zone spread (maxSkew 1) and a soft hostname
                spread: every Deployment's zone counts differ by at most 1,
                every round runs with topology spread; the same timing
-               lines, and topo_statics timed on one full-width wave.
-Each drain sets the kernel's launch count to 0 before it and reads it
-after. Then it prints the kernel table as one JSON line (launches of
-every drain), the card's name and power limit, and last
-{"ok": true, "device": {...}}.
+               lines, and topo_statics timed on one full-width wave;
+  8. gang    — bench.py's gangstorm shape at 5 000 nodes, P = 16: 2 400
+               gangs of 8 members (4 cores, priority 1, min-available 8)
+               fill 96% of the CPU slots, one dispatch a gang; then 1 600
+               single 4-core pods at priority 1000 get in by preemption.
+               Every high pod bound, every gang with 0 or 8 members
+               bound, every victim at priority 1, evictions a multiple of
+               8, every resource respected. Printed: pods/s of the fill
+               and of the high pods, gang dispatches, evictions, host
+               seconds by phase, each kernel's launches;
+  9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
+               priority-1 hogs of 8 cores (two a node), then 10 000
+               priority-100 vips of 8 cores, each placing only by
+               evicting a hog. 10 000 placed, 10 000 evicted, every
+               preemption done by the pipeline. Printed: vip pods/s,
+               what-if chunks and launches, the what-if kernel's ms a
+               chunk by CUDA events beside its bound, its plain
+               version's ms on the CPU, host validation seconds.
+Phases 8 and 9 run with PodBackoff(initial=0.001), as bench.py
+run_preempt_config does. In each, one what-if input of each pod-row
+count is captured and the kernel held equal to the plain version on a
+CPU copy of it. Each drain sets both kernels' launch counts to 0 before
+it and reads them after. Then it prints the kernel table as one JSON
+line (launches of every drain), the card's name and power limit, and
+last {"ok": true, "device": {...}}.
 
 It needs the kubernetes_tpu_torch package beside it, and a CUDA card.
 """
@@ -68,6 +96,16 @@ SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
 SPREAD_PODS, SPREAD_APPS = 10000, 20
 SMALL_NODES, SMALL_PODS = 500, 1000
+# phase 8 (bench.py gangstorm, scaled to 5 000 nodes): gangs of 8 pods of
+# 4 cores at priority 1 fill 96% of the 4 slots a node, then high pods
+GANGS, GANG_SIZE, GANG_HIGH = 2400, 8, 1600
+GANG_P = 16
+# phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
+# as many 8-core vips
+PREEMPT_VIPS = 10000
+# phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
+SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
+SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
 WAVE = 128
 # the round's wave cap with inter-pod affinity (sched/scheduler.py)
 IPA_MAX_WAVES = 64
@@ -282,6 +320,160 @@ def build_spread(api, lbl, store_mod, n_nodes: int, n_pods: int,
                             requests=api.resource_list(
                                 cpu="100m", memory="128Mi")))])))
     return store, 0
+
+
+def batch_pod(api, name, prefix, cpu, priority, gang=None):
+    """bench.py _base_pod (100m / 128Mi, controlled by an RC) with its
+    CPU request set to `cpu` cores and a priority; gang: a PodGroup name,
+    min-available GANG_SIZE."""
+    p = api.Pod(
+        metadata=api.ObjectMeta(
+            name=name, labels={"type": prefix},
+            owner_references=[api.OwnerReference(
+                kind="ReplicationController", name=prefix,
+                uid=f"rc-{prefix}", controller=True)]),
+        spec=api.PodSpec(priority=priority, containers=[api.Container(
+            resources=api.ResourceRequirements(
+                requests=api.resource_list(cpu=str(cpu),
+                                           memory="128Mi")))]))
+    if gang is not None:
+        p.metadata.annotations = {
+            api.POD_GROUP_NAME_ANNOTATION: gang,
+            api.POD_GROUP_MIN_AVAILABLE_ANNOTATION: str(GANG_SIZE)}
+    return p
+
+
+def add_gangs(api, store, n_gangs):
+    """bench.py's gangstorm gangs: n_gangs PodGroups of GANG_SIZE members,
+    4 cores each at priority 1, min-available GANG_SIZE."""
+    for g in range(n_gangs):
+        for j in range(GANG_SIZE):
+            store.create("pods", batch_pod(api, f"gang-{g}-m{j}", "storm-low",
+                                           4, 1, gang=f"gang-{g}"))
+
+
+def add_singles(api, store, prefix, n, cpu, priority):
+    for i in range(n):
+        store.create("pods", batch_pod(api, f"{prefix}-{i}", prefix, cpu,
+                                       priority))
+
+
+class VirtualClock:
+    """A clock that moves only when told to: backoff deadlines then fall
+    at the same points of a run on the card and on the CPU."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def settle(sched, clock=None, limit=200):
+    """schedule_pending until no pod is pending, stepping the virtual
+    clock (or sleeping past PodBackoff(initial=0.001)) between passes;
+    stops after `limit` passes in a row that place nothing. Returns pods
+    placed."""
+    placed = sched.schedule_pending()
+    stalled = 0
+    while sched.pending_count() and stalled < limit:
+        if clock is not None:
+            clock.t += 1.0
+        else:
+            time.sleep(0.002)
+        n = sched.schedule_pending()
+        placed += n
+        stalled = stalled + 1 if n == 0 else 0
+    return placed
+
+
+def gang_counts(api, store):
+    """gang name -> bound members, over the gang pods still in the store."""
+    out = {}
+    for p in store.list("pods"):
+        g = api.pod_group_name(p)
+        if g is not None:
+            out[g] = out.get(g, 0) + bool(p.spec.node_name)
+    return out
+
+
+def small_world(api, store_mod, enc, bucket_size, Scheduler, PodBackoff,
+                kind, device):
+    """Phase 5's reduced preempt or gangstorm world on `device`, driven
+    to the end on a virtual clock: (bindings, evictions)."""
+    store = store_mod.ObjectStore()
+    clock = VirtualClock()
+    if kind == "preempt":
+        nodes, arrivals = SMALL_PREEMPT_NODES, 2 * SMALL_PREEMPT_NODES + SMALL_VIPS
+        caps = enc.Caps(M=bucket_size(2 * arrivals + 64), P=WAVE,
+                        LV=bucket_size(nodes + 256, 64))
+    else:
+        nodes = SMALL_GANG_NODES
+        arrivals = GANG_SIZE * SMALL_GANGS + SMALL_HIGH
+        caps = enc.Caps(M=bucket_size(2 * arrivals + 64), P=GANG_P,
+                        LV=bucket_size(nodes + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock, backoff=PodBackoff(initial=0.001,
+                                                      clock=clock))
+    add_plain_nodes(api, store, nodes)
+    if kind == "preempt":
+        add_singles(api, store, "hog", 2 * nodes, 8, 1)
+        settle(sched, clock)
+        add_singles(api, store, "vip", SMALL_VIPS, 8, 100)
+    else:
+        add_gangs(api, store, SMALL_GANGS)
+        settle(sched, clock)
+        add_singles(api, store, "high", SMALL_HIGH, 4, 1000)
+    settle(sched, clock)
+    check_bindings(api, store)
+    return bindings(store), sched.preemption_victims
+
+
+def whatif_bound(torch, pre, w, int_rate):
+    """(least ms, what bounds it, bytes, ops) of the what-if kernel on
+    these inputs: each input read once and the [5, P, N] output written
+    once over HBM bandwidth, against the integer work this run's data
+    needs over the card's integer rate — for each (pod, node) the static
+    predicates pass, every row of the node once for each level walked up
+    to the one taken (2 ops a resource column and 6 a row), plus the fit
+    test (4 a column and 3) of each of those levels."""
+    cpu = pre.WhatIf(*[None if t is None else t.cpu() for t in w])
+    _, level = pre.whatif_plain(cpu, with_level=True)
+    P, N = cpu.static_ok.shape
+    M, R = cpu.ep_req.shape
+    L = cpu.levels.shape[0]
+    walked = torch.where(level < L, level + 1, L).to(torch.int64)
+    walked = walked * cpu.static_ok
+    row_ptr, _ = pre.node_rows(cpu.ep_node, N)
+    rows_n = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
+    ops = int((walked * (rows_n[None, :] * (2 * R + 6) + 4 * R + 3)).sum())
+    in_bytes = (2 * 4 * N * R + 2 * 4 * N + 4 * M * R + 4 * M + M
+                + (4 * M if cpu.gang_w is not None else 0)
+                + 4 * (N + 1) + 4 * M + 4 * L + 4 * P * R + 4 * P + P * N)
+    out_bytes = 5 * 4 * P * N
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            in_bytes + out_bytes, ops)
+
+
+def check_whatif(torch, pre, w, what):
+    """The what-if kernel on `w` (on the card) against the plain version
+    on a CPU copy of it: exact equality of the packed planes, launched
+    once. Returns the largest |kernel - plain| over the planes."""
+    before = pre.preempt_whatif.launches
+    got = pre.preempt_whatif(w)
+    torch.cuda.synchronize()
+    if pre.preempt_whatif.launches != before + 1:
+        fail(f"the what-if kernel did not launch once ({what})")
+    want = pre.whatif_plain(pre.WhatIf(*[None if t is None else t.cpu()
+                                         for t in w]))
+    got = got.cpu()
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        bad = [i for i in range(5) if not torch.equal(got[i], want[i])]
+        fail(f"what-if kernel != plain on the CPU (planes {bad}, {what})")
+    return err
 
 
 def scheduler_caps(enc, bucket_size, n_nodes, n_pods, n_bound, n_terms=0):
@@ -517,7 +709,7 @@ def drain(torch, mods, name, store, caps, n_bound, statics=None,
     every invariant of check_bindings, every round must launch the
     kernel on its live rows only, and the scheduler must report the
     card. Returns a dict of what was seen."""
-    api, tp, kernel_mod, sched_mod, Scheduler = mods
+    api, tp, pre, kernel_mod, sched_mod, Scheduler = mods[:6]
     sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda")
     clock = PhaseClock()
     sync = torch.cuda.synchronize
@@ -591,12 +783,14 @@ def drain(torch, mods, name, store, caps, n_bound, statics=None,
     if statics:
         setattr(kernel_mod, statics, capture_statics)
     tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
     try:
         t0 = time.monotonic()
         placed = sched.schedule_pending()
         sync()
         wall = time.monotonic() - t0
         launches = tp.taint_ports_masks.launches
+        seen["whatif_launches"] = pre.preempt_whatif.launches
     finally:
         kernel_mod.taint_ports_masks = kernel_launch
         sched_mod.schedule_round = round_fn
@@ -660,6 +854,235 @@ def time_statics(torch, name, fn, args, rounds, flag):
     return ms
 
 
+class Watch:
+    """Phases 8 and 9: one Scheduler on the card whose host phases, gang
+    dispatches and what-if chunks are timed and counted, and whose
+    what-if inputs are captured (a copy of the first of each pod-row
+    count) — by wrapping the callables the scheduler calls."""
+
+    def __init__(self, torch, mods, store, caps):
+        api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff = mods
+        self.torch, self.tp, self.pre, self.sched_mod = torch, tp, pre, sched_mod
+        self.sched = sched = Scheduler(store, wave_size=WAVE, caps=caps,
+                                       device="cuda",
+                                       backoff=PodBackoff(initial=0.001))
+        self.clock = clock = PhaseClock()
+        sync = torch.cuda.synchronize
+        sched.featurizer.featurize = clock.wrap("featurize",
+                                                sched.featurizer.featurize)
+        sched.snapshot.stage_pending = clock.wrap(
+            "stage", sched.snapshot.stage_pending)
+        sched.snapshot.to_device = clock.wrap("upload",
+                                              sched.snapshot.to_device, sync)
+        sched._commit = clock.wrap("commit", sched._commit)
+        sched._commit_gang = clock.wrap("commit", sched._commit_gang)
+        sched._perform_preemption = self._count_preemptions(
+            clock.wrap("evict", sched._perform_preemption))
+        # the gang directory's scans of the cache (bound members, placed
+        # gangs), each over every node's pods
+        for name in ("bound_count", "placed_by_gang"):
+            setattr(sched.gangs, name,
+                    clock.wrap("gang_scan", getattr(sched.gangs, name)))
+        # a preemption chunk's own host time — ranking the candidates of
+        # each pod, skipping claimed nodes — is its time less that of the
+        # phases above it ran
+        chunk = sched._preempt_chunk
+
+        def ranked_chunk(*a, **kw):
+            before = sum(clock.seconds.values())
+            t0 = time.monotonic()
+            out = chunk(*a, **kw)
+            sync()
+            own = (time.monotonic() - t0
+                   - (sum(clock.seconds.values()) - before))
+            clock.seconds["rank"] = clock.seconds.get("rank", 0.0) + own
+            return out
+
+        sched._preempt_chunk = ranked_chunk
+        self.preemptions = 0
+        self.gang_dispatches = 0
+        self.chunks = 0
+        self.captured = {}
+        self.saved = {name: getattr(sched_mod, name) for name in
+                      ("schedule_round", "schedule_gang", "preemption_stats",
+                       "select_victims_on_node")}
+        self.saved_inputs = pre.whatif_inputs
+
+        def gang(*a, **kw):
+            self.gang_dispatches += 1
+            return self.saved["schedule_gang"](*a, **kw)
+
+        def whatif_chunk(*a, **kw):
+            self.chunks += 1
+            return self.saved["preemption_stats"](*a, **kw)
+
+        def capture(*a, **kw):
+            w = self.saved_inputs(*a, **kw)
+            P = w.static_ok.shape[0]
+            if P not in self.captured:
+                self.captured[P] = pre.WhatIf(*[
+                    None if t is None else t.clone() for t in w])
+            return w
+
+        sched_mod.schedule_round = clock.wrap(
+            "device_round", self.saved["schedule_round"], sync)
+        sched_mod.schedule_gang = clock.wrap("gang_dispatch", gang, sync)
+        sched_mod.preemption_stats = clock.wrap("whatif", whatif_chunk, sync)
+        sched_mod.select_victims_on_node = clock.wrap(
+            "validate", self.saved["select_victims_on_node"])
+        pre.whatif_inputs = capture
+
+    def _count_preemptions(self, fn):
+        def counted(*a, **kw):
+            self.preemptions += 1
+            return fn(*a, **kw)
+        return counted
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.sched_mod, name, fn)
+        self.pre.whatif_inputs = self.saved_inputs
+
+    def stage(self, name, want):
+        """Drain what is pending; returns (placed, wall seconds)."""
+        t0 = time.monotonic()
+        placed = settle(self.sched)
+        self.torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        log(f"[{name}] placed {placed} in {wall:.3f} s = "
+            f"{placed / wall:.1f} pods/s")
+        if placed != want:
+            fail(f"{name}: placed {placed}, expected {want}")
+        return placed, wall
+
+    def report(self, name, wall):
+        phases = dict(self.clock.seconds)
+        phases["other"] = wall - sum(phases.values())
+        log(f"[{name}] host seconds by phase: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in phases.items()))
+
+
+def gang_phase(torch, mods, enc, bucket_size):
+    """Phase 8: the gangstorm drain at 5 000 nodes. Returns what it saw."""
+    api, tp, pre = mods[0], mods[1], mods[2]
+    store_mod = mods[-1]
+    mods = mods[:-1]
+    store = store_mod.ObjectStore()
+    arrivals = GANGS * GANG_SIZE + GANG_HIGH
+    caps = enc.Caps(M=bucket_size(2 * arrivals + 64), P=GANG_P,
+                    LV=bucket_size(FULL_NODES + 256, 64))
+    watch = Watch(torch, mods, store, caps)
+    add_plain_nodes(api, store, FULL_NODES)
+    add_gangs(api, store, GANGS)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    try:
+        t0 = time.monotonic()
+        _, fill_wall = watch.stage("gang fill", GANGS * GANG_SIZE)
+        fill_dispatches = watch.gang_dispatches
+        gang_launches = tp.taint_ports_masks.launches
+        created = {p.metadata.name for p in store.list("pods")}
+        add_singles(api, store, "high", GANG_HIGH, 4, 1000)
+        # the high pods place into the free slots or by evicting gangs:
+        # placed counts them and the evicted gangs' re-placements (none)
+        _, high_wall = watch.stage("gang high", GANG_HIGH)
+        wall = time.monotonic() - t0
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        watch.restore()
+    sched = watch.sched
+    check_bindings(api, store)
+    pods = {p.metadata.name: p for p in store.list("pods")}
+    highs = [p for n, p in pods.items() if n.startswith("high-")]
+    if len(highs) != GANG_HIGH or not all(p.spec.node_name for p in highs):
+        fail("gang: a high pod is not bound")
+    counts = gang_counts(api, store)
+    split = {g: n for g, n in counts.items() if n not in (0, GANG_SIZE)}
+    if split:
+        fail(f"gang: gangs partially bound: {list(split.items())[:5]}")
+    evicted = created - set(pods)
+    if len(evicted) != sched.preemption_victims:
+        fail(f"gang: {len(evicted)} pods gone, {sched.preemption_victims} "
+             "counted as evicted")
+    if any(not n.startswith("gang-") for n in evicted):
+        fail("gang: a victim is not a priority-1 gang member")
+    if len(evicted) % GANG_SIZE:
+        fail(f"gang: {len(evicted)} evictions, not a multiple of "
+             f"{GANG_SIZE}")
+    if launches < 1 or whatif_launches < 1:
+        fail(f"gang: kernel launches {launches}, what-if launches "
+             f"{whatif_launches}")
+    log(f"[gang] fill: {GANGS} gangs of {GANG_SIZE} in {fill_wall:.3f} s = "
+        f"{GANGS * GANG_SIZE / fill_wall:.1f} pods/s, {fill_dispatches} gang "
+        f"dispatches, {gang_launches} taint/port launches; high: "
+        f"{GANG_HIGH} pods in {high_wall:.3f} s = "
+        f"{GANG_HIGH / high_wall:.1f} pods/s, {watch.preemptions} "
+        f"preemptions ({sched.pipeline_preemptions} by the pipeline), "
+        f"{len(evicted)} evictions = {len(evicted) // GANG_SIZE} whole "
+        f"gangs; {len(counts)} gangs left, all whole")
+    log(f"[gang] kernel launches: taint/port {launches}, what-if "
+        f"{whatif_launches} in {watch.chunks} chunks; invariants hold")
+    watch.report("gang", wall)
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                captured=watch.captured)
+
+
+def preempt_phase(torch, mods, enc, bucket_size):
+    """Phase 9: the preempt drain at 5 000 nodes. Returns what it saw."""
+    api, tp, pre = mods[0], mods[1], mods[2]
+    store_mod = mods[-1]
+    mods = mods[:-1]
+    store = store_mod.ObjectStore()
+    hogs = 2 * FULL_NODES
+    caps = enc.Caps(M=bucket_size(hogs + PREEMPT_VIPS + hogs + 64), P=WAVE,
+                    LV=bucket_size(FULL_NODES + 256, 64))
+    watch = Watch(torch, mods, store, caps)
+    add_plain_nodes(api, store, FULL_NODES)
+    add_singles(api, store, "hog", hogs, 8, 1)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    try:
+        t0 = time.monotonic()
+        _, fill_wall = watch.stage("preempt fill", hogs)
+        fill_clock = dict(watch.clock.seconds)
+        watch.clock.seconds.clear()
+        add_singles(api, store, "vip", PREEMPT_VIPS, 8, 100)
+        _, vip_wall = watch.stage("preempt vips", PREEMPT_VIPS)
+        wall = time.monotonic() - t0
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        watch.restore()
+    sched = watch.sched
+    check_bindings(api, store)
+    pods = {p.metadata.name: p for p in store.list("pods")}
+    vips = [p for n, p in pods.items() if n.startswith("vip-")]
+    if len(vips) != PREEMPT_VIPS or not all(p.spec.node_name for p in vips):
+        fail("preempt: a vip is not bound")
+    if sched.preemption_victims != PREEMPT_VIPS or len(pods) != hogs:
+        fail(f"preempt: {sched.preemption_victims} evicted, {len(pods)} "
+             f"pods left; expected {PREEMPT_VIPS} and {hogs}")
+    if watch.preemptions != sched.pipeline_preemptions:
+        fail(f"preempt: {watch.preemptions} preemptions, "
+             f"{sched.pipeline_preemptions} by the pipeline")
+    if launches < 1 or whatif_launches < 1:
+        fail(f"preempt: kernel launches {launches}, what-if launches "
+             f"{whatif_launches}")
+    log(f"[preempt] fill: {hogs} hogs at {hogs / fill_wall:.1f} pods/s "
+        f"(host seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in fill_clock.items()) + ")")
+    log(f"[preempt] vips: {PREEMPT_VIPS} in {vip_wall:.3f} s = "
+        f"{PREEMPT_VIPS / vip_wall:.1f} pods/s; {sched.preemption_victims} "
+        f"evicted, {sched.pipeline_preemptions} preemptions all by the "
+        f"pipeline; what-if chunks {watch.chunks}, launches "
+        f"{whatif_launches}; taint/port launches {launches}; host "
+        f"validation {watch.clock.seconds.get('validate', 0.0):.3f} s")
+    watch.report("preempt vips", vip_wall)
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                captured=watch.captured)
+
+
 # --- main ----------------------------------------------------------------------
 
 
@@ -677,14 +1100,17 @@ def main() -> None:
     from kubernetes_tpu_torch.ops import affinity
     from kubernetes_tpu_torch.ops import encoding as enc
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
+    from kubernetes_tpu_torch.ops import preempt as pre
     from kubernetes_tpu_torch.ops import taint_ports as tp
     from kubernetes_tpu_torch.ops import topology
     from kubernetes_tpu_torch.runtime import store as store_mod
     from kubernetes_tpu_torch.sched import scheduler as sched_mod
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
     from kubernetes_tpu_torch.state.vocab import bucket_size
+    from kubernetes_tpu_torch.utils.backoff import PodBackoff
 
-    mods = (api, tp, kernel_mod, sched_mod, Scheduler)
+    mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
+    phase_mods = mods + (PodBackoff, store_mod)
     t_start = time.monotonic()
     # 1. device
     smi = subprocess.run(
@@ -698,13 +1124,32 @@ def main() -> None:
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
-    # 2. build
-    tp.build()
-    log(f"[build] {tp.build_info['library']} in "
-        f"{tp.build_info['seconds']:.2f} s")
-    for line in tp.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    # 2. build: one nvcc for each source, started together
+    import threading
+
+    errors = []
+
+    def build(mod):
+        try:
+            mod.build()
+        except Exception as e:  # reported below, and the run fails
+            errors.append(f"{mod.SOURCE.name}: {e}")
+
+    t_build = time.monotonic()
+    threads = [threading.Thread(target=build, args=(m,)) for m in (tp, pre)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail("kernel build failed: " + "; ".join(errors))
+    log(f"[build] both kernels in {time.monotonic() - t_build:.2f} s")
+    for mod in (tp, pre):
+        log(f"[build] {mod.build_info['library']} in "
+            f"{mod.build_info['seconds']:.2f} s")
+        for line in mod.build_info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
     # 3. kernel against its plain version at the main path's shapes and
     # at its edges
@@ -716,7 +1161,8 @@ def main() -> None:
     effects_all = {"noschedule+noexecute": tp.DEFAULT_EFFECTS,
                    "noexecute": (enc.EFFECT_NO_EXECUTE,)}
     max_err = 0
-    cases = [(WAVE, FULL_NODES, {}), (round_rows, FULL_NODES, {}),
+    cases = [(WAVE, FULL_NODES, {}), (GANG_P, n_bucket, {}),
+             (round_rows, FULL_NODES, {}),
              (round_rows - 37, FULL_NODES + 3, {}), (round_rows, n_bucket, {}),
              (1000, FULL_NODES, dict(tolerations="none")),
              (1000, FULL_NODES, dict(tolerations="all", TL=8, PQ=8,
@@ -750,6 +1196,18 @@ def main() -> None:
         f"{fill_ms:.4f} ms = {2 * round_rows * n_bucket / fill_ms / 1e9:.3f} "
         "TB/s")
     del nt, pb, outs
+    # the what-if kernel against its plain version on a CPU copy, at its
+    # edges and at the drains' widths
+    whatif_err = 0
+    for P, N, M, kw in pre.EDGE_WORLDS + (
+            (WAVE, n_bucket, 32768, dict(large=True)),
+            (GANG_P, n_bucket, 65536, {})):
+        w = pre.random_whatif(P, N, M, seed=SEED + P + N, **kw)
+        whatif_err = max(whatif_err, check_whatif(
+            torch, pre, w, f"P={P}, N={N}, M={M}, {kw}"))
+        log(f"[kernel] what-if P={P} N={N} M={M} {kw or ''}: kernel == "
+            "plain on the CPU")
+    del w
 
     # 4. the density drain at full size
     store, n_bound = build_store(api, store_mod, FULL_NODES, FULL_PODS, SEED)
@@ -817,6 +1275,24 @@ def main() -> None:
                  f"pods, e.g. {diff[:5]}")
         log(f"[parity] {wname}, {SMALL_NODES} nodes, {SMALL_PODS} pods: "
             "card == CPU bindings")
+    for wname in ("preempt", "gangstorm"):
+        got = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            got[device] = small_world(api, store_mod, enc, bucket_size,
+                                      Scheduler, PodBackoff, wname, device)
+            log(f"[parity] {wname} {device}: "
+                f"{sum(1 for v in got[device][0].values() if v)} bound, "
+                f"{got[device][1]} evicted in "
+                f"{time.monotonic() - t0:.3f} s")
+        if got["cuda"] != got["cpu"]:
+            a, b = got["cuda"][0], got["cpu"][0]
+            diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+            fail(f"{wname}: card and CPU differ (evicted {got['cuda'][1]} / "
+                 f"{got['cpu'][1]}; pods {diff[:5]})")
+        if not got["cuda"][1]:
+            fail(f"{wname}: nothing was evicted")
+        log(f"[parity] {wname}: card == CPU bindings and victim sets")
 
     # 6. the mixed5k drain at full width
     store, n_bound = build_mixed(api, lbl, store_mod, FULL_NODES, FULL_PODS)
@@ -871,9 +1347,51 @@ def main() -> None:
     max_err = max(max_err, check_captured(torch, tp, "spread",
                                           spread.pop("captured")))
     del store
-    launches = dens["launches"] + mixed["launches"] + spread["launches"]
-    log(f"[smoke] kernel launches: density {dens['launches']}, mixed "
-        f"{mixed['launches']}, spread {spread['launches']}; total "
+    torch.cuda.empty_cache()
+
+    # 8. the gangstorm drain
+    gang = gang_phase(torch, phase_mods, enc, bucket_size)
+    for P, w in sorted(gang.pop("captured").items()):
+        whatif_err = max(whatif_err, check_whatif(
+            torch, pre, w, f"gang drain input, P={P}"))
+        log(f"[gang] what-if kernel == plain on the drain's input P={P} "
+            f"N={w.static_ok.shape[1]} M={w.ep_node.shape[0]}")
+    torch.cuda.empty_cache()
+
+    # 9. the preempt drain
+    prem = preempt_phase(torch, phase_mods, enc, bucket_size)
+    captured = prem.pop("captured")
+    for P, w in sorted(captured.items()):
+        whatif_err = max(whatif_err, check_whatif(
+            torch, pre, w, f"preempt drain input, P={P}"))
+        log(f"[preempt] what-if kernel == plain on the drain's input P={P}")
+    w = captured[max(captured)]
+    w_ms = cuda_ms(torch, lambda: pre.preempt_whatif(w), reps=5, runs=3)
+    cpu_w = pre.WhatIf(*[None if t is None else t.cpu() for t in w])
+    t0 = time.monotonic()
+    pre.whatif_plain(cpu_w)
+    w_plain_ms = 1e3 * (time.monotonic() - t0)
+    w_bound, w_by, w_bytes, w_ops = whatif_bound(torch, pre, w, int_rate)
+    P, N = w.static_ok.shape
+    log(f"[preempt] what-if kernel on one chunk (P={P}, N={N}, "
+        f"M={w.ep_node.shape[0]}): {w_ms:.4f} ms a chunk, bound "
+        f"{w_bound:.4f} ms ({w_by}: {w_bytes} B, {w_ops} ops), "
+        f"{w_bound / w_ms:.1%} of bound; plain version on the CPU "
+        f"{w_plain_ms:.1f} ms; no single PyTorch call computes this "
+        "function, so no library time")
+    del w, cpu_w, captured
+    launches = (dens["launches"] + mixed["launches"] + spread["launches"]
+                + gang["launches"] + prem["launches"])
+    whatif_launches = (dens["whatif_launches"] + mixed["whatif_launches"]
+                       + spread["whatif_launches"] + gang["whatif_launches"]
+                       + prem["whatif_launches"])
+    log(f"[smoke] taint/port kernel launches: density {dens['launches']}, "
+        f"mixed {mixed['launches']}, spread {spread['launches']}, gang "
+        f"{gang['launches']}, preempt {prem['launches']}; what-if kernel "
+        f"launches: density {dens['whatif_launches']}, mixed "
+        f"{mixed['whatif_launches']}, spread {spread['whatif_launches']}, "
+        f"gang {gang['whatif_launches']}, preempt "
+        f"{prem['whatif_launches']}; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -887,6 +1405,18 @@ def main() -> None:
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "preempt_whatif",
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/preempt_whatif.cu",
+        "replaces": "kubernetes_tpu/ops/preempt.py:85",
+        "launches": whatif_launches,
+        "max_abs_err": whatif_err,
+        "ms": w_ms,
+        "plain_ms": w_plain_ms,
+        "bound_ms": w_bound,
+        "bound_by": w_by,
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

@@ -162,6 +162,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA card")
     sys.path.insert(0, str(REPO))
+    from kubernetes_tpu_torch.ops import cuda_build
     from kubernetes_tpu_torch.ops import encoding as enc
     from kubernetes_tpu_torch.ops import taint_ports as tp
 
@@ -174,7 +175,8 @@ def main() -> None:
     if args.baseline is not None:
         sources["baseline"] = args.baseline.read_text()
     sources["floor"] = FLOOR
-    libs = build_all(tp._nvcc(), sources, tp.BUILD_DIR / "variants")
+    libs = build_all(cuda_build.nvcc(), sources,
+                     cuda_build.BUILD_DIR / "variants")
     ptr = ctypes.c_void_p
     for name, lib in libs.items():
         if name == "floor":

@@ -11,9 +11,13 @@ Layout (each module sits under the same path as its counterpart):
   state/    -- scheduler cache, NodeInfo, vocab interning, featurizer,
                the tensor snapshot and its device upload
   ops/      -- the device path: selector programs, filters, scores, the
-               wave/round, and the taint/host-port CUDA kernel
-  csrc/     -- CUDA C++ sources, built at first use into _build/
-  sched/    -- the scheduler's main path: queue, round, commit
+               wave/round, the gang dispatch, the preemption what-if, and
+               the build of the CUDA kernels
+  csrc/     -- CUDA C++ sources (taint/host-port, preemption what-if),
+               built at first use into _build/
+  plugins/  -- the golden host predicates (preemption's victim checks)
+  utils/    -- per-pod exponential backoff
+  sched/    -- the scheduler: queue, rounds, gangs, preemption, commit
 
 Entry points run on the CUDA card unless asked for the CPU
 (device="cpu"); without a card they raise.

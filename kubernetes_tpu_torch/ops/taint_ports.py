@@ -8,9 +8,9 @@ The semantics are those of the reference's predicates.go:1504
 plain versions below spell them out.
 
 The kernel source is csrc/taint_ports.cu. It is compiled on first use
-with nvcc for sm_90a into kubernetes_tpu_torch/_build/ (a shared library
-with a plain C entry, loaded with ctypes) — from the sources in the
-package only. A failed build raises with nvcc's output.
+with nvcc for sm_90a into kubernetes_tpu_torch/_build/ (ops/cuda_build.py:
+a shared library with a plain C entry, loaded with ctypes) — from the
+sources in the package only. A failed build raises with nvcc's output.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from the kernel to the plain
@@ -20,25 +20,18 @@ version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from . import encoding as enc
+from .cuda_build import PKG, compile_shared
 from .encoding import NodeTensors, PodBatch
 
 DEFAULT_EFFECTS = (enc.EFFECT_NO_SCHEDULE, enc.EFFECT_NO_EXECUTE)
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "taint_ports.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = PKG / "csrc" / "taint_ports.cu"
 # the largest taint and port slot counts per node the kernel is held to
 # its plain version at (its per-node counts are 8-bit fields)
 MAX_TAINTS = 16
@@ -170,18 +163,6 @@ _LIB = None
 build_info: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
-
-
 def build() -> ctypes.CDLL:
     """Compile csrc/taint_ports.cu for sm_90a (once per process; the
     library is cached under _build/ by the source's hash) and load it.
@@ -190,24 +171,7 @@ def build() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src).hexdigest()[:12]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"libtaint_ports-{tag}.so"
-        t0 = time.monotonic()
-        log = ""
-        if not out.exists():
-            tmp = BUILD_DIR / f".libtaint_ports-{tag}-{os.getpid()}.so"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {SOURCE.name} "
-                    f"(exit {proc.returncode}):\n{log}")
-            os.replace(tmp, out)
+        out, log, seconds = compile_shared(SOURCE, "taint_ports")
         lib = ctypes.CDLL(str(out))
         ptr = ctypes.c_void_p
         lib.ktt_taint_ports.argtypes = (
@@ -219,8 +183,7 @@ def build() -> ctypes.CDLL:
         lib.ktt_launch_plan.restype = ctypes.c_int
         lib.ktt_error_string.argtypes = [ctypes.c_int]
         lib.ktt_error_string.restype = ctypes.c_char_p
-        build_info.update(seconds=time.monotonic() - t0, log=log,
-                          library=out.name)
+        build_info.update(seconds=seconds, log=log, library=out.name)
         _LIB = lib
         return lib
 

@@ -1,7 +1,8 @@
 // A host stand-in for the parts of the CUDA runtime that
-// kubernetes_tpu_torch/csrc/taint_ports.cu uses, so that its kernel can be
-// compiled with a C++20 host compiler and run on the CPU
-// (tests/test_torch_taint_ports_host.py). Each CUDA thread of a block is
+// kubernetes_tpu_torch/csrc/taint_ports.cu and csrc/preempt_whatif.cu use,
+// so that their kernels can be compiled with a C++20 host compiler and run
+// on the CPU (tests/test_torch_taint_ports_host.py,
+// tests/test_torch_preempt_host.py). Each CUDA thread of a block is
 // one std::thread, __syncthreads is a std::barrier over them, and the
 // blocks of a grid run one after another over one shared-memory buffer.
 // It checks the kernel's logic (compaction, merging, double buffering,
@@ -124,4 +125,16 @@ void host_launch(dim3 grid, dim3 block, size_t bytes, cudaStream_t, K kernel,
           });
       for (auto& t : threads) t.join();
     }
+}
+
+// IEEE single-precision arithmetic rounded to nearest, one operation at a
+// time (the card's __fadd_rn / __fsub_rn / __fmul_rn); the host compile
+// turns FMA contraction off (-ffp-contract=off)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
 }

@@ -246,7 +246,8 @@ def test_bindings_match_the_jax_scheduler(seed):
     want = _jax_bindings(seed, 32, 300)
     store, names = ipa_store_world("kubernetes_tpu_torch", seed, 32, 300)
     sched = tsched.Scheduler(store, device="cpu",
-                             caps=tenc.Caps(**STORE_CAPS))
+                             caps=tenc.Caps(**STORE_CAPS),
+                             disable_preemption=True)
     placed = sched.schedule_pending()
     got = bindings(store)
     assert got == want
@@ -265,7 +266,8 @@ def test_rounds_over_the_ipa_wave_cap_split_identically(monkeypatch):
     want = _jax_bindings(3, 32, 300)
     store, _ = ipa_store_world("kubernetes_tpu_torch", 3, 32, 300)
     sched = tsched.Scheduler(store, device="cpu",
-                             caps=tenc.Caps(**STORE_CAPS))
+                             caps=tenc.Caps(**STORE_CAPS),
+                             disable_preemption=True)
     rounds = []
     run = sched._run_pipeline
     monkeypatch.setattr(sched, "_run_pipeline",

@@ -1,9 +1,10 @@
 """The lean Scheduler of kubernetes_tpu_torch end to end against the JAX
 package's Scheduler: the same store contents give the same bindings.
 
-The JAX scheduler runs with preemption off: preemption is a later slice
-of the port, and with it on the reference evicts lower-priority pods
-that the port leaves in place.
+These worlds run with preemption off in both packages (the placements of
+the round and the per-wave fallback alone); tests/test_torch_preempt.py
+and tests/test_torch_gang.py hold the two packages equal with
+preemption on.
 """
 
 import subprocess
@@ -22,7 +23,7 @@ from kubernetes_tpu_torch.ops.encoding import Caps
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
 from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
-from torch_worlds import bindings, store_world
+from torch_worlds import FakeClock, bindings, store_world
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -39,7 +40,7 @@ def _jax_bindings(seed, n_nodes, n_pods):
 def test_bindings_match_the_jax_scheduler(seed):
     want = _jax_bindings(seed, 64, 600)
     store, names = store_world("kubernetes_tpu_torch", seed, 64, 600)
-    sched = Scheduler(store, device="cpu")
+    sched = Scheduler(store, device="cpu", disable_preemption=True)
     placed = sched.schedule_pending()
     got = bindings(store)
     assert got == want
@@ -68,7 +69,8 @@ def test_rounds_split_long_backlogs_identically(monkeypatch):
     JaxScheduler(store, profile=profile, wave_size=16).schedule_pending()
     want = bindings(store)
     store_t, _ = store_world("kubernetes_tpu_torch", 3, 32, 300)
-    sched = Scheduler(store_t, wave_size=16, device="cpu", caps=Caps(M=1024))
+    sched = Scheduler(store_t, wave_size=16, device="cpu", caps=Caps(M=1024),
+                      disable_preemption=True)
     rounds = []
     run = sched._run_pipeline
     monkeypatch.setattr(sched, "_run_pipeline",
@@ -79,11 +81,17 @@ def test_rounds_split_long_backlogs_identically(monkeypatch):
 
 
 def test_late_nodes_wake_parked_pods():
+    """Pods that failed park with a backoff (unschedulable, or in the
+    backoff area once an eviction moved them); a node that joins moves
+    them without dropping any, and once the virtual clock passes their
+    deadlines they place on it."""
     store, names = store_world("kubernetes_tpu_torch", 4, 8, 120)
-    sched = Scheduler(store, device="cpu")
+    clock = FakeClock()
+    sched = Scheduler(store, device="cpu", clock=clock)
     sched.schedule_pending()
     parked = len(sched.unschedulable_pods())
     assert parked > 0
+    pending = sched.pending_count()
     store.create("nodes", tapi.Node(
         metadata=tapi.ObjectMeta(name="big", uid="node-big"),
         status=tapi.NodeStatus(
@@ -91,7 +99,9 @@ def test_late_nodes_wake_parked_pods():
                                            pods=500),
             conditions=[tapi.NodeCondition(tapi.NODE_READY,
                                            tapi.COND_TRUE)])))
-    assert sched.pending_count() == parked
+    assert not sched.unschedulable_pods()  # the node event moved them all
+    assert sched.pending_count() == pending
+    clock.advance(sched.backoff.maximum + 1)  # past every deadline
     assert sched.schedule_pending() > 0
     assert any(n == "big" for n in bindings(store).values())
 
@@ -107,18 +117,18 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kind,names", [
-    ("gang", "ops/gang.py"), ("volume", "volume"),
+    ("gang_multi_topology_key", "plugins/golden.py"), ("volume", "volume"),
     ("multi_topology_key", "plugins/golden.py")])
 def test_later_slice_backlogs_raise(kind, names):
     """Pods the port does not take yet raise for the whole backlog and
-    are all left pending: gangs, volumes, and required pod
-    anti-affinity over two topology keys (the JAX package's exact host
-    path)."""
+    are all left pending: volumes, and required pod anti-affinity over
+    two topology keys (the JAX package's exact host path), a gang member
+    with such terms too."""
     store, _ = store_world("kubernetes_tpu_torch", 5, 8, 20)
     sched = Scheduler(store, device="cpu")
     sched.schedule_pending()
     spec, meta = {}, {}
-    if kind == "multi_topology_key":
+    if kind in ("multi_topology_key", "gang_multi_topology_key"):
         sel = tlbl.LabelSelector(match_labels={"app": "a"})
         spec["affinity"] = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
             required=[tapi.PodAffinityTerm(
@@ -126,9 +136,9 @@ def test_later_slice_backlogs_raise(kind, names):
                 tapi.PodAffinityTerm(
                 label_selector=sel,
                 topology_key="failure-domain.beta.kubernetes.io/zone")]))
-    elif kind == "volume":
+    if kind == "volume":
         spec["volumes"] = [tapi.Volume(name="data")]
-    else:
+    if kind == "gang_multi_topology_key":
         meta["annotations"] = {tapi.POD_GROUP_NAME_ANNOTATION: "g"}
     store.create("pods", tapi.Pod(
         metadata=tapi.ObjectMeta(name="later", uid="later", **meta),
@@ -141,7 +151,7 @@ def test_later_slice_backlogs_raise(kind, names):
         sched.schedule_pending()
     assert sched.pending_count() == pending  # nothing was dropped
     assert {"later", "plain"} <= {p.metadata.name
-                                  for p in sched._active.values()}
+                                  for p in sched.queue.active_pods()}
     assert not bindings(store)["later"] and not bindings(store)["plain"]
 
 

@@ -155,7 +155,8 @@ def test_bindings_match_the_jax_scheduler(seed, monkeypatch):
                                       6)
     before = zone_skew(store)
     sched = tsched.Scheduler(store, device="cpu", caps=tenc.Caps(M=512,
-                                                                 P=128))
+                                                                 P=128),
+                             disable_preemption=True)
     flags = []
     body = tk._wave_body
 

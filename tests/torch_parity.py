@@ -1,8 +1,10 @@
 """Shared parts of the port's parity tests: worlds pre-sized so that
 their JAX programs compile once, the JAX scheduler's round assembly over
-them, and the comparison of the two packages' rounds, every output
-bit-equal. Used by tests/test_torch_kernel.py,
-tests/test_torch_affinity.py and tests/test_torch_topology.py.
+them, the comparison of the two packages' rounds, every output
+bit-equal, and `Both`, which drives one scenario through both packages'
+schedulers in lockstep. Used by tests/test_torch_kernel.py,
+tests/test_torch_affinity.py, tests/test_torch_topology.py,
+tests/test_torch_gang.py and tests/test_torch_preempt.py.
 """
 
 import numpy as np
@@ -11,15 +13,22 @@ import torch
 from kubernetes_tpu.ops import encoding as jenc
 from kubernetes_tpu.ops import kernel as jk
 from kubernetes_tpu.ops.scores import stack_weights
+from kubernetes_tpu.runtime.store import ObjectStore as JaxStore
 from kubernetes_tpu.sched import scheduler as jsched
 from kubernetes_tpu.state.featurize import PodFeaturizer
 from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import kernel as tk
+from kubernetes_tpu_torch.runtime.store import ObjectStore as TorchStore
+from kubernetes_tpu_torch.sched.scheduler import Scheduler as TorchScheduler
 
-from torch_worlds import group_selectors, ipa_world
+from torch_worlds import (FakeClock, bindings, group_selectors, ipa_world,
+                          pdb, plain_node, plain_pod, pod_group)
 
 # pre-sized so that every world below compiles the same JAX shapes
 CAPS = dict(N=16, Z=16, M=64, P=16, E=128, PA=4, UI=32, UP=32)
+# one caps size for every scheduler scenario (Both), in both packages, so
+# their JAX programs compile once
+SCHED_CAPS = dict(N=16, Z=16, M=64, P=16, LV=64)
 WAVE_PLANES = ("chosen", "score", "feasible_count", "fail_counts", "masks",
                "rr_end", "finite")
 # gating weights that switch on the optional planes, and a live vector
@@ -116,3 +125,78 @@ def compare_rounds(snap, inputs, has_ipa=False, vector=False, gating=None):
     # the carried usage is a new tensor: the inputs are untouched
     np.testing.assert_array_equal(ntt.requested.numpy(), nt.requested)
     return got[0].numpy()
+
+
+class Both:
+    """One scenario driven through both packages' schedulers in lockstep:
+    every store write goes to both stores, every schedule_pending runs on
+    both and returns both counts; `check` compares the stores."""
+
+    def __init__(self, n_nodes=0, wave=16, **node_kw):
+        self.clock = {"jax": FakeClock(), "torch": FakeClock()}
+        self.stores = {"jax": JaxStore(), "torch": TorchStore()}
+        self.sched = {
+            "jax": jsched.Scheduler(self.stores["jax"], wave_size=wave,
+                                    clock=self.clock["jax"],
+                                    caps=jenc.Caps(**SCHED_CAPS)),
+            "torch": TorchScheduler(self.stores["torch"], wave_size=wave,
+                                    clock=self.clock["torch"], device="cpu",
+                                    caps=tenc.Caps(**SCHED_CAPS)),
+        }
+        for i in range(n_nodes):
+            self.node(f"n{i}", **node_kw)
+
+    @staticmethod
+    def pkg(side):
+        return "kubernetes_tpu" if side == "jax" else "kubernetes_tpu_torch"
+
+    def node(self, name, **kw):
+        for side, store in self.stores.items():
+            store.create("nodes", plain_node(self.pkg(side), name, **kw))
+
+    def pod(self, name, **kw):
+        for side, store in self.stores.items():
+            store.create("pods", plain_pod(self.pkg(side), name, **kw))
+
+    def group(self, name, min_member):
+        for side, store in self.stores.items():
+            store.create("podgroups", pod_group(self.pkg(side), name,
+                                                min_member))
+
+    def budget(self, name, match_labels, allowed):
+        for side, store in self.stores.items():
+            store.create("poddisruptionbudgets",
+                         pdb(self.pkg(side), name, match_labels, allowed))
+
+    def delete(self, name):
+        for store in self.stores.values():
+            store.delete("pods", "default", name)
+
+    def advance(self, d):
+        for c in self.clock.values():
+            c.advance(d)
+
+    def run(self):
+        got = {side: s.schedule_pending() for side, s in self.sched.items()}
+        assert got["jax"] == got["torch"], got
+        self.check()
+        return got["torch"]
+
+    def check(self):
+        want, got = (bindings(self.stores[s]) for s in ("jax", "torch"))
+        assert got == want  # the same pods alive, on the same nodes
+        nominated = [{p.metadata.name: p.status.nominated_node_name
+                      for p in self.stores[s].list("pods")}
+                     for s in ("jax", "torch")]
+        assert nominated[1] == nominated[0]
+        j, t = self.sched["jax"], self.sched["torch"]
+        assert t.queue.pending_count() == j.queue.pending_count()
+        assert t.pipeline_preemptions == j.pipeline_preemptions
+        assert (t.preemption_victims
+                == int(j.metrics.pod_preemption_victims.value))
+
+    def bound(self, gang):
+        return sum(1 for p in self.stores["torch"].list("pods")
+                   if p.metadata.annotations.get(
+                       "pod-group.scheduling.k8s.io/name") == gang
+                   and p.spec.node_name)

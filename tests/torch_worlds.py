@@ -477,3 +477,73 @@ def zone_skew(store) -> dict:
             c[zone_of[p.spec.node_name]] += 1
     return {app: max(c.values()) - min(c.values())
             for app, c in counts.items()}
+
+
+# --- small hand-built worlds for the gang and preemption scenarios ------------
+
+
+class FakeClock:
+    """A virtual clock for both packages' schedulers: backoff deadlines
+    and assumed-pod expiry move only when a test advances it."""
+
+    def __init__(self, t: float = 1000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, d: float) -> None:
+        self.t += d
+
+
+def plain_node(pkg: str, name: str, cpu: str = "4", memory: str = "8Gi",
+               pods: int = 110, taints=()):
+    """A Ready node (tests/helpers.py make_node) in either package."""
+    api, _ = _mods(pkg)
+    alloc = api.resource_list(cpu=cpu, memory=memory, pods=pods,
+                              ephemeral_storage="100Gi")
+    return api.Node(
+        metadata=api.ObjectMeta(name=name, uid=f"node-{name}",
+                                labels={"kubernetes.io/hostname": name}),
+        spec=api.NodeSpec(taints=list(taints)),
+        status=api.NodeStatus(
+            capacity=dict(alloc), allocatable=alloc,
+            conditions=[api.NodeCondition(api.NODE_READY, api.COND_TRUE)]))
+
+
+def plain_pod(pkg: str, name: str, cpu=None, memory=None, priority=None,
+              labels=None, gang=None, min_avail=None):
+    """A pod (tests/helpers.py make_pod) in either package; gang names its
+    PodGroup annotation, min_avail the min-available annotation."""
+    api, _ = _mods(pkg)
+    reqs = {}
+    if cpu is not None or memory is not None:
+        reqs = api.resource_list(cpu=cpu, memory=memory)
+    annotations = {}
+    if gang is not None:
+        annotations[api.POD_GROUP_NAME_ANNOTATION] = gang
+        if min_avail is not None:
+            annotations[api.POD_GROUP_MIN_AVAILABLE_ANNOTATION] = str(min_avail)
+    return api.Pod(
+        metadata=api.ObjectMeta(name=name, uid=name, labels=dict(labels or {}),
+                                annotations=annotations),
+        spec=api.PodSpec(
+            priority=priority,
+            containers=[api.Container(
+                name="c", resources=api.ResourceRequirements(requests=reqs))]))
+
+
+def pod_group(pkg: str, name: str, min_member: int):
+    api, _ = _mods(pkg)
+    return api.PodGroup(metadata=api.ObjectMeta(name=name),
+                        spec=api.PodGroupSpec(min_member=min_member))
+
+
+def pdb(pkg: str, name: str, match_labels: dict, allowed: int):
+    api, lbl = _mods(pkg)
+    return api.PodDisruptionBudget(
+        metadata=api.ObjectMeta(name=name),
+        spec=api.PodDisruptionBudgetSpec(
+            selector=lbl.LabelSelector(match_labels=match_labels)),
+        status=api.PodDisruptionBudgetStatus(disruptions_allowed=allowed))
+
