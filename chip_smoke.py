@@ -13,10 +13,11 @@ Phases (any failure exits non-zero and prints no result line):
                then timed on a dense world, on a world with no toleration
                and no port (its store path alone), and beside a plain
                fill of the same two outputs (the card's write rate); the
-               what-if kernel against its plain version run on a CPU copy
-               of the same inputs (preempt.EDGE_WORLDS and two worlds at
-               the drains' widths; exact equality — the plain version on
-               the card sums by atomics in no fixed order);
+               what-if kernels against their plain version run on a CPU
+               copy of the same inputs (preempt.EDGE_WORLDS and two worlds
+               at the drains' widths; exact equality — the plain version
+               on the card sums by atomics in no fixed order), and timed
+               on the dense edge world (see phase 9);
   4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
                30 000-pod backlog; the store's bindings must respect every
@@ -61,15 +62,18 @@ Phases (any failure exits non-zero and prints no result line):
                bound, every victim at priority 1, evictions a multiple of
                8, every resource respected. Printed: pods/s of the fill
                and of the high pods, gang dispatches, evictions, host
-               seconds by phase, each kernel's launches;
+               seconds by phase, each kernel's launches; the what-if
+               timed on the drain's chunk (P = 16) as in phase 9;
   9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
                priority-1 hogs of 8 cores (two a node), then 10 000
                priority-100 vips of 8 cores, each placing only by
                evicting a hog. 10 000 placed, 10 000 evicted, every
                preemption done by the pipeline. Printed: vip pods/s,
-               what-if chunks and launches, the what-if kernel's ms a
-               chunk by CUDA events beside its bound, its plain
-               version's ms on the CPU, host validation seconds.
+               what-if chunks and launches, host validation seconds; on
+               the largest chunk, the what-if by CUDA events as a whole
+               call and as its two main kernels alone (on a prebuilt row
+               list and slot table) beside its bound, the host syncs of
+               one call, and the plain version's ms on the CPU.
 Phases 8 and 9 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -430,13 +434,15 @@ def small_world(api, store_mod, enc, bucket_size, Scheduler, PodBackoff,
 
 
 def whatif_bound(torch, pre, w, int_rate):
-    """(least ms, what bounds it, bytes, ops) of the what-if kernel on
-    these inputs: each input read once and the [5, P, N] output written
-    once over HBM bandwidth, against the integer work this run's data
-    needs over the card's integer rate — for each (pod, node) the static
-    predicates pass, every row of the node once for each level walked up
-    to the one taken (2 ops a resource column and 6 a row), plus the fit
-    test (4 a column and 3) of each of those levels."""
+    """(least ms, what bounds it, bytes, ops) of the what-if on these
+    inputs: each input read once and the [5, P, N] output written once
+    over HBM bandwidth, against the integer work this run's data needs
+    over the card's integer rate — the victim-class sums, for each
+    distinct threshold min(level, pod priority) of the chunk and each
+    node, over the node's kept rows (live, or with a non-finite request:
+    2 ops a resource column and 6 a row), and the fit test (4 a column
+    and 3) of each level walked, up to the one taken, for each (pod,
+    node) its static predicates pass."""
     cpu = pre.WhatIf(*[None if t is None else t.cpu() for t in w])
     _, level = pre.whatif_plain(cpu, with_level=True)
     P, N = cpu.static_ok.shape
@@ -444,9 +450,10 @@ def whatif_bound(torch, pre, w, int_rate):
     L = cpu.levels.shape[0]
     walked = torch.where(level < L, level + 1, L).to(torch.int64)
     walked = walked * cpu.static_ok
-    row_ptr, _ = pre.node_rows(cpu.ep_node, N)
-    rows_n = (row_ptr[1:] - row_ptr[:-1]).to(torch.int64)
-    ops = int((walked * (rows_n[None, :] * (2 * R + 6) + 4 * R + 3)).sum())
+    row_ptr, _, _ = pre.live_rows(cpu.ep_node, cpu.live, cpu.ep_req, N)
+    _, _, n_slots = pre.threshold_slots(cpu.levels, cpu.pb_prio)
+    ops = (int(n_slots) * int(row_ptr[-1]) * (2 * R + 6)
+           + int(walked.sum()) * (4 * R + 3))
     in_bytes = (2 * 4 * N * R + 2 * 4 * N + 4 * M * R + 4 * M + M
                 + (4 * M if cpu.gang_w is not None else 0)
                 + 4 * (N + 1) + 4 * M + 4 * L + 4 * P * R + 4 * P + P * N)
@@ -455,6 +462,36 @@ def whatif_bound(torch, pre, w, int_rate):
     t_ops = ops / int_rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             in_bytes + out_bytes, ops)
+
+
+def time_whatif(torch, pre, w, int_rate, tag, what):
+    """The what-if on `w` timed by CUDA events two ways — the whole
+    preempt_whatif call (row lists, slots, both kernels, allocations) and
+    the class-stats and pick kernels alone on a prebuilt row list and
+    slot table — beside its bound; the host syncs of one call counted
+    with torch.cuda.set_sync_debug_mode("warn"). Returns (call ms,
+    kernels ms, bound ms, what bounds it)."""
+    call_ms = cuda_ms(torch, lambda: pre.preempt_whatif(w), reps=10, runs=3)
+    prep = pre.whatif_prepare(w)
+    kernels_ms = cuda_ms(torch, lambda: pre.whatif_launch(prep))
+    del prep
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pre.preempt_whatif(w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(c.message) for c in caught)
+    bound, by, nbytes, ops = whatif_bound(torch, pre, w, int_rate)
+    P, N = w.static_ok.shape
+    log(f"[{tag}] what-if on {what} (P={P}, N={N}, "
+        f"M={w.ep_node.shape[0]}): call {call_ms:.4f} ms, kernels alone "
+        f"{kernels_ms:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes} B, "
+        f"{ops} ops); kernels at {bound / kernels_ms:.1%} of the bound, "
+        f"the call at {bound / call_ms:.1%}; {syncs} host syncs in a call")
+    return call_ms, kernels_ms, bound, by
 
 
 def check_whatif(torch, pre, w, what):
@@ -1207,6 +1244,9 @@ def main() -> None:
             torch, pre, w, f"P={P}, N={N}, M={M}, {kw}"))
         log(f"[kernel] what-if P={P} N={N} M={M} {kw or ''}: kernel == "
             "plain on the CPU")
+    P, N, M, kw = next(e for e in pre.EDGE_WORLDS if e[3].get("dense"))
+    w = pre.random_whatif(P, N, M, seed=SEED + P + N, **kw)
+    time_whatif(torch, pre, w, int_rate, "kernel", "the dense edge world")
     del w
 
     # 4. the density drain at full size
@@ -1351,11 +1391,15 @@ def main() -> None:
 
     # 8. the gangstorm drain
     gang = gang_phase(torch, phase_mods, enc, bucket_size)
-    for P, w in sorted(gang.pop("captured").items()):
+    captured = gang.pop("captured")
+    for P, w in sorted(captured.items()):
         whatif_err = max(whatif_err, check_whatif(
             torch, pre, w, f"gang drain input, P={P}"))
         log(f"[gang] what-if kernel == plain on the drain's input P={P} "
             f"N={w.static_ok.shape[1]} M={w.ep_node.shape[0]}")
+    time_whatif(torch, pre, captured[max(captured)], int_rate, "gang",
+                "the drain's chunk")
+    del captured
     torch.cuda.empty_cache()
 
     # 9. the preempt drain
@@ -1366,19 +1410,15 @@ def main() -> None:
             torch, pre, w, f"preempt drain input, P={P}"))
         log(f"[preempt] what-if kernel == plain on the drain's input P={P}")
     w = captured[max(captured)]
-    w_ms = cuda_ms(torch, lambda: pre.preempt_whatif(w), reps=5, runs=3)
+    w_ms, w_kernels_ms, w_bound, w_by = time_whatif(
+        torch, pre, w, int_rate, "preempt", "the drain's chunk")
     cpu_w = pre.WhatIf(*[None if t is None else t.cpu() for t in w])
     t0 = time.monotonic()
     pre.whatif_plain(cpu_w)
     w_plain_ms = 1e3 * (time.monotonic() - t0)
-    w_bound, w_by, w_bytes, w_ops = whatif_bound(torch, pre, w, int_rate)
-    P, N = w.static_ok.shape
-    log(f"[preempt] what-if kernel on one chunk (P={P}, N={N}, "
-        f"M={w.ep_node.shape[0]}): {w_ms:.4f} ms a chunk, bound "
-        f"{w_bound:.4f} ms ({w_by}: {w_bytes} B, {w_ops} ops), "
-        f"{w_bound / w_ms:.1%} of bound; plain version on the CPU "
-        f"{w_plain_ms:.1f} ms; no single PyTorch call computes this "
-        "function, so no library time")
+    log(f"[preempt] what-if plain version on the CPU {w_plain_ms:.1f} ms; "
+        "no single PyTorch call computes this function, so no library "
+        "time")
     del w, cpu_w, captured
     launches = (dens["launches"] + mixed["launches"] + spread["launches"]
                 + gang["launches"] + prem["launches"])
@@ -1414,6 +1454,7 @@ def main() -> None:
         "launches": whatif_launches,
         "max_abs_err": whatif_err,
         "ms": w_ms,
+        "kernels_ms": w_kernels_ms,
         "plain_ms": w_plain_ms,
         "bound_ms": w_bound,
         "bound_by": w_by,

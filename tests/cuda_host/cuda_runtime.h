@@ -3,7 +3,8 @@
 // so that their kernels can be compiled with a C++20 host compiler and run
 // on the CPU (tests/test_torch_taint_ports_host.py,
 // tests/test_torch_preempt_host.py). Each CUDA thread of a block is
-// one std::thread, __syncthreads is a std::barrier over them, and the
+// one std::thread, __syncthreads is a std::barrier over them (and
+// __syncwarp one over each 32 of them), and the
 // blocks of a grid run one after another over one shared-memory buffer.
 // It checks the kernel's logic (compaction, merging, double buffering,
 // the store paths), not its speed. The launch `k<<<grid, block, bytes,
@@ -13,17 +14,21 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
+using std::isfinite;
 using std::max;
 using std::min;
 
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 #define __shared__
@@ -43,6 +48,7 @@ inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
 }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline void __stcs(uint4* p, uint4 v) { *p = v; }
+inline void __stcs(int4* p, int4 v) { *p = v; }
 inline int atomicOr(int* p, int v) {
   return std::atomic_ref<int>(*p).fetch_or(v);
 }
@@ -53,7 +59,12 @@ inline int atomicAnd(int* p, int v) {
 inline thread_local dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* host_block_barrier;
+inline thread_local std::barrier<>* host_warp_barrier;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+// a barrier over the calling thread's warp (32 consecutive threads)
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  host_warp_barrier->arrive_and_wait();
+}
 namespace {
 // the block's dynamic shared memory (an `extern __shared__` array in the
 // kernel's own anonymous namespace names this one)
@@ -115,12 +126,17 @@ void host_launch(dim3 grid, dim3 block, size_t bytes, cudaStream_t, K kernel,
       std::memset(smem, 0xAB, sizeof(smem));  // no state between blocks
       std::barrier<> bar(nt);
       host_block_barrier = &bar;
+      std::vector<std::unique_ptr<std::barrier<>>> warps;
+      for (unsigned w = 0; w * 32 < nt; ++w)
+        warps.push_back(std::make_unique<std::barrier<>>(
+            std::min<unsigned>(32, nt - w * 32)));
       std::vector<std::thread> threads;
       for (unsigned ty = 0; ty < block.y; ++ty)
         for (unsigned tx = 0; tx < block.x; ++tx)
-          threads.emplace_back([=] {
+          threads.emplace_back([=, &warps] {
             threadIdx = dim3(tx, ty);
             blockIdx = dim3(bx, by);
+            host_warp_barrier = warps[(ty * block.x + tx) / 32].get();
             kernel(args...);
           });
       for (auto& t : threads) t.join();
@@ -137,4 +153,9 @@ inline int __float_as_int(float f) {
   int i;
   std::memcpy(&i, &f, sizeof i);
   return i;
+}
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
 }

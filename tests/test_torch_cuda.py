@@ -133,6 +133,29 @@ def test_whatif_kernel_matches_cpu_plain(cuda, case):
     assert torch.equal(got.cpu(), tpre.whatif_plain(cpu))
 
 
+@pytest.mark.parametrize("case", range(len(tpre.EDGE_WORLDS)))
+def test_whatif_class_stats_match_cpu_plain(cuda, case):
+    """The class-stats table of every (threshold, node), whichever level
+    the pick takes, against its plain version on a CPU copy: bit-equal,
+    a NaN sum (never a fit) matching in position only."""
+    P, N, M, kw = tpre.EDGE_WORLDS[case]
+    w = tpre.random_whatif(P, N, M, seed=P + N, device=cuda, **kw)
+    prep = tpre.whatif_prepare(w)
+    tpre.whatif_launch(prep)
+    torch.cuda.synchronize()
+    args = prep.tensors
+    S = int(args.n_slots)
+    cpu = tpre.WhatIf(*[None if t is None else t.cpu() for t in w])
+    got = args.stats[:S].cpu()
+    want = tpre.class_stats_plain(cpu, args.slot_values[:S].cpu())
+    floats = slice(0, w.alloc.shape[1] + 3)
+    nan = torch.isnan(got[:, floats].view(torch.float32))
+    assert torch.equal(nan, torch.isnan(want[:, floats].view(torch.float32)))
+    same = got == want
+    same[:, floats] |= nan
+    assert bool(same.all())
+
+
 def test_whatif_kernel_rejects_what_it_cannot_take(cuda):
     w = tpre.random_whatif(4, 9, 32, seed=1, device=cuda)
     with pytest.raises(TypeError):

@@ -144,6 +144,38 @@ def test_preemption_stats_match_jax(seed, kind, gang):
         assert (st.victims[st.ok] > 1).any()
 
 
+@pytest.mark.parametrize("what", ["requests", "gang_weights"])
+def test_non_finite_values_in_non_live_rows_match_jax(what):
+    """inf, -inf and NaN in the requests or the gang weights of rows that
+    are not live — free rows at node 0, removed rows. The JAX program adds
+    0 * x of their requests, which is NaN for a non-finite x, so they
+    change the result (and the kernel keeps such rows in its row lists,
+    ops/preempt.py live_rows); but XLA evaluates its w * gang_w as a
+    select, so their gang weights change nothing. The port's plain
+    version does both the same."""
+    nt, pm, tt, pb = _world(0, "sentinel")
+    gw = _gang_w(pm, 0)
+    clean, _ = _both(nt, pm, tt, pb, gw)
+    rng = np.random.RandomState(7)
+    bad = np.flatnonzero(~(pm.valid & pm.alive))
+    bad = bad[rng.rand(bad.size) < 0.5]
+    odd = rng.choice(np.asarray([np.inf, -np.inf, np.nan], np.float32),
+                     bad.size)
+    if what == "requests":
+        pm = pm._replace(req=pm.req.copy())
+        pm.req[bad, rng.randint(0, 2, bad.size)] = odd
+    else:
+        gw = gw.copy()
+        gw[bad] = odd
+    packed, _ = _both(nt, pm, tt, pb, gw)
+    st = tpre.PreemptStats(packed)
+    if what == "requests":  # a NaN core column never fits
+        assert not np.array_equal(packed[0], clean[0])
+    else:
+        assert np.array_equal(packed, clean)
+        assert st.ok.any() and (st.gang_viol[st.ok] > 0).any()
+
+
 def test_reordered_sum_differs():
     """Large sums depend on the order of the adds: the same
     rows in reverse order give other bits (so the plain version's match
