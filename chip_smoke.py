@@ -35,7 +35,14 @@ Phases (any failure exits non-zero and prints no result line):
                on the CPU: identical bindings; then bench.py's preempt
                shape (50 nodes, 100 hogs, 100 vips) and its gangstorm
                shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
-               clock: identical bindings and victim sets;
+               clock: identical bindings and victim sets; then the
+               multi-key world: the reduced density world with anchor pods
+               bound first, drained, then 16 pods and a gang of 4 whose
+               required pod affinity spans the zone and the host key (the
+               exact host path, plugins/golden.py): identical bindings,
+               every multi-key pod bound where both terms hold (read back
+               from the store), the host-path passes and their seconds
+               printed;
   6. mixed   — bench.py's mixed5k shape at full width: 5 000 nodes with
                node-affinity labels, 30 000 pods in four quarters (density,
                required node affinity, service spreading, required hostname
@@ -74,7 +81,25 @@ Phases (any failure exits non-zero and prints no result line):
                call and as its two main kernels alone (on a prebuilt row
                list and slot table) beside its bound, the host syncs of
                one call, and the plain version's ms on the CPU.
-Phases 8 and 9 run with PodBackoff(initial=0.001), as bench.py
+  10. trickle — bench.py trickle at 5 000 nodes (DRIVER_SUITE runs 500):
+               caps as bench.py _warmed_scheduler, 64 warm pods through
+               warm_pipeline and deleted, a fresh Metrics, then 2 048
+               pods in chunks of 64 with schedule_pending() after each.
+               Printed: pods/s, the p99 of pod_scheduling_latency and of
+               e2e_scheduling_latency, rounds, launches, and the implicit
+               host syncs of one more chunk's round;
+  11. paced  — bench.py paced at its own shape: 5 000 nodes, 4 000 pods
+               offered at 200 pods/s in chunks of 100 on the wall clock,
+               then bench.py's stalled-drain loop (a stall fails the
+               phase). Printed: the p99 of pod_scheduling_latency against
+               the 5 s SLO and the offered rate achieved;
+  12. preempt_host — bench.py run_preempt_config at its own size (50
+               nodes, 100 hogs of 8 cores at priority 1, 100 vips at
+               priority 100, wave 16) with device_preemption = False, on a
+               virtual clock: every vip placed, 100 evictions, all hogs, no
+               what-if launch; the same run with device="cpu" gives the
+               same bindings and victims.
+Phases 8, 9 and 12 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
 CPU copy of it. Each drain sets both kernels' launch counts to 0 before
@@ -87,6 +112,7 @@ It needs the kubernetes_tpu_torch package beside it, and a CUDA card.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -110,6 +136,16 @@ PREEMPT_VIPS = 10000
 # phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
+# phase 5's multi-key pods: single pods and one gang, each pod with
+# required pod affinity over the zone and the host
+MULTIKEY_PODS, MULTIKEY_GANG = 16, 4
+# phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
+# trickle at 500 nodes, paced at 5 000)
+TRICKLE_PODS, TRICKLE_CHUNK = 2048, 64
+PACED_PODS, PACED_RATE, PACED_CHUNK = 4000, 200.0, 100
+PACED_SLO_S = 5.0
+# phase 12 (bench.py preempt_host, its own size)
+HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 WAVE = 128
 # the round's wave cap with inter-pod affinity (sched/scheduler.py)
 IPA_MAX_WAVES = 64
@@ -430,7 +466,7 @@ def small_world(api, store_mod, enc, bucket_size, Scheduler, PodBackoff,
         add_singles(api, store, "high", SMALL_HIGH, 4, 1000)
     settle(sched, clock)
     check_bindings(api, store)
-    return bindings(store), sched.preemption_victims
+    return bindings(store), evictions(sched)
 
 
 def whatif_bound(torch, pre, w, int_rate):
@@ -612,6 +648,136 @@ def zone_counts(store) -> dict:
 
 def bindings(store) -> dict:
     return {p.metadata.name: p.spec.node_name for p in store.list("pods")}
+
+
+def evictions(sched) -> int:
+    """Pods the scheduler's preemptions evicted (its metrics)."""
+    return int(sched.metrics.pod_preemption_victims.value)
+
+
+def count_syncs(torch, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result,
+    {file:line -> implicit host syncs})."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, where
+
+
+class GcWatch:
+    """Python's full (generation 2) garbage collections while it is
+    installed: how many, and their seconds."""
+
+    def __init__(self):
+        self.count, self.seconds, self._t0 = 0, 0.0, None
+
+    def _cb(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.monotonic()
+        elif self._t0 is not None:
+            self.count += 1
+            self.seconds += time.monotonic() - self._t0
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+
+def spread_line(times) -> str:
+    """The first, median and slowest of per-chunk drain seconds."""
+    k = max(range(len(times)), key=times.__getitem__)
+    return (f"chunk drains: first {times[0]:.3f} s, median "
+            f"{statistics.median(times):.3f} s, slowest {times[k]:.3f} s "
+            f"(chunk {k})")
+
+
+def multikey_affinity(api, lbl):
+    """Required pod affinity over two topology keys, which the round
+    cannot encode (the exact host path): the zone of an `app=db` pod and
+    the host of a `tier=cache` pod. In the 1.11 semantics both packages
+    keep (predicates.go anyPodsMatchingTopologyTerms), one bound pod must
+    match both terms and share both domains with the node."""
+    return api.Affinity(pod_affinity=api.PodAffinity(required=[
+        api.PodAffinityTerm(label_selector=lbl.LabelSelector(
+            match_labels={"app": "db"}), topology_key=ZONE),
+        api.PodAffinityTerm(label_selector=lbl.LabelSelector(
+            match_labels={"tier": "cache"}), topology_key=HOSTNAME)]))
+
+
+def add_anchors(api, store):
+    """Bound pods (100m / 128Mi) on untainted nodes: `app=db, tier=cache`
+    on four, the only pods that anchor both multi-key terms, and decoys
+    matching one term each on eight more."""
+    free = [n.metadata.name for n in store.list("nodes") if not n.spec.taints]
+    for labels, nodes in (({"app": "db", "tier": "cache"}, free[0:4]),
+                          ({"app": "db"}, free[4:8]),
+                          ({"tier": "cache"}, free[8:12])):
+        for node in nodes:
+            p = batch_pod(api, "-".join(labels.values()) + f"-{node}",
+                          "anchor", "100m", None)
+            p.metadata.labels = dict(labels)
+            p.spec.node_name = node
+            store.create("pods", p)
+
+
+def add_multikey(api, lbl, store):
+    """MULTIKEY_PODS single pods and one gang of MULTIKEY_GANG (its
+    min-available), 100m / 128Mi each, with multikey_affinity."""
+    for i in range(MULTIKEY_PODS + MULTIKEY_GANG):
+        p = batch_pod(api, f"multikey-{i}", "multikey", "100m", None)
+        p.spec.affinity = multikey_affinity(api, lbl)
+        if i >= MULTIKEY_PODS:
+            p.metadata.annotations = {
+                api.POD_GROUP_NAME_ANNOTATION: "multikey-gang",
+                api.POD_GROUP_MIN_AVAILABLE_ANNOTATION: str(MULTIKEY_GANG)}
+        store.create("pods", p)
+
+
+def check_multikey(store) -> int:
+    """Every pod with required pod affinity over two topology keys is
+    bound, to a node that holds its terms, read back from the store: some
+    bound pod matches every term's selector and shares every term's
+    domain with the node. Returns the number of such pods."""
+    labels = {n.metadata.name: n.metadata.labels for n in store.list("nodes")}
+    pods = store.list("pods")
+    bound = [p for p in pods if p.spec.node_name]
+    checked = 0
+    for p in pods:
+        aff = p.spec.affinity
+        if aff is None or aff.pod_affinity is None:
+            continue
+        terms = aff.pod_affinity.required
+        if len({t.topology_key for t in terms}) < 2:
+            continue
+        checked += 1
+        if not p.spec.node_name:
+            fail(f"multikey: {p.metadata.name} is not bound")
+        mine = labels[p.spec.node_name]
+        if not any(q is not p and all(
+                q.namespace == p.namespace
+                and t.label_selector.matches(q.metadata.labels)
+                and mine.get(t.topology_key) is not None
+                and labels[q.spec.node_name].get(t.topology_key)
+                == mine.get(t.topology_key) for t in terms)
+                for q in bound):
+            fail(f"multikey: {p.metadata.name} on {p.spec.node_name} does "
+                 "not hold its two affinity terms")
+    return checked
 
 
 # --- kernel phase --------------------------------------------------------------
@@ -1039,9 +1205,9 @@ def gang_phase(torch, mods, enc, bucket_size):
     if split:
         fail(f"gang: gangs partially bound: {list(split.items())[:5]}")
     evicted = created - set(pods)
-    if len(evicted) != sched.preemption_victims:
-        fail(f"gang: {len(evicted)} pods gone, {sched.preemption_victims} "
-             "counted as evicted")
+    if len(evicted) != evictions(sched):
+        fail(f"gang: {len(evicted)} pods gone, {evictions(sched)} counted "
+             "as evicted")
     if any(not n.startswith("gang-") for n in evicted):
         fail("gang: a victim is not a priority-1 gang member")
     if len(evicted) % GANG_SIZE:
@@ -1097,9 +1263,9 @@ def preempt_phase(torch, mods, enc, bucket_size):
     vips = [p for n, p in pods.items() if n.startswith("vip-")]
     if len(vips) != PREEMPT_VIPS or not all(p.spec.node_name for p in vips):
         fail("preempt: a vip is not bound")
-    if sched.preemption_victims != PREEMPT_VIPS or len(pods) != hogs:
-        fail(f"preempt: {sched.preemption_victims} evicted, {len(pods)} "
-             f"pods left; expected {PREEMPT_VIPS} and {hogs}")
+    if evictions(sched) != PREEMPT_VIPS or len(pods) != hogs:
+        fail(f"preempt: {evictions(sched)} evicted, {len(pods)} pods left; "
+             f"expected {PREEMPT_VIPS} and {hogs}")
     if watch.preemptions != sched.pipeline_preemptions:
         fail(f"preempt: {watch.preemptions} preemptions, "
              f"{sched.pipeline_preemptions} by the pipeline")
@@ -1110,7 +1276,7 @@ def preempt_phase(torch, mods, enc, bucket_size):
         f"(host seconds: " + ", ".join(
             f"{k} {v:.3f}" for k, v in fill_clock.items()) + ")")
     log(f"[preempt] vips: {PREEMPT_VIPS} in {vip_wall:.3f} s = "
-        f"{PREEMPT_VIPS / vip_wall:.1f} pods/s; {sched.preemption_victims} "
+        f"{PREEMPT_VIPS / vip_wall:.1f} pods/s; {evictions(sched)} "
         f"evicted, {sched.pipeline_preemptions} preemptions all by the "
         f"pipeline; what-if chunks {watch.chunks}, launches "
         f"{whatif_launches}; taint/port launches {launches}; host "
@@ -1118,6 +1284,306 @@ def preempt_phase(torch, mods, enc, bucket_size):
     watch.report("preempt vips", vip_wall)
     return dict(launches=launches, whatif_launches=whatif_launches,
                 captured=watch.captured)
+
+
+def multikey_world(api, lbl, store_mod, enc, bucket_size, Scheduler, device):
+    """Phase 5's multi-key world on `device`, on a virtual clock: the
+    reduced density world with its anchors bound first is drained, then
+    the multi-key pods and their gang arrive and are drained through the
+    exact host path. Returns (bindings, host-path pods, their seconds,
+    bound pods when they arrived)."""
+    store, n_bound = build_store(api, store_mod, SMALL_NODES, SMALL_PODS, SEED)
+    add_anchors(api, store)
+    extra = MULTIKEY_PODS + MULTIKEY_GANG + 12
+    clock = VirtualClock()
+    caps = scheduler_caps(enc, bucket_size, SMALL_NODES, SMALL_PODS + extra,
+                          n_bound + 12)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock)
+    settle(sched, clock)
+    resident = sum(1 for p in store.list("pods") if p.spec.node_name)
+    host = {"pods": 0, "seconds": 0.0}
+    inner = sched._schedule_host_path
+
+    def timed(pod, *a, **kw):
+        t0 = time.monotonic()
+        try:
+            return inner(pod, *a, **kw)
+        finally:
+            host["pods"] += 1
+            host["seconds"] += time.monotonic() - t0
+
+    sched._schedule_host_path = timed
+    add_multikey(api, lbl, store)
+    settle(sched, clock)
+    check_bindings(api, store)
+    check_anti_affinity(store)
+    if check_multikey(store) != MULTIKEY_PODS + MULTIKEY_GANG:
+        fail("multikey: not every multi-key pod was checked")
+    return bindings(store), host["pods"], host["seconds"], resident
+
+
+def warm_up(api, store, sched, Metrics, n_pods, n_waves):
+    """bench.py's warm-up: n_pods warm pods created, warm_pipeline over
+    them (n_waves picks the bucket), deleted again, and a fresh Metrics."""
+    warm = [batch_pod(api, f"warmup-{i}", "warmup", "100m", None)
+            for i in range(n_pods)]
+    for p in warm:
+        store.create("pods", p)
+    sched.warm_pipeline(warm, n_waves=n_waves)
+    for p in warm:
+        store.delete("pods", "default", p.metadata.name)
+    sched.metrics = Metrics()
+
+
+def warmed_scheduler(mods, enc, bucket_size, Metrics, n_nodes, extra_pods):
+    """bench.py _warmed_scheduler on the card: caps sized for
+    `extra_pods`, waves of WAVE, the nodes, and min(WAVE, 64) warm pods
+    through warm_up (one wave). Returns (store, scheduler)."""
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(M=bucket_size(extra_pods + 64), P=WAVE,
+                    LV=bucket_size(n_nodes + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda")
+    add_plain_nodes(api, store, n_nodes)
+    warm_up(api, store, sched, Metrics, min(WAVE, 64), 1)
+    return store, sched
+
+
+def add_chunk(api, store, prefix, first, n):
+    for i in range(first, first + n):
+        store.create("pods", batch_pod(api, f"{prefix}-{i}", prefix, "100m",
+                                       None))
+
+
+def trickle_phase(torch, mods, enc, bucket_size, Metrics):
+    """Phase 10: bench.py trickle at 5 000 nodes. Returns what it saw."""
+    api, tp, pre, sched_mod = mods[0], mods[1], mods[2], mods[4]
+    t_phase = time.monotonic()
+    store, sched = warmed_scheduler(mods, enc, bucket_size, Metrics,
+                                    FULL_NODES, TRICKLE_PODS + TRICKLE_CHUNK)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    # host seconds by phase of the chunks' rounds, the first chunk's apart
+    clock = PhaseClock()
+    sync = torch.cuda.synchronize
+    sched.featurizer.featurize = clock.wrap("featurize",
+                                            sched.featurizer.featurize)
+    sched.snapshot.to_device = clock.wrap("upload", sched.snapshot.to_device,
+                                          sync)
+    sched._commit = clock.wrap("commit", sched._commit)
+    round_fn = sched_mod.schedule_round
+    sched_mod.schedule_round = clock.wrap("device_round", round_fn, sync)
+    placed = made = 0
+    chunk_s = []
+    t0 = time.monotonic()
+    try:
+        with GcWatch() as gcw:
+            while made < TRICKLE_PODS:
+                n = min(TRICKLE_CHUNK, TRICKLE_PODS - made)
+                add_chunk(api, store, "trickle-pod", made, n)
+                made += n
+                t_chunk = time.monotonic()
+                placed += sched.schedule_pending()
+                chunk_s.append(time.monotonic() - t_chunk)
+                if len(chunk_s) == 1:
+                    first = dict(clock.seconds)
+            torch.cuda.synchronize()
+    finally:
+        sched_mod.schedule_round = round_fn
+    wall = time.monotonic() - t0
+    launches = tp.taint_ports_masks.launches
+    whatif_launches = pre.preempt_whatif.launches
+    if placed != TRICKLE_PODS:
+        fail(f"trickle: placed {placed} of {TRICKLE_PODS}")
+    m = sched.metrics
+    p99, p99_round = (m.pod_scheduling_latency.quantile(0.99),
+                      m.e2e_scheduling_latency.quantile(0.99))
+    rounds = m.e2e_scheduling_latency.total
+    # one more chunk, its round run under the sync probe (left out of
+    # the numbers above)
+    syncs = {}
+
+    def probed(*a, **kw):
+        out, where = count_syncs(torch, lambda: round_fn(*a, **kw))
+        syncs.update(where)
+        return out
+
+    sched_mod.schedule_round = probed
+    try:
+        add_chunk(api, store, "trickle-probe", 0, TRICKLE_CHUNK)
+        probe_placed = sched.schedule_pending()
+    finally:
+        sched_mod.schedule_round = round_fn
+    if check_bindings(api, store) != TRICKLE_PODS + probe_placed:
+        fail("trickle: the store's bindings do not match the placements")
+    if launches < rounds or sched.wave_path() != "cuda":
+        fail(f"trickle: {launches} kernel launches in {rounds} rounds, "
+             f"wave_path {sched.wave_path()!r}")
+    log(f"[trickle] {FULL_NODES} nodes (DRIVER_SUITE: 500), {TRICKLE_PODS} "
+        f"pods in chunks of {TRICKLE_CHUNK}: placed {placed} in {wall:.3f} s "
+        f"= {placed / wall:.1f} pods/s; p99 pod_scheduling_latency "
+        f"{p99:.4f} s, p99 e2e_scheduling_latency (a round) "
+        f"{p99_round:.4f} s; {rounds} rounds, taint/port launches "
+        f"{launches}, what-if launches {whatif_launches}; implicit host "
+        f"syncs in one round: {sum(syncs.values())} (" + ", ".join(
+            f"{k} x{v}" for k, v in sorted(syncs.items())) + f"); probe "
+        f"chunk placed {probe_placed}; {spread_line(chunk_s)}; {gcw.count} "
+        f"full garbage collections, {gcw.seconds:.3f} s; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    rest = {k: v - first.get(k, 0.0) for k, v in clock.seconds.items()}
+    log("[trickle] host seconds by phase, first chunk: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in first.items()) + "; the other "
+        f"{len(chunk_s) - 1} chunks: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in rest.items()))
+    return dict(launches=launches, whatif_launches=whatif_launches)
+
+
+def paced_phase(torch, mods, enc, bucket_size, Metrics):
+    """Phase 11: bench.py paced (its own shape: 5 000 nodes, 4 000 pods
+    offered at 200 pods/s in chunks of 100, on the wall clock). Returns
+    what it saw."""
+    api, tp, pre = mods[0], mods[1], mods[2]
+    t_phase = time.monotonic()
+    store, sched = warmed_scheduler(mods, enc, bucket_size, Metrics,
+                                    FULL_NODES, PACED_PODS)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    interval = PACED_CHUNK / PACED_RATE
+    made = placed = 0
+    chunk_s = []
+    t0 = time.monotonic()
+    next_tick = t0
+    with GcWatch() as gcw:
+        while made < PACED_PODS:
+            now = time.monotonic()
+            if now < next_tick:
+                time.sleep(next_tick - now)
+            n = min(PACED_CHUNK, PACED_PODS - made)
+            add_chunk(api, store, "paced-pod", made, n)
+            made += n
+            next_tick += interval
+            t_chunk = time.monotonic()
+            placed += sched.schedule_pending()
+            chunk_s.append(time.monotonic() - t_chunk)
+        stalled = 0
+        while placed < PACED_PODS:
+            time.sleep(0.002)
+            n = sched.schedule_pending()
+            placed += n
+            # an unplaceable remainder makes no progress: fail, not spin
+            stalled = stalled + 1 if n == 0 else 0
+            if stalled > 2000:
+                fail(f"paced: the drain stalled at {placed} of {PACED_PODS}")
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = tp.taint_ports_masks.launches
+    whatif_launches = pre.preempt_whatif.launches
+    if check_bindings(api, store) != PACED_PODS:
+        fail("paced: the store's bindings do not match the placements")
+    if launches < 1 or sched.wave_path() != "cuda":
+        fail(f"paced: {launches} kernel launches, wave_path "
+             f"{sched.wave_path()!r}")
+    m = sched.metrics
+    p99 = m.pod_scheduling_latency.quantile(0.99)
+    log(f"[paced] {FULL_NODES} nodes, {PACED_PODS} pods offered at "
+        f"{PACED_RATE:.0f} pods/s in chunks of {PACED_CHUNK}: placed "
+        f"{placed} in {wall:.3f} s, achieved {PACED_PODS / wall:.1f} pods/s "
+        f"offered; p99 pod_scheduling_latency {p99:.4f} s against the "
+        f"{PACED_SLO_S:.0f} s SLO ({'met' if p99 <= PACED_SLO_S else 'MISSED'}"
+        f"); p50 {m.pod_scheduling_latency.quantile(0.5):.4f} s, max "
+        f"{m.pod_scheduling_latency.max:.4f} s; "
+        f"{m.e2e_scheduling_latency.total} rounds, taint/port launches "
+        f"{launches}, what-if launches {whatif_launches}; "
+        f"{spread_line(chunk_s)}; {gcw.count} full garbage collections, "
+        f"{gcw.seconds:.3f} s; phase {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches)
+
+
+def preempt_host_world(mods, enc, bucket_size, Metrics, device):
+    """Phase 12's run on `device`: bench.py run_preempt_config at its own
+    size with device_preemption = False — 50 nodes, 100 hogs of 8 cores at
+    priority 1, a warm-up, then 100 vips of 8 cores at priority 100, wave
+    16, PodBackoff(initial=0.001), on a virtual clock stepped 2 ms between
+    passes. Returns (bindings, evicted names, vip wall seconds, taint/port
+    launches, what-if launches, scheduler) of the vips' drain."""
+    api, tp, pre, Scheduler, PodBackoff = (mods[0], mods[1], mods[2],
+                                           mods[5], mods[6])
+    store_mod = mods[-1]
+    clock = VirtualClock()
+    nodes, vips, wave = (HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS,
+                         HOST_PREEMPT_WAVE)
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(M=bucket_size(2 * nodes + vips + 64), P=wave,
+                    LV=bucket_size(nodes + 256, 64))
+    sched = Scheduler(store, wave_size=wave, caps=caps, device=device,
+                      clock=clock, backoff=PodBackoff(initial=0.001,
+                                                      clock=clock))
+    sched.device_preemption = False
+    add_plain_nodes(api, store, nodes)
+    add_singles(api, store, "hog", 2 * nodes, 8, 1)
+    if settle(sched, clock) != 2 * nodes:
+        fail("preempt_host: the hogs did not all place")
+    warm_up(api, store, sched, Metrics, wave, min(-(-vips // wave), 128))
+    created = {p.metadata.name for p in store.list("pods")}
+    add_singles(api, store, "vip", vips, 8, 100)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    t0 = time.monotonic()
+    done = sched.schedule_pending()
+    stalled = 0
+    while done < vips:
+        clock.t += 0.002
+        n = sched.schedule_pending()
+        done += n
+        stalled = stalled + 1 if n == 0 else 0
+        if stalled > 2000:
+            fail(f"preempt_host ({device}): stalled at {done} of {vips}")
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    check_bindings(api, store)
+    evicted = sorted(created - {p.metadata.name for p in store.list("pods")})
+    return (bindings(store), evicted, wall, tp.taint_ports_masks.launches,
+            pre.preempt_whatif.launches, sched)
+
+
+def preempt_host_phase(torch, mods, enc, bucket_size, Metrics):
+    """Phase 12: the preempt_host shape on the card, then on the CPU."""
+    t_phase = time.monotonic()
+    got, wall, launches, whatif_launches, sched = {}, 0.0, 0, 0, None
+    for device in ("cuda", "cpu"):
+        b, evicted, w, tl, wl, s = preempt_host_world(
+            mods, enc, bucket_size, Metrics, device)
+        got[device] = (b, evicted)
+        if device == "cuda":
+            wall, launches, whatif_launches, sched = w, tl, wl, s
+    binds, evicted = got["cuda"]
+    vips = [n for n in binds if n.startswith("vip-")]
+    if len(vips) != HOST_PREEMPT_VIPS or not all(binds[n] for n in vips):
+        fail("preempt_host: a vip is not bound")
+    if len(evicted) != HOST_PREEMPT_VIPS or evictions(sched) != len(evicted):
+        fail(f"preempt_host: {len(evicted)} pods gone, {evictions(sched)} "
+             f"counted as evicted; expected {HOST_PREEMPT_VIPS}")
+    if not all(n.startswith("hog-") for n in evicted):
+        fail("preempt_host: a victim is not a priority-1 hog")
+    if whatif_launches != 0 or launches < 1:
+        fail(f"preempt_host: what-if launches {whatif_launches} (expected "
+             f"0), taint/port launches {launches}")
+    if got["cuda"] != got["cpu"]:
+        a, b = got["cuda"][0], got["cpu"][0]
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        fail(f"preempt_host: card and CPU differ (pods {diff[:5]})")
+    log(f"[preempt_host] {HOST_PREEMPT_NODES} nodes, wave "
+        f"{HOST_PREEMPT_WAVE}, device_preemption False: {HOST_PREEMPT_VIPS} "
+        f"vips in {wall:.3f} s = {HOST_PREEMPT_VIPS / wall:.1f} pods/s; "
+        f"{len(evicted)} evicted, all hogs; {sched.pipeline_preemptions} "
+        f"pipeline preemptions; what-if launches {whatif_launches}, "
+        f"taint/port launches {launches}; card == CPU bindings and victim "
+        f"sets; phase {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches)
 
 
 # --- main ----------------------------------------------------------------------
@@ -1145,6 +1611,7 @@ def main() -> None:
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
     from kubernetes_tpu_torch.state.vocab import bucket_size
     from kubernetes_tpu_torch.utils.backoff import PodBackoff
+    from kubernetes_tpu_torch.utils.metrics import Metrics
 
     mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
     phase_mods = mods + (PodBackoff, store_mod)
@@ -1333,6 +1800,26 @@ def main() -> None:
         if not got["cuda"][1]:
             fail(f"{wname}: nothing was evicted")
         log(f"[parity] {wname}: card == CPU bindings and victim sets")
+    t_new = time.monotonic()
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        got[device] = multikey_world(api, lbl, store_mod, enc, bucket_size,
+                                     Scheduler, device)
+        _, n_host, host_s, resident = got[device]
+        log(f"[parity] multikey {device}: {n_host} host-path passes in "
+            f"{host_s:.3f} s = {host_s / max(n_host, 1):.3f} s a pass, "
+            f"{resident} bound pods on {SMALL_NODES} nodes; world "
+            f"{time.monotonic() - t0:.3f} s")
+    if got["cuda"][0] != got["cpu"][0]:
+        a, b = got["cuda"][0], got["cpu"][0]
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        fail(f"multikey: card and CPU bindings differ, e.g. {diff[:5]}")
+    log(f"[parity] multikey, {SMALL_NODES} nodes, {SMALL_PODS} density pods "
+        f"then {MULTIKEY_PODS} pods and a gang of {MULTIKEY_GANG} with "
+        "required pod affinity over zone and host: card == CPU bindings, "
+        "every multi-key pod bound where both terms hold")
+    t_new = time.monotonic() - t_new
 
     # 6. the mixed5k drain at full width
     store, n_bound = build_mixed(api, lbl, store_mod, FULL_NODES, FULL_PODS)
@@ -1420,19 +1907,25 @@ def main() -> None:
         "no single PyTorch call computes this function, so no library "
         "time")
     del w, cpu_w, captured
-    launches = (dens["launches"] + mixed["launches"] + spread["launches"]
-                + gang["launches"] + prem["launches"])
-    whatif_launches = (dens["whatif_launches"] + mixed["whatif_launches"]
-                       + spread["whatif_launches"] + gang["whatif_launches"]
-                       + prem["whatif_launches"])
-    log(f"[smoke] taint/port kernel launches: density {dens['launches']}, "
-        f"mixed {mixed['launches']}, spread {spread['launches']}, gang "
-        f"{gang['launches']}, preempt {prem['launches']}; what-if kernel "
-        f"launches: density {dens['whatif_launches']}, mixed "
-        f"{mixed['whatif_launches']}, spread {spread['whatif_launches']}, "
-        f"gang {gang['whatif_launches']}, preempt "
-        f"{prem['whatif_launches']}; total "
-        f"{time.monotonic() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 10-12. the rest of bench.py's DRIVER_SUITE
+    t0 = time.monotonic()
+    trickle = trickle_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    paced = paced_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    phost = preempt_host_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    t_new += time.monotonic() - t0
+    drains = {"density": dens, "mixed": mixed, "spread": spread,
+              "gang": gang, "preempt": prem, "trickle": trickle,
+              "paced": paced, "preempt_host": phost}
+    launches = sum(d["launches"] for d in drains.values())
+    whatif_launches = sum(d["whatif_launches"] for d in drains.values())
+    log("[smoke] taint/port kernel launches: " + ", ".join(
+        f"{k} {d['launches']}" for k, d in drains.items())
+        + "; what-if kernel launches: " + ", ".join(
+        f"{k} {d['whatif_launches']}" for k, d in drains.items())
+        + f"; phases of this slice (multikey, trickle, paced, preempt_host) "
+        f"{t_new:.1f} s; total {time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

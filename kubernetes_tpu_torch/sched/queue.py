@@ -82,9 +82,14 @@ class SchedulingQueue:
         # nominated pods: node name -> {uid: pod} (reference :464
         # WaitingPodsForNode; used by preemption)
         self._nominated: Dict[str, Dict[str, api.Pod]] = {}
+        # uid -> first time the pod entered the active queue (consumed by
+        # the scheduler's per-pod e2e latency metric at bind)
+        self.added_at: Dict[str, float] = {}
         # gang admission: pods of an incomplete gang wait here instead of
-        # the active heap. gang_lookup(pod) -> (key, minMember) | None.
+        # the active heap. gang_lookup(pod) -> (key, minMember) | None;
+        # on_gang_released(key, waited_s) feeds the gang_wait metric.
         self.gang_lookup: Optional[Callable] = None
+        self.on_gang_released: Optional[Callable[[str, float], None]] = None
         self._gang_waiting: Dict[str, Dict[str, api.Pod]] = {}
         # pending+placed uids per gang. Dict-as-ordered-set, NOT a set:
         # _pop_gangmates_locked iterates it to assemble the member batch,
@@ -92,6 +97,7 @@ class SchedulingQueue:
         # would stop being a pure function of arrival order
         self._gang_members: Dict[str, Dict[str, None]] = {}
         self._gang_of: Dict[str, str] = {}  # uid -> gang key
+        self._gang_wait_start: Dict[str, float] = {}
 
     def gang_pending_pods(self, key: str) -> List[api.Pod]:
         """Every member of gang `key` currently held in a pending area
@@ -114,6 +120,7 @@ class SchedulingQueue:
         return (-api.pod_priority(pod), next(self._seq), pod.uid)
 
     def add(self, pod: api.Pod):
+        released = None
         with self._lock:
             if pod.uid in self._items:
                 return
@@ -131,32 +138,45 @@ class SchedulingQueue:
                     # the wave would either deadlock capacity against
                     # another half-formed gang or fail every round
                     self._gang_waiting.setdefault(key, {})[pod.uid] = pod
+                    self._gang_wait_start.setdefault(key, self.clock())
                     return
                 # minMember reached: this pod AND every parked member
                 # enter the active heap together
-                self._release_gang_locked(key)
+                released = self._release_gang_locked(key)
             self._items[pod.uid] = pod
+            # first enqueue time survives requeues: per-pod e2e scheduling
+            # latency measures from when the pod first became schedulable
+            self.added_at.setdefault(pod.uid, self.clock())
             heapq.heappush(self._heap, self._key(pod))
             if pod.status.nominated_node_name:
                 self._nominated.setdefault(
                     pod.status.nominated_node_name, {})[pod.uid] = pod
+        if released is not None and self.on_gang_released is not None:
+            self.on_gang_released(*released)
 
     def _gang_waiting_has_locked(self, uid: str) -> bool:
         key = self._gang_of.get(uid)
         return key is not None and uid in self._gang_waiting.get(key, ())
 
-    def _release_gang_locked(self, key: str) -> None:
-        """Move every parked member of `key` to the active heap."""
+    def _release_gang_locked(self, key: str):
+        """Move every parked member of `key` to the active heap. Returns
+        (key, waited_seconds) when a wait window closes, else None."""
         waiting = self._gang_waiting.pop(key, None)
+        started = self._gang_wait_start.pop(key, None)
         if waiting:
             for uid, p in waiting.items():
                 self._items[uid] = p
+                self.added_at.setdefault(uid, self.clock())
                 heapq.heappush(self._heap, self._key(p))
+        if started is None:
+            return None
+        return key, self.clock() - started
 
     def gang_reevaluate(self):
         """Re-check waiting gangs against current minMember — called when
         a PodGroup object appears or changes (a PodGroup created AFTER
         its pods may lower the bar below the member count)."""
+        released = []
         with self._lock:
             if self.gang_lookup is None:
                 return
@@ -168,7 +188,12 @@ class SchedulingQueue:
                 info = self.gang_lookup(sample)
                 min_member = info[1] if info is not None else 1
                 if len(self._gang_members.get(key, ())) >= min_member:
-                    self._release_gang_locked(key)
+                    r = self._release_gang_locked(key)
+                    if r is not None:
+                        released.append(r)
+        if self.on_gang_released is not None:
+            for r in released:
+                self.on_gang_released(*r)
 
     def gang_forget(self, pod: api.Pod):
         """Drop a pod from gang accounting without touching the queues —
@@ -191,6 +216,7 @@ class SchedulingQueue:
             waiting.pop(uid, None)
             if not waiting:
                 del self._gang_waiting[key]
+                self._gang_wait_start.pop(key, None)
 
     def add_if_not_present(self, pod: api.Pod):
         with self._lock:
@@ -370,6 +396,7 @@ class SchedulingQueue:
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
             self._backoff_until.pop(pod.uid, None)
+            self.added_at.pop(pod.uid, None)
             # gang accounting must shrink with the member, or a stale uid
             # would open the gate early and place a sub-minMember gang
             self._gang_cleanup_locked(pod.uid)

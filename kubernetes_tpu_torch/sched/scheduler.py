@@ -30,24 +30,47 @@ failure (`_handle_failure`): a FitError on the pod, host preemption
 (sched/preemption.py `preempt`), and a park with backoff
 (utils/backoff.py `PodBackoff`, on the scheduler's `clock`).
 
+Pods whose required pod (anti-)affinity terms of one kind span more than
+one topology key cannot be encoded for the device (ops/affinity.py
+keeps one topology key a term group). The pipeline, the per-wave loop
+and the gang path send them through the exact host path
+(`_schedule_host_batch`, kubernetes_tpu/sched/scheduler.py:3334): one
+pod at a time over plugins/golden.py's predicates, NoDiskConflict and
+its scores, host preemption on failure. Its cost is O(nodes x bound
+pods) a pod (the golden anchor scan). Gang members take it one at a
+time, without atomicity, as in the JAX package.
+
+`device_preemption = False` (the JAX scheduler's attribute of the same
+name) sends the batched what-if of `_pipeline_preempt` through the numpy
+twin (ops/preempt.py `preemption_stats_host`) instead of the what-if
+kernel; the rounds still run on the device. It is a switch the caller
+sets: with it True, a failing what-if raises.
+
 Pods are ordered by (-priority, arrival seq), as the JAX scheduling
 queue orders them. A round places at most PIPELINE_MAX_WAVES waves of
 `wave_size` pods (PIPELINE_MAX_WAVES_IPA when inter-pod affinity is in
 play anywhere); the rest go back to the queue before the round runs.
 
-Not in the port yet (each raises NotImplementedError and drops no pod,
-rather than diverging in silence): pods with volumes, and pods whose
-required pod (anti)-affinity terms span more than one topology key,
-gang members too, which the JAX package places through its exact host
-path (plugins/golden.py is copied; the scheduler's wiring of it is a
-later slice). Left out with no stand-in: the circuit breakers, the bind
-journal and reconciler, extenders, tracing, metrics, the mesh, the
-memory governor, poison quarantine and load shedding.
+`metrics` (utils/metrics.py, a plain attribute a caller may replace)
+takes the JAX scheduler's observations on the paths the port has: pod
+and e2e scheduling latency, binding latency, pods scheduled and failed,
+schedule attempts, waves by path, unschedulable reasons, preemption
+attempts, evaluation time and victims, gang attempts and wait, and bind
+errors. `warm_pipeline` runs one round without a fetch, outside a
+measured window.
+
+Not in the port yet (raises NotImplementedError and drops no pod,
+rather than diverging in silence): pods with volumes. Left out with no
+stand-in: the circuit breakers, the bind journal and reconciler,
+extenders, tracing, the mesh, the memory governor, poison quarantine
+and load shedding; the series of that machinery (breaker, store, mesh,
+HBM, shedding, poison, spool) stay at zero in `metrics`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
 from typing import Dict, List, Optional
@@ -60,8 +83,9 @@ from ..api import types as api
 from ..ops import encoding as enc
 from ..ops.gang import schedule_gang
 from ..ops.kernel import Weights, schedule_round, schedule_wave
-from ..ops.preempt import PreemptStats, preemption_stats, victim_levels
-from ..ops.scores import stack_weights
+from ..ops.preempt import (PreemptStats, preemption_stats,
+                           preemption_stats_host, victim_levels)
+from ..ops.scores import W_INTERPOD, stack_weights
 from ..ops.taint_ports import taint_ports_masks
 from ..plugins import golden
 from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectStore
@@ -69,7 +93,8 @@ from ..state.cache import SchedulerCache
 from ..state.featurize import PodFeaturizer
 from ..state.snapshot import Snapshot
 from ..utils.backoff import PodBackoff
-from .errors import REASONS, FitError, insufficient_resource_reason
+from ..utils.metrics import Metrics, bounded_label
+from .errors import REASON_KEYS, REASONS, FitError, insufficient_resource_reason
 from .gang import GangDirectory
 from .preemption import (GangGuard, PreemptionResult,
                          get_lower_priority_nominated_pods,
@@ -89,6 +114,11 @@ PIPELINE_MAX_WAVES_IPA = 64
 PREEMPT_LEVELS = 8
 PREEMPT_HOST_CANDIDATES = 8
 SCHEDULER_NAME = "default-scheduler"
+# the host filters of the JAX default profile
+# (kubernetes_tpu/plugins/registry.py:89-99) that volume-free pods reach;
+# its volume predicates come with pods with volumes, which the port
+# refuses until then
+HOST_FILTERS = {"NoDiskConflict": golden.no_disk_conflict}
 
 
 def pipeline_bucket(n_waves: int, lo: int = 4,
@@ -161,9 +191,6 @@ def _later_slice(pod: api.Pod) -> Optional[str]:
     or None."""
     if pod.spec.volumes:
         return "volume predicates and binding"
-    if PodFeaturizer.needs_host_path(pod):
-        return ("the exact host path for required pod (anti-)affinity over "
-                "more than one topology key (kubernetes_tpu/plugins/golden.py)")
     return None
 
 
@@ -172,8 +199,9 @@ class Scheduler:
     pods on `device` (None: the CUDA card; raises where there is none).
     `clock` drives backoff deadlines and assumed-pod expiry; `backoff`
     (default PodBackoff(clock=clock)) may also be replaced as an
-    attribute, as the JAX scheduler's is. disable_preemption: the JAX
-    profile's switch of the same name."""
+    attribute, as the JAX scheduler's is, and so may `metrics` and
+    `device_preemption`. disable_preemption: the JAX profile's switch of
+    the same name."""
 
     # idle backoff entries are swept on this cadence (2x the backoff
     # ceiling matches the reference Gc()'s retention window)
@@ -198,7 +226,9 @@ class Scheduler:
         self.cache = SchedulerCache(clock=clock)
         self.snapshot = Snapshot(caps=caps)
         self.featurizer = PodFeaturizer(self.snapshot, GroupLister(store))
+        self.metrics = Metrics()
         self.queue = SchedulingQueue(clock=clock)
+        self.queue.on_gang_released = self._gang_released
         # gang (PodGroup) coscheduling: the queue parks incomplete gangs
         # and the pipeline routes complete ones through ops/gang.py
         self.gangs = GangDirectory(store)
@@ -206,11 +236,11 @@ class Scheduler:
         self.backoff = backoff if backoff is not None else PodBackoff(
             clock=clock)
         self._next_backoff_gc = 0.0
-        # preemptions performed by the batched pipeline path, and pods
-        # evicted by any preemption (the JAX scheduler's
-        # pod_preemption_victims counter)
+        # preemptions performed by the batched pipeline path;
+        # device_preemption=False sends the batched what-if through the
+        # numpy twin instead of the what-if kernel
         self.pipeline_preemptions = 0
-        self.preemption_victims = 0
+        self.device_preemption = True
         self._rr: Optional[torch.Tensor] = None  # round-robin counter
         self._last_path: Optional[str] = None
         self._wire()
@@ -339,6 +369,25 @@ class Scheduler:
         return enc.weight_vec_to_torch(stack_weights(self.weights),
                                        self.device)
 
+    # -- metrics (kubernetes_tpu/sched/scheduler.py:851, :1165) -----------------
+
+    def _gang_released(self, key: str, waited: float) -> None:
+        self.metrics.gang_wait_seconds.observe(waited)
+
+    def _count_unschedulable(self, err: FitError) -> None:
+        """scheduler_unschedulable_reasons_total{predicate}: one increment
+        per (failed pod, first-fail predicate); free-text reasons bucket
+        into "Other"."""
+        for reason, count in err.failed_predicates.items():
+            if not count:
+                continue
+            if reason.startswith("Insufficient "):
+                pred = "PodFitsResources"
+            else:
+                pred = bounded_label(REASON_KEYS.get(reason, reason),
+                                     REASONS)
+            self.metrics.unschedulable_reasons.labels(predicate=pred).inc()
+
     # -- the drain (kubernetes_tpu/sched/scheduler.py:1213) ----------------------
 
     def schedule_pending(self) -> int:
@@ -422,9 +471,62 @@ class Scheduler:
                 all_pods = [p for p in all_pods
                             if self.gangs.key(p) is None]
                 placed += self._schedule_gangs(gang_pods)
-            if not all_pods:
+            # pods the device cannot encode take the exact host path
+            host_path = [p for p in all_pods
+                         if self.featurizer.needs_host_path(p)]
+            pods = [p for p in all_pods
+                    if not self.featurizer.needs_host_path(p)]
+            placed += self._schedule_host_batch(host_path, rest=pods)
+            if not pods:
                 return placed
-            return placed + self._run_pipeline(all_pods)
+            return placed + self._run_pipeline(pods)
+
+    def warm_pipeline(self, pods: List[api.Pod],
+                      n_waves: Optional[int] = None) -> None:
+        """Run the round program once for this cluster's shapes, without
+        a fetch (kubernetes_tpu/sched/scheduler.py:1469), so that the
+        device's lazy start-up and the kernels' first build land outside
+        a measured window. n_waves picks the wave-count bucket (default:
+        one wave). At most one wave of `pods` (host-path pods left out) is
+        staged; every staged row is released again, the pods stay
+        pending, and the queue and the round-robin counter are not
+        touched."""
+        with self._mu:
+            pods = [p for p in pods
+                    if not self.featurizer.needs_host_path(p)][:self.wave_size]
+            if not pods:
+                return
+            self.featurizer.featurize(pods)
+            pm_rows, term_rows = self.snapshot.stage_pending(pods)
+            try:
+                pb = self.featurizer.featurize(pods)
+                dev = self.device
+                nt, pm, tt = self.snapshot.to_device(dev)
+                usage = (nt.requested, nt.nonzero, nt.pod_count)
+                has_ipa = bool(self.snapshot.has_affinity_terms
+                               or pb.ra_has.any() or pb.rn_has.any()
+                               or (pb.pa_w != 0).any())
+                wbucket = pipeline_bucket(
+                    n_waves if n_waves is not None else 1,
+                    hi=(PIPELINE_MAX_WAVES_IPA if has_ipa
+                        else PIPELINE_MAX_WAVES))
+                pbs_stacked, rows, trows = assemble_round(
+                    [pb], [pods], pm_rows, term_rows, wbucket,
+                    term_rows.shape[1])
+                schedule_round(
+                    nt, pm, tt,
+                    enc.to_torch(None, None, None, pbs_stacked, dev)[3],
+                    usage, torch.zeros((), dtype=torch.int32, device=dev),
+                    torch.from_numpy(rows).to(dev),
+                    torch.from_numpy(trows).to(dev),
+                    weights=self.weights, num_zones=self.snapshot.caps.Z,
+                    num_label_values=self.snapshot.num_label_values,
+                    has_ipa=has_ipa, weight_vec=self._weight_vec())
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            finally:
+                for p in pods:
+                    self.snapshot.unstage(p)
 
     # -- the round -------------------------------------------------------------
 
@@ -432,6 +534,7 @@ class Scheduler:
         """One device-resident round over `pods` (queue order); the pods
         it leaves unplaced go to batched preemption, and those it does
         not handle back to the queue. Returns pods placed."""
+        start = self.clock()
         W = self.wave_size
         # ipa anywhere in the backlog (or already placed) caps the round
         # at the ipa wave count, even for ipa-free leading rounds
@@ -497,6 +600,7 @@ class Scheduler:
         retry: List[api.Pod] = []
         for wi, wv_pods in enumerate(waves):
             for i, pod in enumerate(wv_pods):
+                self.metrics.schedule_attempts.inc()
                 node_idx = int(chosen_all[wi, i])
                 if node_idx >= 0:
                     node_name = self.snapshot.node_names[node_idx]
@@ -512,6 +616,8 @@ class Scheduler:
         for pod in retry:
             if pod.uid not in handled:
                 self.queue.add_if_not_present(pod)
+        self.metrics.e2e_scheduling_latency.observe(self.clock() - start)
+        self.metrics.waves_total.labels(path="device").inc(len(waves))
         return placed
 
     # -- batched preemption (kubernetes_tpu/sched/scheduler.py:1965) -----------
@@ -556,9 +662,10 @@ class Scheduler:
         return guard, (w if w.any() else None)
 
     def _whatif(self, cands: List[api.Pod]):
-        """The what-if of one preemption chunk on the device: (packed
-        [5, P, N] stats as numpy, the victim-gang guard), or (None, None)
-        when nothing is evictable anywhere."""
+        """The what-if of one preemption chunk: (packed [5, P, N] stats as
+        numpy, the victim-gang guard), or (None, None) when nothing is
+        evictable anywhere. On the device, or through the numpy twin when
+        device_preemption is off."""
         pb = self.featurizer.featurize(cands)
         # candidate thresholds: distinct priorities of live existing pods
         # (+1 so "< level" removes that class); always keep the HIGHEST
@@ -570,6 +677,11 @@ class Scheduler:
         # victim-gang awareness: the per-class segment sum ranks
         # gang-sparing nodes first; None for gang-free clusters
         guard, gang_w = self._preempt_gang_weights()
+        if not self.device_preemption:
+            nt_h, pm_h, _tt = self.snapshot.host_tensors()
+            return preemption_stats_host(nt_h, pm_h, pb, levels,
+                                         num_levels=PREEMPT_LEVELS,
+                                         gang_w=gang_w), guard
         nt, pm, _tt = self.snapshot.to_device(self.device)
         pbt = enc.to_torch(None, None, None, pb, self.device)[3]
         packed = preemption_stats(nt, pm, pbt, levels,
@@ -579,6 +691,7 @@ class Scheduler:
     def _preempt_chunk(self, cands: List[api.Pod],
                        claimed: Dict[str, List[api.Pod]],
                        exhausted: Dict[str, int]) -> set:
+        t0 = self.clock()
         packed, guard = self._whatif(cands)
         if packed is None:
             return set()
@@ -597,6 +710,7 @@ class Scheduler:
             cand_nodes = np.nonzero(ok[i])[0]
             if cand_nodes.size == 0:
                 continue
+            self.metrics.total_preemption_attempts.inc()
             # the device ranking approximates the reference's tie-breaks
             # to pick the TOP-K; the exact criteria (PDB violations
             # included) re-rank the validated candidates below. Python's
@@ -637,8 +751,8 @@ class Scheduler:
                     ni = ni.clone()
                     for cp in claimed[name]:
                         ni.add_pod(cp)
-                sel = select_victims_on_node(pod, ni, pdbs, node_infos, None,
-                                             guard)
+                sel = select_victims_on_node(pod, ni, pdbs, node_infos,
+                                             self._host_extra_fit, guard)
                 if sel is not None:
                     validated[name] = sel
                 elif claimed.get(name):
@@ -661,6 +775,7 @@ class Scheduler:
             self._park_with_backoff(pod)
             self.pipeline_preemptions += 1
             handled.add(pod.uid)
+        self.metrics.preemption_evaluation.observe(self.clock() - t0)
         return handled
 
     # -- the per-wave loop (kubernetes_tpu/sched/scheduler.py:3028) -------------
@@ -675,6 +790,14 @@ class Scheduler:
             placed_gang = self._schedule_gangs(gang_pods)
             if not pods:
                 return placed_gang
+        # pods whose required pod-(anti)affinity spans more than one
+        # topology key take the exact host path
+        host_path = [p for p in pods if self.featurizer.needs_host_path(p)]
+        pods = [p for p in pods if not self.featurizer.needs_host_path(p)]
+        placed_gang += self._schedule_host_batch(host_path, rest=pods)
+        if not pods:
+            return placed_gang
+        start = self.clock()
         pb = self.featurizer.featurize(pods)
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
@@ -706,6 +829,7 @@ class Scheduler:
         placed = 0
         fail_counts = masks = None
         for i, pod in enumerate(pods):
+            self.metrics.schedule_attempts.inc()
             node_idx = int(chosen[i])
             if node_idx >= 0:
                 node_name = self.snapshot.node_names[node_idx]
@@ -720,7 +844,124 @@ class Scheduler:
                 fail_counts = res.fail_counts.cpu().numpy()
                 masks = res.masks.cpu().numpy()
             self._handle_failure(pod, i, fail_counts, masks)
+        self.metrics.e2e_scheduling_latency.observe(self.clock() - start)
+        self.metrics.waves_total.labels(path="device").inc()
         return placed + placed_gang
+
+    # -- the exact host path (kubernetes_tpu/sched/scheduler.py:3334) -------------
+
+    def _schedule_host_batch(self, pods: List[api.Pod],
+                             rest: List[api.Pod] = ()) -> int:
+        """The exact host path for `pods`, one pod at a time, over one
+        ClusterView shared by the batch (it reads the live cache, so
+        commits and evictions inside the loop stay visible). An
+        infrastructure failure parks its pod with backoff and the batch
+        goes on. Any other exception puts the pod that raised, the pods
+        of the batch not yet tried and `rest` (the other pods its caller
+        popped) back in the queue, and raises: the port has no poison
+        quarantine, and drops no pod. Returns the pods placed."""
+        if not pods:
+            return 0
+        view = golden.ClusterView(self.cache.node_infos)
+        placed = 0
+        for i, p in enumerate(pods):
+            try:
+                placed += self._schedule_host_path(p, view)
+            except (OSError, TimeoutError, Conflict, KeyError) as e:
+                # the golden pass also preempts and commits: a store
+                # failure there is not the pod's fault
+                self.metrics.scheduling_errors.labels(stage="bind").inc()
+                logging.getLogger(__name__).error(
+                    "golden pass failed on infrastructure, parking %s",
+                    p.full_name(), exc_info=e)
+                self._park_with_backoff(p)
+            except Exception:
+                for q in list(pods[i:]) + list(rest):
+                    self.queue.add_if_not_present(q)
+                raise
+        return placed
+
+    def _schedule_host_path(self, pod: api.Pod, view) -> int:
+        """The exact one-pod pass over plugins/golden.py for a pod the
+        round cannot encode (kubernetes_tpu/sched/scheduler.py:3408-3535):
+        its predicates and the host filters on every node, host
+        preemption when none fits, else the golden scores and a commit
+        on the first best node. Returns 1 if it placed the pod."""
+        self.metrics.schedule_attempts.inc()
+        self.metrics.waves_total.labels(path="host").inc()
+        feasible: List[str] = []
+        reasons: Dict[str, int] = {}
+        failed: Dict[str, List[str]] = {}
+        for name, ni in self.cache.node_infos.items():
+            ok, rs = golden.pod_fits_on_node(pod, ni, view=view)
+            if ok:
+                for fn in HOST_FILTERS.values():
+                    if (getattr(fn, "relevant", None) is not None
+                            and not fn.relevant(pod)):
+                        continue
+                    ok2, rs2 = fn(pod, ni)
+                    if not ok2:
+                        ok, rs = False, rs2
+                        break
+            if ok:
+                feasible.append(name)
+            else:
+                for r in rs[:1]:
+                    reasons[r] = reasons.get(r, 0) + 1
+                failed[name] = rs[:1]
+        if not feasible:
+            self.metrics.pods_failed.inc()
+            err = FitError(pod.full_name(), len(self.cache.node_infos),
+                           reasons)
+            self._count_unschedulable(err)
+            if not self.disable_preemption:
+                # reason strings back to predicate names for the
+                # unresolvable filter
+                fp = {n: [REASON_KEYS.get(r, r) for r in rs]
+                      for n, rs in failed.items()}
+                pr = preempt(pod, self.cache, fp, self._pdbs(),
+                             with_affinity=True,
+                             extra_fit=self._host_extra_fit,
+                             gang_guard=self._gang_guard(),
+                             snapshot=self.snapshot,
+                             featurizer=self.featurizer)
+                if pr is not None:
+                    self._perform_preemption(pod, pr)
+            self._park_with_backoff(pod)
+            self.store.set_pod_condition(
+                pod, ("PodScheduled", "False:" + err.message()))
+            return 0
+        # score: the golden interpod priority at the live interpod weight,
+        # plus least-requested and balanced allocation at weight 1; the
+        # first best node wins
+        w_interpod = float(stack_weights(self.weights)[W_INTERPOD])
+        ipa_scores = golden.interpod_affinity_priority(
+            pod, [self.cache.node_infos[n] for n in feasible], view,
+            hard_weight=int(self.weights.hard_pod_affinity))
+        best_name, best_score = None, None
+        for name in feasible:
+            ni = self.cache.node_infos[name]
+            s = (w_interpod * ipa_scores.get(name, 0)
+                 + golden.least_requested_map(pod, ni)
+                 + golden.balanced_allocation_map(pod, ni))
+            if best_score is None or s > best_score:
+                best_name, best_score = name, s
+        if best_name is not None and self._commit(pod, best_name):
+            return 1
+        self.queue.add_if_not_present(pod)
+        return 0
+
+    def _host_extra_fit(self, pod: api.Pod, ni) -> bool:
+        """The host filters as one fit check for preemption's what-if
+        (victim removal can resolve NoDiskConflict, so the simulation
+        re-runs them)."""
+        for fn in HOST_FILTERS.values():
+            if getattr(fn, "relevant", None) is not None and not fn.relevant(pod):
+                continue
+            ok, _ = fn(pod, ni)
+            if not ok:
+                return False
+        return True
 
     # -- gangs (kubernetes_tpu/sched/scheduler.py:3537) ---------------------------
 
@@ -734,6 +975,8 @@ class Scheduler:
             groups.setdefault(self.gangs.key(p), []).append(p)
         placed = 0
         for key, members in groups.items():
+            self.metrics.gang_schedule_attempts.inc()
+            self.metrics.schedule_attempts.inc(len(members))
             placed += self._schedule_one_gang_inner(key, members)
         return placed
 
@@ -745,6 +988,15 @@ class Scheduler:
         # members already holding capacity count toward minMember: the
         # dispatch only needs to place the remainder
         need = max(min_member - bound, 0)
+        # multi-topology-key required affinity can't be device-encoded;
+        # such members take the exact host path one at a time: atomicity
+        # is not offered for this combination
+        host_path = [p for p in members if self.featurizer.needs_host_path(p)]
+        members = [p for p in members
+                   if not self.featurizer.needs_host_path(p)]
+        placed = self._schedule_host_batch(host_path, rest=members)
+        if not members:
+            return placed
         pb = self.featurizer.featurize(members)
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
@@ -771,6 +1023,7 @@ class Scheduler:
         chosen, ok, n_placed = head[:G], bool(head[G]), int(head[G + 1])
         fin = head[G + 2:] != 0
         self._note_path(launches0)
+        self.metrics.waves_total.labels(path="device").inc()
         bad = [members[i].uid for i in range(len(members)) if not fin[i]]
         if bad:
             for p in members:
@@ -779,7 +1032,7 @@ class Scheduler:
                 f"numeric-integrity sentinel flagged gang pods {bad}")
         if not ok:
             self._fail_gang(key, members, need, res, n_placed)
-            return 0
+            return placed
         self._rr = res.rr_end
         pairs: List = []
         leftover: List = []
@@ -794,7 +1047,7 @@ class Scheduler:
             # arithmetic: retry the whole gang, not unschedulable
             for pod in members:
                 self.queue.add_if_not_present(pod)
-            return 0
+            return placed
         self.backoff.clear("gang:" + key)
         # surplus members beyond minMember that didn't fit park
         # individually with normal per-pod attribution
@@ -803,7 +1056,7 @@ class Scheduler:
             masks = res.masks.cpu().numpy()
             for i, pod in leftover:
                 self._handle_failure(pod, i, fail_counts, masks)
-        return len(pairs)
+        return placed + len(pairs)
 
     def _fail_gang(self, key: str, members: List[api.Pod], need: int, res,
                    n_placed: int) -> None:
@@ -820,12 +1073,14 @@ class Scheduler:
         # retry as shrinking subsets instead of waiting out its backoff
         until = self.clock() + self.backoff.bump("gang:" + key)
         for pod in members:
+            self.metrics.pods_failed.inc()
             self.queue.set_backoff(pod.uid, until)
             self.queue.add_unschedulable_if_not_present(pod)
             self.store.set_pod_condition(
                 pod, ("PodScheduled", "False:" + err.message()))
         if self.disable_preemption:
             return
+        t0 = self.clock()
         guard = self._gang_guard()
         masks = res.masks.cpu().numpy()
         # claimed: nodes earlier members already nominated — each member
@@ -833,17 +1088,20 @@ class Scheduler:
         # freed
         claimed: set = set()
         for i, pod in enumerate(members):
+            self.metrics.total_preemption_attempts.inc()
             fp = {n: preds for n, preds in
                   self._failed_predicates_by_node(masks, i).items()
                   if n not in claimed}
             pr = preempt(pod, self.cache, fp, self._pdbs(),
                          with_affinity=self.snapshot.has_affinity_terms
                          or _pod_has_ipa_terms(pod),
+                         extra_fit=self._host_extra_fit,
                          gang_guard=guard, snapshot=self.snapshot,
                          featurizer=self.featurizer)
             if pr is not None:
                 claimed.add(pr.node_name)
                 self._perform_preemption(pod, pr)
+        self.metrics.preemption_evaluation.observe(self.clock() - t0)
 
     def _commit_gang(self, pairs) -> bool:
         """Group-wide exact commit: EVERY member passes the int64 recheck
@@ -941,8 +1199,12 @@ class Scheduler:
 
     def _handle_failure(self, pod: api.Pod, idx: int, fail_counts, masks):
         """fail_counts [Q, P] and masks [Q, P, N]: the wave's, fetched."""
+        self.metrics.pods_failed.inc()
         err = self._fit_error(pod, idx, fail_counts)
+        self._count_unschedulable(err)
         if not self.disable_preemption:
+            t0 = self.clock()
+            self.metrics.total_preemption_attempts.inc()
             aff = pod.spec.affinity
             pod_has_ipa = aff is not None and (
                 aff.pod_affinity is not None
@@ -952,8 +1214,10 @@ class Scheduler:
                          self._pdbs(),
                          with_affinity=(self.snapshot.has_affinity_terms
                                         or pod_has_ipa),
+                         extra_fit=self._host_extra_fit,
                          gang_guard=self._gang_guard(),
                          snapshot=self.snapshot, featurizer=self.featurizer)
+            self.metrics.preemption_evaluation.observe(self.clock() - t0)
             if pr is not None and pr.victims:
                 self._perform_preemption(pod, pr)
             # a zero-victim candidate means the what-if thinks the pod
@@ -991,7 +1255,7 @@ class Scheduler:
                 k = self.gangs.key(victim)
                 if k is not None:
                     victim_gangs[k] = None
-            self.preemption_victims += 1
+            self.metrics.pod_preemption_victims.inc()
             try:
                 self.store.delete("pods", victim.namespace,
                                   victim.metadata.name)
@@ -1008,7 +1272,7 @@ class Scheduler:
             if len(remaining) >= m:
                 continue
             for p in remaining:
-                self.preemption_victims += 1
+                self.metrics.pod_preemption_victims.inc()
                 try:
                     self.store.delete("pods", p.namespace, p.metadata.name)
                 except KeyError:
@@ -1039,14 +1303,23 @@ class Scheduler:
         """The bind POST and the cache's confirmation. A bind the store
         refuses (the pod was deleted, or bound by another actor) rolls
         the assumption back; the store's own event then tells the cache
-        the truth."""
+        the truth. A bind that lands observes the pod's latency from its
+        first enqueue (the queue's added_at, consumed only here, so a
+        failed bind's requeue keeps the original time)."""
+        t0 = self.clock()
         try:
             self.store.bind(pod, node_name)
         except (KeyError, Conflict):
+            self.metrics.scheduling_errors.labels(stage="bind").inc()
             if self.cache.is_assumed(bound):
                 self._forget(bound, node_name)
             return False
         self.cache.finish_binding(bound)
+        self.metrics.binding_latency.observe(self.clock() - t0)
+        added = self.queue.added_at.pop(pod.uid, None)
+        if added is not None:
+            self.metrics.pod_scheduling_latency.observe(self.clock() - added)
+        self.metrics.pods_scheduled.inc()
         self.backoff.clear(pod.uid)
         self.queue.clear_backoff(pod.uid)
         self.queue.update_nominated_pod(pod, "")

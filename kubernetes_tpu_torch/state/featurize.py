@@ -370,7 +370,7 @@ class PodFeaturizer:
         (predicates.go anyPodsMatchingTopologyTerms: one target node must
         satisfy ALL terms' topologies) need a composite domain otherwise,
         so such pods take an exact host path (the JAX package's
-        plugins/golden.py; the port's scheduler refuses them)."""
+        plugins/golden.py; the port's `_schedule_host_batch`)."""
         aff = pod.spec.affinity
         if aff is None:
             return False

@@ -212,6 +212,7 @@ def test_gang_and_preemption_drain_on_card_matches_cpu(cuda):
         sched.schedule_pending()
         clock.advance(10.0)
         sched.schedule_pending()
-        got[device] = (bindings(store), sched.preemption_victims)
+        got[device] = (bindings(store),
+                       sched.metrics.pod_preemption_victims.value)
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][1] > 0 and got["cuda"][1] % 4 == 0

@@ -7,6 +7,7 @@ and tests/test_torch_gang.py hold the two packages equal with
 preemption on.
 """
 
+import importlib
 import subprocess
 import sys
 import textwrap
@@ -17,7 +18,6 @@ import torch
 
 from kubernetes_tpu.plugins.registry import default_profile
 from kubernetes_tpu.sched.scheduler import Scheduler as JaxScheduler
-from kubernetes_tpu_torch.api import labels as tlbl
 from kubernetes_tpu_torch.api import types as tapi
 from kubernetes_tpu_torch.ops.encoding import Caps
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
@@ -116,36 +116,40 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
         Scheduler(ObjectStore(), device="cuda")
 
 
-@pytest.mark.parametrize("kind,names", [
-    ("gang_multi_topology_key", "plugins/golden.py"), ("volume", "volume"),
-    ("multi_topology_key", "plugins/golden.py")])
-def test_later_slice_backlogs_raise(kind, names):
-    """Pods the port does not take yet raise for the whole backlog and
-    are all left pending: volumes, and required pod anti-affinity over
-    two topology keys (the JAX package's exact host path), a gang member
-    with such terms too."""
-    store, _ = store_world("kubernetes_tpu_torch", 5, 8, 20)
-    sched = Scheduler(store, device="cpu")
-    sched.schedule_pending()
+def _later_pods(pkg, kind):
+    """The pods the port took in a later slice than the round: a pod with
+    volumes, or with required pod anti-affinity over two topology keys (a
+    gang member too), and a plain pod beside it."""
+    api, lbl = (importlib.import_module(f"{pkg}.api.types"),
+                importlib.import_module(f"{pkg}.api.labels"))
     spec, meta = {}, {}
     if kind in ("multi_topology_key", "gang_multi_topology_key"):
-        sel = tlbl.LabelSelector(match_labels={"app": "a"})
-        spec["affinity"] = tapi.Affinity(pod_anti_affinity=tapi.PodAntiAffinity(
-            required=[tapi.PodAffinityTerm(
+        sel = lbl.LabelSelector(match_labels={"app": "a"})
+        spec["affinity"] = api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
+            required=[api.PodAffinityTerm(
                 label_selector=sel, topology_key="kubernetes.io/hostname"),
-                tapi.PodAffinityTerm(
+                api.PodAffinityTerm(
                 label_selector=sel,
                 topology_key="failure-domain.beta.kubernetes.io/zone")]))
     if kind == "volume":
-        spec["volumes"] = [tapi.Volume(name="data")]
+        spec["volumes"] = [api.Volume(name="data")]
     if kind == "gang_multi_topology_key":
-        meta["annotations"] = {tapi.POD_GROUP_NAME_ANNOTATION: "g"}
-    store.create("pods", tapi.Pod(
-        metadata=tapi.ObjectMeta(name="later", uid="later", **meta),
-        spec=tapi.PodSpec(containers=[tapi.Container()], **spec)))
-    store.create("pods", tapi.Pod(
-        metadata=tapi.ObjectMeta(name="plain", uid="plain"),
-        spec=tapi.PodSpec(containers=[tapi.Container()])))
+        meta["annotations"] = {api.POD_GROUP_NAME_ANNOTATION: "g"}
+    return [api.Pod(metadata=api.ObjectMeta(name="later", uid="later", **meta),
+                    spec=api.PodSpec(containers=[api.Container()], **spec)),
+            api.Pod(metadata=api.ObjectMeta(name="plain", uid="plain"),
+                    spec=api.PodSpec(containers=[api.Container()]))]
+
+
+@pytest.mark.parametrize("kind,names", [("volume", "volume")])
+def test_later_slice_backlogs_raise(kind, names):
+    """Pods the port does not take yet raise for the whole backlog and
+    are all left pending: pods with volumes."""
+    store, _ = store_world("kubernetes_tpu_torch", 5, 8, 20)
+    sched = Scheduler(store, device="cpu")
+    sched.schedule_pending()
+    for pod in _later_pods("kubernetes_tpu_torch", kind):
+        store.create("pods", pod)
     pending = sched.pending_count()
     with pytest.raises(NotImplementedError, match=names):
         sched.schedule_pending()
@@ -153,6 +157,30 @@ def test_later_slice_backlogs_raise(kind, names):
     assert {"later", "plain"} <= {p.metadata.name
                                   for p in sched.queue.active_pods()}
     assert not bindings(store)["later"] and not bindings(store)["plain"]
+
+
+@pytest.mark.parametrize("kind", ["gang_multi_topology_key",
+                                  "multi_topology_key"])
+def test_multi_topology_key_backlogs_place_as_jax(kind):
+    """Pods with required pod anti-affinity over two topology keys, a gang
+    member too, which the port once refused: they take the exact host
+    path and place, with the plain pod beside them, where the JAX
+    Scheduler places them, on the same virtual clock."""
+    got = {}
+    for pkg in ("kubernetes_tpu", "kubernetes_tpu_torch"):
+        store, _ = store_world(pkg, 5, 8, 20)
+        clock = FakeClock()
+        sched = (JaxScheduler(store, clock=clock) if pkg == "kubernetes_tpu"
+                 else Scheduler(store, device="cpu", clock=clock))
+        sched.schedule_pending()
+        for pod in _later_pods(pkg, kind):
+            store.create("pods", pod)
+        clock.advance(sched.backoff.maximum + 1)  # the parked pods return
+        sched.schedule_pending()
+        got[pkg] = bindings(store)
+    assert got["kubernetes_tpu_torch"] == got["kubernetes_tpu"]
+    assert got["kubernetes_tpu_torch"]["later"]
+    assert got["kubernetes_tpu_torch"]["plain"]
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -4,7 +4,8 @@ them, the comparison of the two packages' rounds, every output
 bit-equal, and `Both`, which drives one scenario through both packages'
 schedulers in lockstep. Used by tests/test_torch_kernel.py,
 tests/test_torch_affinity.py, tests/test_torch_topology.py,
-tests/test_torch_gang.py and tests/test_torch_preempt.py.
+tests/test_torch_gang.py, tests/test_torch_preempt.py,
+tests/test_torch_drivers.py and tests/test_torch_hostpath.py.
 """
 
 import numpy as np
@@ -37,6 +38,13 @@ WAVE_PLANES = ("chosen", "score", "feasible_count", "fail_counts", "masks",
 RICH_WEIGHTS = dict(most_requested=1.0, image_locality=1.0)
 LIVE_VECTOR = np.asarray([2, 1, 3, 1, 2, 1, 10000, 1, 3, 2, 4, 1],
                          np.float32)
+# the scheduler metrics the port observes where the JAX scheduler does
+SCHED_METRICS = ("pod_scheduling_latency", "binding_latency",
+                 "pods_scheduled", "e2e_scheduling_latency", "waves_total",
+                 "schedule_attempts", "pods_failed", "unschedulable_reasons",
+                 "preemption_evaluation", "total_preemption_attempts",
+                 "pod_preemption_victims", "gang_schedule_attempts",
+                 "gang_wait_seconds", "scheduling_errors")
 
 
 def eq(want, got, name=""):
@@ -127,10 +135,27 @@ def compare_rounds(snap, inputs, has_ipa=False, vector=False, gating=None):
     return got[0].numpy()
 
 
+def metric_state(metrics) -> dict:
+    """The SCHED_METRICS of one registry: a histogram's count, sum,
+    bucket counts and max, a counter's value, a labelled family's
+    {series: value}."""
+    out = {}
+    for name in SCHED_METRICS:
+        m = getattr(metrics, name)
+        if hasattr(m, "counts"):
+            out[name] = (m.total, m.sum, tuple(m.counts), m.max)
+        elif hasattr(m, "children"):
+            out[name] = {c.name: c.value for c in m.children()}
+        else:
+            out[name] = m.value
+    return out
+
+
 class Both:
     """One scenario driven through both packages' schedulers in lockstep:
     every store write goes to both stores, every schedule_pending runs on
-    both and returns both counts; `check` compares the stores."""
+    both and returns both counts; `check` compares the stores, the
+    queues, the preemption counters and the SCHED_METRICS."""
 
     def __init__(self, n_nodes=0, wave=16, **node_kw):
         self.clock = {"jax": FakeClock(), "torch": FakeClock()}
@@ -149,6 +174,11 @@ class Both:
     @staticmethod
     def pkg(side):
         return "kubernetes_tpu" if side == "jax" else "kubernetes_tpu_torch"
+
+    def create(self, kind, make):
+        """make(pkg) -> the object to create in that package's store."""
+        for side, store in self.stores.items():
+            store.create(kind, make(self.pkg(side)))
 
     def node(self, name, **kw):
         for side, store in self.stores.items():
@@ -192,8 +222,7 @@ class Both:
         j, t = self.sched["jax"], self.sched["torch"]
         assert t.queue.pending_count() == j.queue.pending_count()
         assert t.pipeline_preemptions == j.pipeline_preemptions
-        assert (t.preemption_victims
-                == int(j.metrics.pod_preemption_victims.value))
+        assert metric_state(t.metrics) == metric_state(j.metrics)
 
     def bound(self, gang):
         return sum(1 for p in self.stores["torch"].list("pods")

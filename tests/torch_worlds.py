@@ -497,14 +497,18 @@ class FakeClock:
 
 
 def plain_node(pkg: str, name: str, cpu: str = "4", memory: str = "8Gi",
-               pods: int = 110, taints=()):
-    """A Ready node (tests/helpers.py make_node) in either package."""
+               pods: int = 110, taints=(), zone=None):
+    """A Ready node (tests/helpers.py make_node) in either package; zone
+    sets its zone label."""
     api, _ = _mods(pkg)
     alloc = api.resource_list(cpu=cpu, memory=memory, pods=pods,
                               ephemeral_storage="100Gi")
+    labels = {HOSTNAME: name}
+    if zone is not None:
+        labels[ZONE] = zone
     return api.Node(
         metadata=api.ObjectMeta(name=name, uid=f"node-{name}",
-                                labels={"kubernetes.io/hostname": name}),
+                                labels=labels),
         spec=api.NodeSpec(taints=list(taints)),
         status=api.NodeStatus(
             capacity=dict(alloc), allocatable=alloc,
@@ -512,10 +516,13 @@ def plain_node(pkg: str, name: str, cpu: str = "4", memory: str = "8Gi",
 
 
 def plain_pod(pkg: str, name: str, cpu=None, memory=None, priority=None,
-              labels=None, gang=None, min_avail=None):
+              labels=None, gang=None, min_avail=None, node_name="",
+              affinity=None):
     """A pod (tests/helpers.py make_pod) in either package; gang names its
-    PodGroup annotation, min_avail the min-available annotation."""
-    api, _ = _mods(pkg)
+    PodGroup annotation, min_avail the min-available annotation,
+    node_name binds it, and affinity(api, lbl) builds its Affinity in the
+    package's own types."""
+    api, lbl = _mods(pkg)
     reqs = {}
     if cpu is not None or memory is not None:
         reqs = api.resource_list(cpu=cpu, memory=memory)
@@ -528,9 +535,65 @@ def plain_pod(pkg: str, name: str, cpu=None, memory=None, priority=None,
         metadata=api.ObjectMeta(name=name, uid=name, labels=dict(labels or {}),
                                 annotations=annotations),
         spec=api.PodSpec(
-            priority=priority,
+            priority=priority, node_name=node_name,
+            affinity=affinity(api, lbl) if affinity is not None else None,
             containers=[api.Container(
                 name="c", resources=api.ResourceRequirements(requests=reqs))]))
+
+
+def multikey_affinity(app: str = "db", tier: str = "cache",
+                      anti: bool = False):
+    """affinity(api, lbl) for plain_pod: required pod affinity over two
+    topology keys (the JAX package's exact host path): the zone of an
+    `app=<app>` pod and the host of a `tier=<tier>` pod; anti: the same
+    two terms as required anti-affinity. In the 1.11 semantics both
+    packages keep (predicates.go anyPodsMatchingTopologyTerms) ONE bound
+    pod must match every term and share every term's domain with the
+    node, so only a pod labelled with both anchors the terms."""
+
+    def build(api, lbl):
+        terms = [api.PodAffinityTerm(
+                     label_selector=lbl.LabelSelector(
+                         match_labels={"app": app}), topology_key=ZONE),
+                 api.PodAffinityTerm(
+                     label_selector=lbl.LabelSelector(
+                         match_labels={"tier": tier}),
+                     topology_key=HOSTNAME)]
+        if anti:
+            return api.Affinity(pod_anti_affinity=api.PodAntiAffinity(
+                required=terms))
+        return api.Affinity(pod_affinity=api.PodAffinity(required=terms))
+
+    return build
+
+
+def bench_node(pkg: str, i: int):
+    """bench.py build_cluster's node: 3 zones, 16 CPU, 32Gi, 110 pods."""
+    api, _ = _mods(pkg)
+    return api.Node(
+        metadata=api.ObjectMeta(name=f"node-{i}", labels={
+            ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"}),
+        status=api.NodeStatus(
+            allocatable=api.resource_list(cpu="16", memory="32Gi", pods=110,
+                                          ephemeral_storage="200Gi"),
+            conditions=[api.NodeCondition(api.NODE_READY, api.COND_TRUE)]))
+
+
+def bench_pod(pkg: str, name: str, prefix: str, cpu: str = "100m",
+              priority=None):
+    """bench.py _base_pod (100m / 128Mi, controlled by an RC named after
+    the prefix), its CPU request and priority set as run_preempt_config
+    sets them."""
+    api, _ = _mods(pkg)
+    return api.Pod(
+        metadata=api.ObjectMeta(
+            name=name, uid=name, labels={"type": prefix},
+            owner_references=[api.OwnerReference(
+                kind="ReplicationController", name=prefix, uid=f"rc-{prefix}",
+                controller=True)]),
+        spec=api.PodSpec(priority=priority, containers=[api.Container(
+            resources=api.ResourceRequirements(
+                requests=api.resource_list(cpu=cpu, memory="128Mi")))]))
 
 
 def pod_group(pkg: str, name: str, min_member: int):
