@@ -42,7 +42,18 @@ Phases (any failure exits non-zero and prints no result line):
                exact host path, plugins/golden.py): identical bindings,
                every multi-key pod bound where both terms hold (read back
                from the store), the host-path passes and their seconds
-               printed;
+               printed; then the volumes world (500 nodes, 1 000 pods on
+               bound zoned claims, on their own WaitForFirstConsumer
+               claims against too few free PVs in two of three zones, on
+               shared inline disks, aimed past the 16-PD limit, and one
+               on a claim with no PV; VolumeScheduling on) with the
+               equivalence cache off and then on: identical bindings,
+               claim bindings and PodScheduled messages on card and CPU,
+               and the cache changes none; then the policy world (500
+               nodes, 1 000 pods under a Policy with a labelsPresence
+               filter, labelPreference and ResourceLimitsPriority host
+               scores and LeastRequestedPriority at 0, every wave
+               per-wave with host scores): identical bindings;
   6. mixed   — bench.py's mixed5k shape at full width: 5 000 nodes with
                node-affinity labels, 30 000 pods in four quarters (density,
                required node affinity, service spreading, required hostname
@@ -99,7 +110,22 @@ Phases (any failure exits non-zero and prints no result line):
                virtual clock: every vip placed, 100 evictions, all hogs, no
                what-if launch; the same run with device="cpu" gives the
                same bindings and victims.
-Phases 8, 9 and 12 run with PodBackoff(initial=0.001), as bench.py
+  13. statefulset — 5 000 nodes, 2 048 density pods, then 8 StatefulSets
+               of 64 pods, each pod with its own claim: even replicas on
+               a claim pre-bound to a zoned GCE PD PV, odd ones on an
+               unbound WaitForFirstConsumer claim of 5-10 Gi against 320
+               free PVs of 10, 20 and 50 Gi in three zones;
+               VolumeScheduling on, the equivalence cache off. The host
+               mask of 8 of the pods projects the phase; past 150 s the
+               StatefulSet pods are halved (to 256). Every pod placed
+               (check_bindings), every pod in its PV's zone, every claim
+               bound to its own PV, no node over 16 GCE PDs, the kernel
+               == plain on the per-wave dispatches' inputs. Printed:
+               pods/s, pipeline passes and bail-outs, per-wave
+               dispatches, host seconds by phase (host_mask,
+               volume_bind, ...), taint/port launches, the implicit host
+               syncs of one volume and one density wave, claims bound.
+Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
 CPU copy of it. Each drain sets both kernels' launch counts to 0 before
@@ -146,6 +172,35 @@ PACED_PODS, PACED_RATE, PACED_CHUNK = 4000, 200.0, 100
 PACED_SLO_S = 5.0
 # phase 12 (bench.py preempt_host, its own size)
 HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
+# phase 13: 8 StatefulSets of 64 replicas, each pod with its own claim,
+# beside density pods; free zonal PVs. The StatefulSet pods are halved
+# (to no fewer than SS_MIN_PODS) when the phase projects past
+# SS_PHASE_BUDGET_S: the host mask timed on SS_PROBE_PODS of them, for
+# every StatefulSet pod and the wave the pipeline's bail-out masks again,
+# plus a per-wave dispatch a wave at the density drain's ms a pod
+SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
+SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 150.0, 8
+# phase 5's volumes world: pods on bound zoned claims, on their own
+# WaitForFirstConsumer claims against fewer free PVs in two zones of
+# three, on shared inline disks, aimed at PD_NODES nodes with 3 PDs each
+# past the 16-PD limit, and one on a claim with no PV
+VOL_BOUND, VOL_WFFC, VOL_FREE_PVS, VOL_SHARED, PD_NODES = 120, 120, 100, 60, 4
+GCE_PD, GCE_PD_LIMIT, GI = "GCEPersistentDisk", 16, 2 ** 30
+# phase 5's policy world: a labelsPresence filter, a labelPreference and
+# ResourceLimitsPriority host score, LeastRequestedPriority zeroed
+POLICY = json.dumps({
+    "predicates": [
+        {"name": "PodFitsResources"}, {"name": "PodToleratesNodeTaints"},
+        {"name": "MatchNodeSelector"}, {"name": "NoDiskConflict"},
+        {"name": "GPUNodes", "argument": {"labelsPresence": {
+            "labels": ["gpu"], "presence": True}}}],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 0},
+        {"name": "BalancedResourceAllocation", "weight": 1},
+        {"name": "SelectorSpreadPriority", "weight": 1},
+        {"name": "ResourceLimitsPriority", "weight": 2},
+        {"name": "SSDNodes", "argument": {"labelPreference": {
+            "label": "ssd", "presence": True}}, "weight": 5}]})
 WAVE = 128
 # the round's wave cap with inter-pod affinity (sched/scheduler.py)
 IPA_MAX_WAVES = 64
@@ -247,13 +302,17 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
     return store, len(port_nodes)
 
 
-def add_plain_nodes(api, store, n_nodes: int, affinity_labels: int = 0):
+def add_plain_nodes(api, store, n_nodes: int, affinity_labels: int = 0,
+                    extra_labels=None):
     """bench.py build_cluster: 3 zones, 16 CPU, 32Gi, 110 pods a node, and
-    with affinity_labels one of K `aff-{i % K}=yes` labels a node."""
+    with affinity_labels one of K `aff-{i % K}=yes` labels a node;
+    extra_labels(i) adds labels to node i."""
     for i in range(n_nodes):
         labels = {ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"}
         if affinity_labels:
             labels[f"aff-{i % affinity_labels}"] = "yes"
+        if extra_labels is not None:
+            labels.update(extra_labels(i))
         store.create("nodes", api.Node(
             metadata=api.ObjectMeta(name=f"node-{i}", labels=labels),
             status=api.NodeStatus(
@@ -1586,6 +1645,425 @@ def preempt_host_phase(torch, mods, enc, bucket_size, Metrics):
     return dict(launches=launches, whatif_launches=whatif_launches)
 
 
+# --- volumes and profiles (phases 5 and 13) ------------------------------------
+
+
+def zone_affinity(api, lbl, zone):
+    """The node affinity of a zoned PV: the nodes of that zone."""
+    return api.NodeSelector(node_selector_terms=[api.NodeSelectorTerm(
+        match_expressions=[lbl.Requirement(ZONE, lbl.IN, (zone,))])])
+
+
+def zoned_pv(api, lbl, name, zone, gi):
+    """A GCE PD PV of StorageClass `zonal` in `zone`: its zone label and
+    the node affinity of that zone."""
+    return api.PersistentVolume(
+        metadata=api.ObjectMeta(name=name, labels={ZONE: zone}),
+        spec=api.PersistentVolumeSpec(
+            source_kind=GCE_PD, source_id=f"pd-{name}",
+            capacity={"storage": gi * GI}, storage_class_name="zonal",
+            node_affinity=zone_affinity(api, lbl, zone)))
+
+
+def claim(api, name, volume_name="", cls="zonal", gi=10):
+    """A claim bound to `volume_name`, or unbound and bound by the
+    scheduler at commit (WaitForFirstConsumer)."""
+    return api.PersistentVolumeClaim(
+        metadata=api.ObjectMeta(name=name),
+        spec=api.PersistentVolumeClaimSpec(
+            volume_name=volume_name, storage_class_name=cls,
+            volume_binding_mode=("Immediate" if volume_name
+                                 else "WaitForFirstConsumer"),
+            requests={"storage": gi * GI}))
+
+
+def disk_pod(api, name, claims=(), disks=(), owner=None, node=None,
+             limits=False):
+    """bench.py's density pod (100m / 128Mi) with a volume per claim name
+    and a read-write inline GCE PD per disk name; owner: the StatefulSet
+    that controls it (labelled app=<owner>), else the density RC; node:
+    a hostname nodeSelector; limits: 1 CPU and 1Gi of limits."""
+    p = batch_pod(api, name, "density", "100m", None)
+    p.spec.volumes = (
+        [api.Volume(name=c, pvc_name=c) for c in claims]
+        + [api.Volume(name=f"disk-{i}", source_kind=GCE_PD, source_id=d)
+           for i, d in enumerate(disks)])
+    if owner is not None:
+        p.metadata.labels = {"app": owner}
+        p.metadata.owner_references = [api.OwnerReference(
+            kind="StatefulSet", name=owner, uid=f"ss-{owner}",
+            controller=True)]
+    if node is not None:
+        p.spec.node_selector = {HOSTNAME: node}
+    if limits:
+        p.spec.containers[0].resources.limits = api.resource_list(
+            cpu="1", memory="1Gi")
+    return p
+
+
+def volume_checks(store, pd_limit=True) -> dict:
+    """The volume invariants, read back from the store: every bound pod
+    whose claim's PV carries a zone sits in that zone; no PV is bound to
+    two claims; with pd_limit, no node holds more than GCE_PD_LIMIT GCE
+    PDs (pods placed in one wave are checked against the wave's start,
+    as in the reference, so a world that aims disks at a node may pass
+    it). Returns claim -> PV."""
+    nodes = {n.metadata.name: n for n in store.list("nodes")}
+    pvs = {v.metadata.name: v for v in store.list("persistentvolumes")}
+    claims = {c.metadata.name: c.spec.volume_name
+              for c in store.list("persistentvolumeclaims")}
+    taken = [v for v in claims.values() if v]
+    if len(taken) != len(set(taken)):
+        fail("a PV is bound to two claims")
+    pds = {}
+    for p in store.list("pods"):
+        if not p.spec.node_name:
+            continue
+        zone = nodes[p.spec.node_name].metadata.labels.get(ZONE)
+        for v in p.spec.volumes:
+            pv = pvs.get(claims.get(v.pvc_name, "")) if v.pvc_name else None
+            want = pv.metadata.labels.get(ZONE) if pv is not None else None
+            if want is not None and want != zone:
+                fail(f"{p.metadata.name} on {p.spec.node_name} ({zone}) "
+                     f"uses a PV of {want}")
+            pd = (pv.spec.source_id if pv is not None
+                  and pv.spec.source_kind == GCE_PD else
+                  v.source_id if v.source_kind == GCE_PD else None)
+            if pd:
+                pds.setdefault(p.spec.node_name, set()).add(pd)
+    worst = max((len(v) for v in pds.values()), default=0)
+    if pd_limit and worst > GCE_PD_LIMIT:
+        fail(f"a node holds {worst} GCE PDs, over {GCE_PD_LIMIT}")
+    return claims
+
+
+def messages(store) -> dict:
+    """pod name -> its PodScheduled condition (the FitError message)."""
+    return {p.metadata.name: dict(p.status.conditions).get("PodScheduled")
+            for p in store.list("pods")}
+
+
+def volume_world(mods, enc, bucket_size, lbl, FeatureGates, device, ecache):
+    """Phase 5's volumes world on `device`, on a virtual clock, the
+    VolumeScheduling gate on and the equivalence cache as `ecache` says:
+    SMALL_NODES plain nodes and SMALL_PODS pods in one backlog — VOL_BOUND
+    on claims bound to zoned PVs; VOL_WFFC on their own unbound claims of
+    5-10 Gi against VOL_FREE_PVS free PVs of 10, 20 and 50 Gi in two of
+    the three zones (the pods contend and commits lose); VOL_SHARED with
+    a read-write inline PD of one of 4 shared names (NoDiskConflict);
+    PD_NODES nodes each aimed at by one pod of 3 PDs a wave, past the 16
+    PDs (MaxGCEPDVolumeCount); one pod on a claim whose class has no PV
+    (VolumeBindingNoMatch); density pods for the rest. Returns (bindings,
+    claim -> PV, PodScheduled messages, ecache (hits, misses), host-mask
+    seconds, pods placed)."""
+    import numpy as np
+
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    rng = np.random.RandomState(SEED)
+    clock = VirtualClock()
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(M=bucket_size(SMALL_PODS + 64), P=WAVE,
+                    LV=bucket_size(SMALL_NODES + 256, 64))
+    gates = {"VolumeScheduling": True}
+    if ecache:
+        gates["EnableEquivalenceClassCache"] = True
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock, features=FeatureGates(gates))
+    add_plain_nodes(api, store, SMALL_NODES)
+    for k in range(VOL_FREE_PVS):
+        store.create("persistentvolumes", zoned_pv(
+            api, lbl, f"pv-free-{k}", f"zone-{k % 2}",
+            (10, 20, 50)[rng.randint(3)]))
+    pods = []
+    for k in range(VOL_BOUND):
+        name = f"pv-bound-{k}"
+        store.create("persistentvolumes", zoned_pv(
+            api, lbl, name, f"zone-{rng.randint(3)}", 20))
+        store.create("persistentvolumeclaims",
+                     claim(api, f"data-b{k}", volume_name=name))
+        pods.append(disk_pod(api, f"bound-{k}", claims=[f"data-b{k}"],
+                             owner="db"))
+    for k in range(VOL_WFFC):
+        store.create("persistentvolumeclaims", claim(
+            api, f"data-u{k}", gi=int(rng.randint(5, 11))))
+        pods.append(disk_pod(api, f"wffc-{k}", claims=[f"data-u{k}"],
+                             owner="web"))
+    for k in range(VOL_SHARED):
+        pods.append(disk_pod(api, f"shared-{k}", disks=[f"shared-{k % 4}"]))
+    store.create("persistentvolumeclaims",
+                 claim(api, "orphan", cls="none"))
+    pods.append(disk_pod(api, "orphan", claims=["orphan"]))
+    while len(pods) < SMALL_PODS - PD_NODES * 6:
+        pods.append(disk_pod(api, f"density-{len(pods)}"))
+    rng.shuffle(pods)
+    # the aimed pods, one a node in each of six waves: the sixth brings a
+    # node to 18 PDs
+    for w in range(6):
+        for n in range(PD_NODES):
+            pods.insert(w * WAVE + n, disk_pod(
+                api, f"aimed-{n}-{w}", node=f"node-{n}",
+                disks=[f"aimed-{n}-{w}-{d}" for d in range(3)]))
+    for p in pods:
+        store.create("pods", p)
+    host = {"seconds": 0.0}
+    mask = sched._host_plugin_mask
+
+    def timed(*a, **kw):
+        t0 = time.monotonic()
+        try:
+            return mask(*a, **kw)
+        finally:
+            host["seconds"] += time.monotonic() - t0
+
+    sched._host_plugin_mask = timed
+    placed = settle(sched, clock, limit=3)
+    check_bindings(api, store)
+    claims = volume_checks(store, pd_limit=False)
+    ec = ((sched.ecache.hits, sched.ecache.misses)
+          if sched.ecache is not None else None)
+    return (bindings(store), claims, messages(store), ec, host["seconds"],
+            placed)
+
+
+def policy_world(mods, enc, bucket_size, Registry, device):
+    """Phase 5's policy world on `device`, on a virtual clock: SMALL_NODES
+    nodes, two in three labelled gpu=yes and one in four ssd=1, and
+    SMALL_PODS density pods, one in three with limits, under POLICY (a
+    labelsPresence filter; labelPreference and ResourceLimitsPriority as
+    host scores through extra_scores; LeastRequestedPriority at weight
+    0): every wave takes the per-wave path. Returns (bindings, pods
+    placed, per-wave dispatches)."""
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    clock = VirtualClock()
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(M=bucket_size(SMALL_PODS + 64), P=WAVE,
+                    LV=bucket_size(SMALL_NODES + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock,
+                      profile=Registry().profile_from_policy(POLICY, store))
+    add_plain_nodes(api, store, SMALL_NODES, extra_labels=lambda i: dict(
+        ({"gpu": "yes"} if i % 3 else {}), **({"ssd": "1"} if i % 4 == 1
+                                               else {})))
+    for j in range(SMALL_PODS):
+        store.create("pods", disk_pod(api, f"pod-{j}", limits=j % 3 == 0))
+    waves = {"n": 0}
+    run_wave = sched._run_wave
+
+    def counted(pods):
+        waves["n"] += 1
+        return run_wave(pods)
+
+    sched._run_wave = counted
+    placed = settle(sched, clock, limit=3)
+    check_bindings(api, store)
+    labels = {n.metadata.name: n.metadata.labels for n in store.list("nodes")}
+    if any(p.spec.node_name and "gpu" not in labels[p.spec.node_name]
+           for p in store.list("pods")):
+        fail("policy: a pod is bound to a node without the gpu label")
+    return bindings(store), placed, waves["n"]
+
+
+def statefulset_phase(torch, mods, enc, bucket_size, lbl, filters,
+                      FeatureGates, wave_s):
+    """Phase 13: StatefulSets with claims beside density pods at 5 000
+    nodes, the VolumeScheduling gate on. wave_s: the seconds of one
+    per-wave dispatch the cut rule projects with. Returns what it saw."""
+    import numpy as np
+
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    t_phase = time.monotonic()
+    rng = np.random.RandomState(SEED)
+    store = store_mod.ObjectStore()
+    n_ss = SS_SETS * SS_REPLICAS
+    caps = enc.Caps(M=bucket_size(SS_DENSITY + n_ss + 64), P=WAVE,
+                    LV=bucket_size(FULL_NODES + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      backoff=PodBackoff(initial=0.001),
+                      features=FeatureGates({"VolumeScheduling": True}))
+    add_plain_nodes(api, store, FULL_NODES)
+    for k in range(SS_FREE_PVS):
+        store.create("persistentvolumes", zoned_pv(
+            api, lbl, f"pv-free-{k}", f"zone-{k % 3}",
+            (10, 20, 50)[rng.randint(3)]))
+    sets = [f"set-{s}" for s in range(SS_SETS)]
+    # even replicas on a claim bound to a zoned PV, odd ones on an unbound
+    # WaitForFirstConsumer claim of 5-10 Gi (every free PV holds it)
+    for s in sets:
+        for i in range(SS_REPLICAS):
+            name = f"data-{s}-{i}"
+            if i % 2 == 0:
+                store.create("persistentvolumes", zoned_pv(
+                    api, lbl, f"pv-{s}-{i}", f"zone-{rng.randint(3)}", 20))
+                store.create("persistentvolumeclaims",
+                             claim(api, name, volume_name=f"pv-{s}-{i}"))
+            else:
+                store.create("persistentvolumeclaims", claim(
+                    api, name, gi=int(rng.randint(5, 11))))
+
+    def ss_pod(s, i):
+        return disk_pod(api, f"{s}-{i}", claims=[f"data-{s}-{i}"], owner=s)
+
+    # the cut rule: the host mask of a few of the pods, per pod, times the
+    # StatefulSet pods and the wave the pipeline's bail-out masks again;
+    # one dispatch a wave; the seconds spent so far
+    probe = [ss_pod(sets[0], i) for i in range(SS_PROBE_PODS)]
+    t0 = time.monotonic()
+    sched._host_plugin_mask(probe, len(probe))
+    per_pod = (time.monotonic() - t0) / len(probe)
+
+    def project(n):
+        waves = -(-(SS_DENSITY + n) // WAVE)
+        return (time.monotonic() - t_phase + per_pod * (n + WAVE)
+                + wave_s * waves)
+
+    replicas = SS_REPLICAS
+    projected = project(n_ss)
+    while (project(SS_SETS * replicas) > SS_PHASE_BUDGET_S
+           and SS_SETS * replicas // 2 >= SS_MIN_PODS):
+        replicas //= 2
+    for s in sets:
+        for i in range(replicas, SS_REPLICAS):
+            store.delete("persistentvolumeclaims", "default",
+                         f"data-{s}-{i}")
+            if i % 2 == 0:
+                store.delete("persistentvolumes", "default", f"pv-{s}-{i}")
+    n_ss = SS_SETS * replicas
+    log(f"[statefulset] host mask {1e3 * per_pod:.1f} ms a pod at "
+        f"{FULL_NODES} nodes ({SS_PROBE_PODS} probed), a dispatch "
+        f"{wave_s:.3f} s: the phase projects to {projected:.1f} s with "
+        f"{SS_SETS * SS_REPLICAS} StatefulSet pods; {n_ss} run"
+        + ("" if replicas == SS_REPLICAS else
+           f" (cut from {SS_SETS * SS_REPLICAS})"))
+    for s in sets:
+        store.create("statefulsets", api.StatefulSet(
+            metadata=api.ObjectMeta(name=s),
+            selector=lbl.LabelSelector(match_labels={"app": s})))
+    add_singles(api, store, "density", SS_DENSITY, "100m", None)
+    for s in sets:
+        for i in range(replicas):
+            store.create("pods", ss_pod(s, i))
+    # instruments: host phases, per-wave dispatches, rounds, bail-outs,
+    # the kernel's inputs, the syncs of one volume wave and one density
+    # wave
+    clock = PhaseClock()
+    sync = torch.cuda.synchronize
+    sched.featurizer.featurize = clock.wrap("featurize",
+                                            sched.featurizer.featurize)
+    sched.snapshot.stage_pending = clock.wrap(
+        "stage", sched.snapshot.stage_pending)
+    sched.snapshot.to_device = clock.wrap("upload", sched.snapshot.to_device,
+                                          sync)
+    sched._commit = clock.wrap("commit", sched._commit)
+    sched._host_plugin_mask = clock.wrap("host_mask", sched._host_plugin_mask)
+    sched.volume_binder.bind_pod_volumes = clock.wrap(
+        "volume_bind", sched.volume_binder.bind_pod_volumes)
+    seen = {"dispatches": 0, "rounds": 0, "passes": 0, "bailouts": 0,
+            "captured": {}, "syncs": {}}
+    saved = {name: getattr(sched_mod, name)
+             for name in ("schedule_wave", "schedule_round")}
+    kernel_launch = filters.taint_ports_masks
+
+    def wave(*a, **kw):
+        seen["dispatches"] += 1
+        return saved["schedule_wave"](*a, **kw)
+
+    def round_(*a, **kw):
+        seen["rounds"] += 1
+        return saved["schedule_round"](*a, **kw)
+
+    def capture(nt_, pb_, **kw):
+        rows = pb_.tol_key.shape[0]
+        if rows not in seen["captured"]:
+            seen["captured"][rows] = (
+                nt_._replace(**{f: getattr(nt_, f).clone()
+                                for f in KERNEL_NODE_FIELDS}),
+                pb_._replace(**{f: getattr(pb_, f).clone()
+                                for f in KERNEL_POD_FIELDS}))
+        return kernel_launch(nt_, pb_, **kw)
+
+    run_pipeline, run_wave = sched._run_pipeline, sched._run_wave
+
+    def pipeline(pods):
+        rounds = seen["rounds"]
+        seen["passes"] += 1
+        out = run_pipeline(pods)
+        seen["bailouts"] += seen["rounds"] == rounds
+        return out
+
+    def per_wave(pods):
+        kind = ("volume" if any(p.spec.volumes for p in pods)
+                else "density")
+        if kind in seen["syncs"]:
+            return run_wave(pods)
+        out, where = count_syncs(torch, lambda: run_wave(pods))
+        seen["syncs"][kind] = where
+        return out
+
+    sched._run_pipeline, sched._run_wave = pipeline, per_wave
+    sched_mod.schedule_wave = clock.wrap("wave_dispatch", wave, sync)
+    sched_mod.schedule_round = clock.wrap("device_round", round_, sync)
+    filters.taint_ports_masks = capture
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    bound_before = sum(1 for c in store.list("persistentvolumeclaims")
+                       if c.spec.volume_name)
+    try:
+        t0 = time.monotonic()
+        placed = settle(sched)
+        sync()
+        wall = time.monotonic() - t0
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        for name, fn in saved.items():
+            setattr(sched_mod, name, fn)
+        filters.taint_ports_masks = kernel_launch
+    want = SS_DENSITY + n_ss
+    if placed != want:
+        fail(f"statefulset: placed {placed} of {want} pods")
+    if check_bindings(api, store) != want:
+        fail("statefulset: the store does not hold every pod bound")
+    claims = volume_checks(store)
+    if not all(claims.values()):
+        fail("statefulset: a claim is unbound")
+    for s in sets:
+        for i in range(0, replicas, 2):
+            if claims[f"data-{s}-{i}"] != f"pv-{s}-{i}":
+                fail(f"statefulset: data-{s}-{i} left its PV")
+    if launches < 1 or sched.wave_path() != "cuda":
+        fail(f"statefulset: taint/port launches {launches}, wave_path "
+             f"{sched.wave_path()!r}")
+    if seen["bailouts"] < 1 or seen["dispatches"] < 1:
+        fail(f"statefulset: {seen['bailouts']} pipeline bail-outs, "
+             f"{seen['dispatches']} per-wave dispatches")
+    err = check_captured(torch, tp, "statefulset", seen["captured"])
+    phases = dict(clock.seconds)
+    # volume_bind runs inside commit
+    phases["commit"] -= phases.get("volume_bind", 0.0)
+    phases["other"] = wall - sum(phases.values())
+    newly = sum(1 for v in claims.values() if v) - bound_before
+    log(f"[statefulset] {FULL_NODES} nodes, {SS_DENSITY} density and {n_ss} "
+        f"StatefulSet pods ({SS_SETS} sets), {SS_FREE_PVS} free PVs: placed "
+        f"{placed} in {wall:.3f} s = {placed / wall:.1f} pods/s; pipeline "
+        f"passes {seen['passes']}, bail-outs {seen['bailouts']}, rounds "
+        f"{seen['rounds']}; per-wave dispatches {seen['dispatches']}; "
+        f"taint/port launches {launches}, what-if launches "
+        f"{whatif_launches}; claims bound at commit {newly}, "
+        f"{sum(1 for v in claims.values() if v)} of {len(claims)} claims "
+        "bound; invariants hold")
+    log(f"[statefulset] host seconds by phase: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases.items()))
+    log(f"[statefulset] host mask {phases.get('host_mask', 0.0) / n_ss:.4f} "
+        f"s a StatefulSet pod over the drain")
+    for kind, where in sorted(seen["syncs"].items()):
+        log(f"[statefulset] implicit host syncs of one {kind} wave: "
+            f"{sum(where.values())} (" + ", ".join(
+                f"{k} x{v}" for k, v in sorted(where.items())) + ")")
+    log(f"[statefulset] phase {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                max_err=err)
+
+
 # --- main ----------------------------------------------------------------------
 
 
@@ -1602,15 +2080,18 @@ def main() -> None:
     from kubernetes_tpu_torch.api import types as api
     from kubernetes_tpu_torch.ops import affinity
     from kubernetes_tpu_torch.ops import encoding as enc
+    from kubernetes_tpu_torch.ops import filters
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
     from kubernetes_tpu_torch.ops import preempt as pre
     from kubernetes_tpu_torch.ops import taint_ports as tp
     from kubernetes_tpu_torch.ops import topology
+    from kubernetes_tpu_torch.plugins.registry import Registry
     from kubernetes_tpu_torch.runtime import store as store_mod
     from kubernetes_tpu_torch.sched import scheduler as sched_mod
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
     from kubernetes_tpu_torch.state.vocab import bucket_size
     from kubernetes_tpu_torch.utils.backoff import PodBackoff
+    from kubernetes_tpu_torch.utils.feature_gates import FeatureGates
     from kubernetes_tpu_torch.utils.metrics import Metrics
 
     mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
@@ -1820,6 +2301,55 @@ def main() -> None:
         "required pod affinity over zone and host: card == CPU bindings, "
         "every multi-key pod bound where both terms hold")
     t_new = time.monotonic() - t_new
+    t_vol = time.monotonic()
+    for ecache in (False, True):
+        got = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            got[device] = volume_world(phase_mods, enc, bucket_size, lbl,
+                                       FeatureGates, device, ecache)
+            b, claims, msgs, ec, mask_s, n = got[device]
+            log(f"[parity] volumes {device}, equivalence cache "
+                f"{'on' if ecache else 'off'}: placed {n}, "
+                f"{sum(1 for v in claims.values() if v)} claims bound, "
+                f"host mask {mask_s:.3f} s, ecache (hits, misses) {ec}; "
+                f"world {time.monotonic() - t0:.3f} s")
+        for i, what in enumerate(("bindings", "claims", "PodScheduled "
+                                  "messages", "ecache counts")):
+            if got["cuda"][i] != got["cpu"][i]:
+                a, b = got["cuda"][i], got["cpu"][i]
+                diff = (sorted(k for k in set(a) | set(b)
+                               if a.get(k) != b.get(k))
+                        if isinstance(a, dict) else (a, b))
+                fail(f"volumes: card and CPU {what} differ, e.g. "
+                     f"{diff[:5]}")
+        msgs = got["cuda"][2].values()
+        for reason in ("exceed max volume count",
+                       "didn't find available persistent volumes"):
+            if not any(m and reason in m for m in msgs):
+                fail(f"volumes: no FitError says {reason!r}")
+        if not ecache:
+            vol_off = got["cuda"][:3]
+        elif got["cuda"][:3] != vol_off:
+            fail("volumes: the equivalence cache changed the result")
+    log(f"[parity] volumes, {SMALL_NODES} nodes, {SMALL_PODS} pods, "
+        "equivalence cache off and on: card == CPU bindings, claim "
+        "bindings and PodScheduled messages, and the cache changes none")
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        got[device] = policy_world(phase_mods, enc, bucket_size, Registry,
+                                   device)
+        log(f"[parity] policy {device}: placed {got[device][1]} in "
+            f"{got[device][2]} per-wave dispatches; world "
+            f"{time.monotonic() - t0:.3f} s")
+    if got["cuda"] != got["cpu"]:
+        a, b = got["cuda"][0], got["cpu"][0]
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        fail(f"policy: card and CPU bindings differ, e.g. {diff[:5]}")
+    log(f"[parity] policy, {SMALL_NODES} nodes, {SMALL_PODS} pods: card == "
+        "CPU bindings")
+    t_vol = time.monotonic() - t_vol
 
     # 6. the mixed5k drain at full width
     store, n_bound = build_mixed(api, lbl, store_mod, FULL_NODES, FULL_PODS)
@@ -1915,17 +2445,27 @@ def main() -> None:
     paced = paced_phase(torch, phase_mods, enc, bucket_size, Metrics)
     phost = preempt_host_phase(torch, phase_mods, enc, bucket_size, Metrics)
     t_new += time.monotonic() - t0
+
+    # 13. StatefulSets with claims beside density pods
+    t0 = time.monotonic()
+    ss = statefulset_phase(torch, phase_mods, enc, bucket_size, lbl, filters,
+                           FeatureGates,
+                           WAVE * per_pod_ms(dens["rounds"], "has_ipa")[False]
+                           / 1e3)
+    max_err = max(max_err, ss.pop("max_err"))
+    t_vol += time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
-              "paced": paced, "preempt_host": phost}
+              "paced": paced, "preempt_host": phost, "statefulset": ss}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
         f"{k} {d['launches']}" for k, d in drains.items())
         + "; what-if kernel launches: " + ", ".join(
         f"{k} {d['whatif_launches']}" for k, d in drains.items())
-        + f"; phases of this slice (multikey, trickle, paced, preempt_host) "
-        f"{t_new:.1f} s; total {time.monotonic() - t_start:.1f} s")
+        + f"; phases multikey, trickle, paced and preempt_host "
+        f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
+        f"total {time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

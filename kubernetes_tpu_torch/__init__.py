@@ -15,9 +15,11 @@ Layout (each module sits under the same path as its counterpart):
                the build of the CUDA kernels
   csrc/     -- CUDA C++ sources (taint/host-port, preemption what-if),
                built at first use into _build/
-  plugins/  -- the golden host predicates (preemption's victim checks)
-  utils/    -- per-pod exponential backoff
-  sched/    -- the scheduler: queue, rounds, gangs, preemption, commit
+  plugins/  -- the golden host predicates and priorities, the volume
+               predicates, and the profiles and Policy-file registry
+  utils/    -- per-pod exponential backoff, metrics, feature gates
+  sched/    -- the scheduler: queue, rounds, gangs, preemption, host
+               plugins, the equivalence cache, claim binding, commit
 
 Entry points run on the CUDA card unless asked for the CPU
 (device="cpu"); without a card they raise.

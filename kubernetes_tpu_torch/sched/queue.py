@@ -64,8 +64,11 @@ def _matches_affinity_term(unsched: api.Pod, assigned: api.Pod) -> bool:
 
 
 class SchedulingQueue:
-    def __init__(self, clock: Callable[[], float] = time.monotonic):
+    def __init__(self, clock: Callable[[], float] = time.monotonic,
+                 pod_priority_enabled: bool = True):
         self.clock = clock
+        # the PodPriority gate: off, every pod sorts at priority 0
+        self.pod_priority = pod_priority_enabled
         self._lock = threading.Lock()
         self._heap: List = []  # (-priority, seq, uid)
         self._items: Dict[str, api.Pod] = {}  # uid -> pod (active)
@@ -117,7 +120,8 @@ class SchedulingQueue:
     # -- add / pop -----------------------------------------------------------
 
     def _key(self, pod: api.Pod):
-        return (-api.pod_priority(pod), next(self._seq), pod.uid)
+        prio = -api.pod_priority(pod) if self.pod_priority else 0
+        return (prio, next(self._seq), pod.uid)
 
     def add(self, pod: api.Pod):
         released = None

@@ -35,8 +35,9 @@ one topology key cannot be encoded for the device (ops/affinity.py
 keeps one topology key a term group). The pipeline, the per-wave loop
 and the gang path send them through the exact host path
 (`_schedule_host_batch`, kubernetes_tpu/sched/scheduler.py:3334): one
-pod at a time over plugins/golden.py's predicates, NoDiskConflict and
-its scores, host preemption on failure. Its cost is O(nodes x bound
+pod at a time over plugins/golden.py's predicates, the profile's host
+filters, the golden scores and the profile's host scores, host
+preemption on failure. Its cost is O(nodes x bound
 pods) a pod (the golden anchor scan). Gang members take it one at a
 time, without atomicity, as in the JAX package.
 
@@ -59,12 +60,27 @@ attempts, evaluation time and victims, gang attempts and wait, and bind
 errors. `warm_pipeline` runs one round without a fetch, outside a
 measured window.
 
-Not in the port yet (raises NotImplementedError and drops no pod,
-rather than diverging in silence): pods with volumes. Left out with no
-stand-in: the circuit breakers, the bind journal and reconciler,
-extenders, tracing, the mesh, the memory governor, poison quarantine
-and load shedding; the series of that machinery (breaker, store, mesh,
-HBM, shedding, poison, spool) stay at zero in `metrics`.
+The profile (plugins/registry.py `Profile`; `default_profile(store)`
+unless one is given, or one built from a Policy file by
+`Registry.profile_from_policy`) supplies the weights, the scheduler
+name, the preemption switch and the host plugins. Its host filters
+(NoDiskConflict and the volume predicates of plugins/volumes.py, or a
+Policy's own) run on the host before each per-wave and gang dispatch
+(`_host_plugin_mask`, through the equivalence cache of
+sched/equivalence.py when the EnableEquivalenceClassCache gate is on)
+and reach the device as its `extra` mask; its host scores as the
+pre-weighted `extra_scores` (`_host_score_matrix`). A pipeline pass
+whose wave needs either hands its whole backlog to the per-wave loop,
+and a profile with host scores skips the pipeline, as the JAX scheduler
+does. With the VolumeScheduling gate on, a commit binds the pod's
+unbound claims first (sched/volume_binder.py) and a failed bind or a
+rolled-back gang unbinds them.
+
+Left out with no stand-in: the circuit breakers, the bind journal and
+the reconciler's retries, extenders (a profile with extenders raises
+NotImplementedError), tracing, the mesh, the memory governor, poison
+quarantine and load shedding; the series of that machinery (breaker,
+store, mesh, HBM, shedding, poison, spool) stay at zero in `metrics`.
 """
 
 from __future__ import annotations
@@ -82,18 +98,21 @@ from ..api import labels as lbl
 from ..api import types as api
 from ..ops import encoding as enc
 from ..ops.gang import schedule_gang
-from ..ops.kernel import Weights, schedule_round, schedule_wave
+from ..ops.kernel import schedule_round, schedule_wave
 from ..ops.preempt import (PreemptStats, preemption_stats,
                            preemption_stats_host, victim_levels)
 from ..ops.scores import W_INTERPOD, stack_weights
 from ..ops.taint_ports import taint_ports_masks
 from ..plugins import golden
+from ..plugins.registry import Profile, default_profile
 from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectStore
 from ..state.cache import SchedulerCache
 from ..state.featurize import PodFeaturizer
 from ..state.snapshot import Snapshot
 from ..utils.backoff import PodBackoff
+from ..utils.feature_gates import FeatureGates
 from ..utils.metrics import Metrics, bounded_label
+from .equivalence import EquivalenceCache, equivalence_class
 from .errors import REASON_KEYS, REASONS, FitError, insufficient_resource_reason
 from .gang import GangDirectory
 from .preemption import (GangGuard, PreemptionResult,
@@ -101,6 +120,7 @@ from .preemption import (GangGuard, PreemptionResult,
                          pod_eligible_to_preempt_others, pick_one_node,
                          preempt, select_victims_on_node)
 from .queue import SchedulingQueue
+from .volume_binder import VolumeBinder
 
 # Max chained waves per device-resident round; rounds are bucketed per
 # power-of-two wave count (a fixed W would make small rounds pay for 128
@@ -113,12 +133,6 @@ PIPELINE_MAX_WAVES_IPA = 64
 # exact victim validations a failed pod gets (its top-ranked nodes)
 PREEMPT_LEVELS = 8
 PREEMPT_HOST_CANDIDATES = 8
-SCHEDULER_NAME = "default-scheduler"
-# the host filters of the JAX default profile
-# (kubernetes_tpu/plugins/registry.py:89-99) that volume-free pods reach;
-# its volume predicates come with pods with volumes, which the port
-# refuses until then
-HOST_FILTERS = {"NoDiskConflict": golden.no_disk_conflict}
 
 
 def pipeline_bucket(n_waves: int, lo: int = 4,
@@ -186,22 +200,16 @@ def _pod_has_ipa_terms(pod: api.Pod) -> bool:
                                 or aff.pod_anti_affinity is not None)
 
 
-def _later_slice(pod: api.Pod) -> Optional[str]:
-    """Why this pod needs a part of the scheduler a later slice ports,
-    or None."""
-    if pod.spec.volumes:
-        return "volume predicates and binding"
-    return None
-
-
 class Scheduler:
     """Watches `store` for nodes, pods and PodGroups and schedules pending
     pods on `device` (None: the CUDA card; raises where there is none).
     `clock` drives backoff deadlines and assumed-pod expiry; `backoff`
     (default PodBackoff(clock=clock)) may also be replaced as an
     attribute, as the JAX scheduler's is, and so may `metrics` and
-    `device_preemption`. disable_preemption: the JAX profile's switch of
-    the same name."""
+    `device_preemption`. `profile` (default `default_profile(store)`)
+    and `features` (default FeatureGates()) are the JAX scheduler's
+    arguments of the same names; disable_preemption=True turns
+    preemption off as the profile's switch of the same name does."""
 
     # idle backoff entries are swept on this cadence (2x the backoff
     # ceiling matches the reference Gc()'s retention window)
@@ -210,15 +218,24 @@ class Scheduler:
     def __init__(self, store: ObjectStore, wave_size: int = 128,
                  caps: Optional[enc.Caps] = None, device=None,
                  clock=time.monotonic, backoff: Optional[PodBackoff] = None,
-                 disable_preemption: bool = False):
+                 disable_preemption: bool = False,
+                 profile: Optional[Profile] = None,
+                 features: Optional[FeatureGates] = None):
         self.device = enc.resolve_device(device)
         self.store = store
+        self.profile = profile or default_profile(store)
+        if self.profile.extenders:
+            raise NotImplementedError(
+                "a profile with extenders needs the HTTP extenders, a later "
+                "slice of the port")
         self.wave_size = wave_size
+        self.features = features or FeatureGates()
         self.clock = clock
-        self.disable_preemption = disable_preemption
-        # the reference default provider's weights, which the JAX
-        # scheduler's default profile also yields
-        self.weights = Weights()
+        self._disable_preemption = disable_preemption
+        # the profile's weights: with no weightprofiles object, the JAX
+        # WeightBook's dispatch view is these gating weights and their
+        # stacked vector
+        self.weights = self.profile.weights()
         # guards cache + snapshot against concurrent informer delivery;
         # RLock: the in-process store delivers bind events re-entrantly
         # on the committing thread
@@ -227,7 +244,9 @@ class Scheduler:
         self.snapshot = Snapshot(caps=caps)
         self.featurizer = PodFeaturizer(self.snapshot, GroupLister(store))
         self.metrics = Metrics()
-        self.queue = SchedulingQueue(clock=clock)
+        self.queue = SchedulingQueue(
+            clock=clock,
+            pod_priority_enabled=self.features.enabled("PodPriority"))
         self.queue.on_gang_released = self._gang_released
         # gang (PodGroup) coscheduling: the queue parks incomplete gangs
         # and the pipeline routes complete ones through ops/gang.py
@@ -241,9 +260,24 @@ class Scheduler:
         # numpy twin instead of the what-if kernel
         self.pipeline_preemptions = 0
         self.device_preemption = True
+        # the host plugins' caches: the equivalence cache (gated), the
+        # claim binder, and the first-failing host filter per (pod, node)
+        # of the last host mask, for FitError and preemption
+        self.ecache = (EquivalenceCache()
+                       if self.features.enabled("EnableEquivalenceClassCache")
+                       else None)
+        self.volume_binder = VolumeBinder(store)
+        self._wave_host_fails: Dict[int, Dict[str, str]] = {}
         self._rr: Optional[torch.Tensor] = None  # round-robin counter
         self._last_path: Optional[str] = None
         self._wire()
+
+    @property
+    def disable_preemption(self) -> bool:
+        """Preemption off: the constructor's switch, the profile's, or the
+        PodPriority gate off."""
+        return (self._disable_preemption or self.profile.disable_preemption
+                or not self.features.enabled("PodPriority"))
 
     # -- watch handlers (reference: factory.go:191-295) -----------------------
 
@@ -256,6 +290,13 @@ class Scheduler:
         # a PodGroup created/updated AFTER its pods may complete a gang
         # that was parked against a higher annotation-derived minMember
         self.store.watch("podgroups", self._on_podgroup_event)
+        if self.ecache is not None:
+            # targeted invalidation (kubernetes_tpu/sched/scheduler.py:
+            # 564-577), under _mu so it never interleaves with a wave's
+            # lookups and updates
+            for kind in ("persistentvolumes", "persistentvolumeclaims"):
+                self.store.watch(kind, self._on_volume_event)
+            self.store.watch("services", self._on_service_event)
         # objects already in the store: nodes first, so their pods' rows
         # land against present node rows
         for node in self.store.list("nodes"):
@@ -284,12 +325,22 @@ class Scheduler:
         if ev.type in (ADDED, MODIFIED):
             self.queue.gang_reevaluate()
 
+    def _on_volume_event(self, ev: Event) -> None:
+        with self._mu:
+            self.ecache.on_volume_event()
+
+    def _on_service_event(self, ev: Event) -> None:
+        with self._mu:
+            self.ecache.on_service_event()
+
     def _responsible(self, pod: api.Pod) -> bool:
-        return pod.spec.scheduler_name == SCHEDULER_NAME
+        return pod.spec.scheduler_name == self.profile.scheduler_name
 
     def _on_pod_add(self, pod: api.Pod) -> None:
         with self._mu:
             if pod.spec.node_name:
+                if self.ecache is not None:
+                    self.ecache.on_assigned_pod_event(pod.spec.node_name)
                 self.cache.add_pod(pod)
                 ni = self.cache.node_infos.get(pod.spec.node_name)
                 if ni is not None:
@@ -302,6 +353,8 @@ class Scheduler:
     def _on_pod_update(self, old: api.Pod, new: api.Pod) -> None:
         with self._mu:
             if new.spec.node_name:
+                if self.ecache is not None:
+                    self.ecache.on_assigned_pod_event(new.spec.node_name)
                 if old.spec.node_name:
                     self.cache.update_pod(old, new)
                 else:
@@ -317,6 +370,8 @@ class Scheduler:
     def _on_pod_delete(self, pod: api.Pod) -> None:
         with self._mu:
             if pod.spec.node_name:
+                if self.ecache is not None:
+                    self.ecache.on_assigned_pod_event(pod.spec.node_name)
                 self.cache.remove_pod(pod)
                 ni = self.cache.node_infos.get(pod.spec.node_name)
                 if ni is not None:
@@ -332,12 +387,16 @@ class Scheduler:
 
     def _on_node_add(self, node: api.Node) -> None:
         with self._mu:
+            if self.ecache is not None:
+                self.ecache.on_node_event(node.name)
             self.cache.add_node(node)
             self.snapshot.set_node(self.cache.node_infos[node.name])
             self.queue.move_all_to_active()
 
     def _on_node_delete(self, node: api.Node) -> None:
         with self._mu:
+            if self.ecache is not None:
+                self.ecache.on_node_event(node.name)
             self.cache.remove_node(node)
             self.snapshot.remove_node(node.name)
 
@@ -395,7 +454,10 @@ class Scheduler:
         the per-wave loop once a pipeline pass makes no progress. Returns
         pods placed (assumed + bound)."""
         placed = 0
-        allow_pipeline = True
+        # host scores need per-wave host evaluation: the pipeline would
+        # only hand the backlog back (kubernetes_tpu/sched/scheduler.py:
+        # 1239-1245)
+        allow_pipeline = not self.profile.host_scores
         while self.queue.active_count() > 0:
             if allow_pipeline:
                 pre = self.pipeline_preemptions
@@ -423,19 +485,6 @@ class Scheduler:
             self._next_backoff_gc = now + self.BACKOFF_GC_PERIOD
             self.backoff.gc()
 
-    def _refuse_later_slices(self, pods: List[api.Pod]) -> None:
-        """Raise for the whole popped backlog when a pod needs a part of
-        the scheduler the port does not carry yet, putting every pod back
-        first: nothing is dropped and nothing diverges in silence."""
-        for pod in pods:
-            reason = _later_slice(pod)
-            if reason is not None:
-                for p in pods:
-                    self.queue.add_if_not_present(p)
-                raise NotImplementedError(
-                    f"pod {pod.full_name()} needs {reason}, a later slice of "
-                    "the port")
-
     def run_once(self) -> int:
         """Schedule one wave through the per-wave path. Returns the pods
         placed."""
@@ -443,7 +492,6 @@ class Scheduler:
         pods = self.queue.pop_wave(self.wave_size)
         if not pods:
             return 0
-        self._refuse_later_slices(pods)
         with self._mu:
             return self._run_wave(pods)
 
@@ -460,7 +508,6 @@ class Scheduler:
             all_pods.extend(batch)
         if not all_pods:
             return 0
-        self._refuse_later_slices(all_pods)
         with self._mu:
             placed = 0
             # gangs bypass the device-resident round: their placements
@@ -557,6 +604,17 @@ class Scheduler:
         if (self.featurizer.vocabs.version(),
                 dataclasses.astuple(self.snapshot.caps)) != sig0:
             pbs = [self.featurizer.featurize(wv) for wv in waves]
+        for wv, pb in zip(waves, pbs):
+            P = pb.req.shape[0]
+            if (not self._host_plugin_mask(wv, P).all()
+                    or self._host_score_matrix(wv, P) is not None):
+                # a host filter rejects a node, or host scores are in
+                # play: the per-wave loop evaluates them against fresh
+                # state, so the whole pass goes back to the queue
+                # (kubernetes_tpu/sched/scheduler.py:1670-1682)
+                for p in pods:
+                    self.queue.add_if_not_present(p)
+                return 0
         pm_rows_all, term_rows_all = self.snapshot.stage_pending(pods)
         tpp = term_rows_all.shape[1]
         dev = self.device
@@ -799,17 +857,22 @@ class Scheduler:
             return placed_gang
         start = self.clock()
         pb = self.featurizer.featurize(pods)
+        P = pb.req.shape[0]
+        extra = self._host_plugin_mask(pods, P)
+        extra_scores = self._host_score_matrix(pods, P)
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
                        or pb.rn_has.any() or (pb.pa_w != 0).any())
-        P, N = pb.req.shape[0], nt.valid.shape[0]
         pbt = enc.to_torch(None, None, None, pb, dev)[3]
-        extra = torch.ones((P, N), dtype=torch.bool, device=dev)
+        # the host inputs go up in one copy each; a failed copy raises
+        extra = torch.from_numpy(extra).to(dev)
+        if extra_scores is not None:
+            extra_scores = torch.from_numpy(extra_scores).to(dev)
         launches0 = taint_ports_masks.launches
-        res = schedule_wave(nt, pm, tt, pbt, extra, self._rr, None,
+        res = schedule_wave(nt, pm, tt, pbt, extra, self._rr, extra_scores,
                             weights=self.weights,
                             num_zones=self.snapshot.caps.Z,
                             num_label_values=self.snapshot.num_label_values,
@@ -884,9 +947,10 @@ class Scheduler:
     def _schedule_host_path(self, pod: api.Pod, view) -> int:
         """The exact one-pod pass over plugins/golden.py for a pod the
         round cannot encode (kubernetes_tpu/sched/scheduler.py:3408-3535):
-        its predicates and the host filters on every node, host
-        preemption when none fits, else the golden scores and a commit
-        on the first best node. Returns 1 if it placed the pod."""
+        its predicates and the profile's host filters on every node, host
+        preemption when none fits, else the golden scores plus the
+        profile's host scores and a commit on the first best node.
+        Returns 1 if it placed the pod."""
         self.metrics.schedule_attempts.inc()
         self.metrics.waves_total.labels(path="host").inc()
         feasible: List[str] = []
@@ -895,7 +959,7 @@ class Scheduler:
         for name, ni in self.cache.node_infos.items():
             ok, rs = golden.pod_fits_on_node(pod, ni, view=view)
             if ok:
-                for fn in HOST_FILTERS.values():
+                for fn in self.profile.host_filters.values():
                     if (getattr(fn, "relevant", None) is not None
                             and not fn.relevant(pod)):
                         continue
@@ -932,18 +996,23 @@ class Scheduler:
                 pod, ("PodScheduled", "False:" + err.message()))
             return 0
         # score: the golden interpod priority at the live interpod weight,
-        # plus least-requested and balanced allocation at weight 1; the
-        # first best node wins
+        # plus least-requested and balanced allocation at weight 1 and the
+        # profile's weighted host scores; the first best node wins
         w_interpod = float(stack_weights(self.weights)[W_INTERPOD])
         ipa_scores = golden.interpod_affinity_priority(
             pod, [self.cache.node_infos[n] for n in feasible], view,
             hard_weight=int(self.weights.hard_pod_affinity))
+        host_scores: Dict[str, float] = {}
+        for fn, weight in self.profile.host_scores.values():
+            for node, s in fn(pod, self.cache.node_infos).items():
+                host_scores[node] = host_scores.get(node, 0.0) + weight * s
         best_name, best_score = None, None
         for name in feasible:
             ni = self.cache.node_infos[name]
             s = (w_interpod * ipa_scores.get(name, 0)
                  + golden.least_requested_map(pod, ni)
-                 + golden.balanced_allocation_map(pod, ni))
+                 + golden.balanced_allocation_map(pod, ni)
+                 + host_scores.get(name, 0.0))
             if best_score is None or s > best_score:
                 best_name, best_score = name, s
         if best_name is not None and self._commit(pod, best_name):
@@ -952,16 +1021,83 @@ class Scheduler:
         return 0
 
     def _host_extra_fit(self, pod: api.Pod, ni) -> bool:
-        """The host filters as one fit check for preemption's what-if
-        (victim removal can resolve NoDiskConflict, so the simulation
-        re-runs them)."""
-        for fn in HOST_FILTERS.values():
+        """The profile's host filters as one fit check for preemption's
+        what-if (kubernetes_tpu/sched/scheduler.py:4705: victim removal
+        can resolve NoDiskConflict and the volume counts, so the
+        simulation re-runs them)."""
+        for fn in self.profile.host_filters.values():
             if getattr(fn, "relevant", None) is not None and not fn.relevant(pod):
                 continue
             ok, _ = fn(pod, ni)
             if not ok:
                 return False
         return True
+
+    # -- host plugins (kubernetes_tpu/sched/scheduler.py:4646) -------------------
+
+    def _host_plugin_mask(self, pods: List[api.Pod], P: int) -> np.ndarray:
+        """bool [P, caps.N]: the profile's host filters for each pod on
+        each node, a filter run only for the pods its `relevant(pod)`
+        gate admits, each (pod, node) stopping at its first failure.
+        Records that failure's predicate key per (pod index, node name)
+        in `_wave_host_fails` for FitError and the preemption
+        unresolvable filter. With the equivalence cache on, a (class,
+        node, filter) result is looked up before it is computed and
+        stored after."""
+        N = self.snapshot.caps.N
+        mask = np.ones((P, N), bool)
+        self._wave_host_fails = {}
+        if not self.profile.host_filters:
+            return mask
+        for i, pod in enumerate(pods):
+            fails: Dict[str, str] = {}
+            fns = [(pname, fn)
+                   for pname, fn in self.profile.host_filters.items()
+                   if getattr(fn, "relevant", None) is None
+                   or fn.relevant(pod)]
+            eclass = (equivalence_class(pod) if self.ecache is not None
+                      else None)
+            if fns:
+                for name, ni_idx in self.snapshot.node_index.items():
+                    ni = self.cache.node_infos.get(name)
+                    if ni is None:
+                        continue
+                    for pname, fn in fns:
+                        cached = (self.ecache.lookup(eclass, name, pname)
+                                  if self.ecache is not None else None)
+                        if cached is not None:
+                            ok, rs = cached
+                        else:
+                            ok, rs = fn(pod, ni)
+                            if self.ecache is not None:
+                                self.ecache.update(eclass, name, pname, ok,
+                                                   rs)
+                        if not ok:
+                            mask[i, ni_idx] = False
+                            fails[name] = (REASON_KEYS.get(rs[0], pname)
+                                           if rs else pname)
+                            break
+            if fails:
+                self._wave_host_fails[i] = fails
+        return mask
+
+    def _host_score_matrix(self, pods: List[api.Pod],
+                           P: int) -> Optional[np.ndarray]:
+        """f32 [P, caps.N]: the profile's host scores, each weighted and
+        added in the order of `host_scores`; None when it has none (the
+        kernel's extra_scores input, kubernetes_tpu/sched/
+        scheduler.py:4717)."""
+        if not self.profile.host_scores:
+            return None
+        out = np.zeros((P, self.snapshot.caps.N), np.float32)
+        idx = self.snapshot.node_index
+        for i, pod in enumerate(pods):
+            for fn, weight in self.profile.host_scores.values():
+                for node, s in fn(pod, self.cache.node_infos).items():
+                    j = idx.get(node)
+                    if j is not None:
+                        out[i, j] += weight * s
+        return out
 
     # -- gangs (kubernetes_tpu/sched/scheduler.py:3537) ---------------------------
 
@@ -998,18 +1134,23 @@ class Scheduler:
         if not members:
             return placed
         pb = self.featurizer.featurize(members)
+        P = pb.req.shape[0]
+        extra = self._host_plugin_mask(members, P)
+        extra_scores = self._host_score_matrix(members, P)
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
                        or pb.rn_has.any() or (pb.pa_w != 0).any())
-        P, N = pb.req.shape[0], nt.valid.shape[0]
         pbt = enc.to_torch(None, None, None, pb, dev)[3]
-        extra = torch.ones((P, N), dtype=torch.bool, device=dev)
+        # the host inputs go up in one copy each; a failed copy raises
+        extra = torch.from_numpy(extra).to(dev)
+        if extra_scores is not None:
+            extra_scores = torch.from_numpy(extra_scores).to(dev)
         launches0 = taint_ports_masks.launches
         res = schedule_gang(
-            nt, pm, tt, pbt, extra, self._rr, None,
+            nt, pm, tt, pbt, extra, self._rr, extra_scores,
             torch.tensor(need, dtype=torch.int32, device=dev),
             weights=self.weights, num_zones=self.snapshot.caps.Z,
             num_label_values=self.snapshot.num_label_values,
@@ -1107,20 +1248,27 @@ class Scheduler:
         """Group-wide exact commit: EVERY member passes the int64 recheck
         and assumes before any bind; one failure rolls the entire group
         back, so a partially-bound gang never reaches the store."""
-        assumed: List = []  # (pod, bound, node_name)
+        assumed: List = []  # (pod, bound, node_name, vol_rollback)
         ok = True
         for pod, node_name in pairs:
             ni = self.cache.node_infos.get(node_name)
             if ni is None or not ni.fits_exactly(pod):
                 ok = False
                 break
-            assumed.append((pod, self._assume(pod, node_name), node_name))
+            got, vol_rollback = self._bind_volumes(pod, ni)
+            if not got:
+                ok = False
+                break
+            assumed.append((pod, self._assume(pod, node_name), node_name,
+                            vol_rollback))
         if not ok:
-            for pod, bound, node_name in reversed(assumed):
+            for pod, bound, node_name, vol_rollback in reversed(assumed):
                 self._forget(bound, node_name)
+                if vol_rollback is not None:
+                    vol_rollback()
             return False
-        for pod, bound, node_name in assumed:
-            self._bind(pod, bound, node_name)
+        for pod, bound, node_name, vol_rollback in assumed:
+            self._bind(pod, bound, node_name, vol_rollback)
         return True
 
     def _gang_state(self):
@@ -1143,7 +1291,11 @@ class Scheduler:
 
     # -- failure attribution (kubernetes_tpu/sched/scheduler.py:4484) ------------
 
-    def _fit_error(self, pod: api.Pod, idx: int, fail_counts) -> FitError:
+    def _fit_error(self, pod: api.Pod, idx: int, fail_counts,
+                   masks) -> FitError:
+        """fail_counts [Q, P] and masks [Q, P, N], fetched. A node whose
+        first failure is the host stack counts under the host filter that
+        rejected it (`_wave_host_fails`)."""
         reasons: Dict[str, int] = {}
         for q, name in enumerate(enc.MASK_STACK_NAMES):
             c = int(fail_counts[q, idx])
@@ -1152,7 +1304,18 @@ class Scheduler:
             if name == "PodFitsResources":
                 reasons[insufficient_resource_reason("resources")] = c
             elif name == "HostPlugins":
-                reasons[REASONS["NoDiskConflict"]] = c
+                fails = self._wave_host_fails.get(idx, {})
+                if fails:
+                    col = masks[:, idx, :]  # [Q, N]
+                    valid = self.snapshot.valid
+                    for n, nname in enumerate(self.snapshot.node_names):
+                        if (n < col.shape[1] and valid[n] and not col[q, n]
+                                and col[:q, n].all()):
+                            key = fails.get(nname, "NoDiskConflict")
+                            r = REASONS.get(key, key)
+                            reasons[r] = reasons.get(r, 0) + 1
+                else:
+                    reasons[REASONS["NoDiskConflict"]] = c
             elif name == "CheckNodeCondition":
                 reasons[REASONS["NodeNotReady"]] = c
             elif name == "CheckNodeUnschedulable":
@@ -1175,13 +1338,14 @@ class Scheduler:
         col = masks[:, idx, :]  # [Q, N]
         out: Dict[str, List[str]] = {}
         valid = self.snapshot.valid
+        host_fails = self._wave_host_fails.get(idx, {})
         for n, name in enumerate(self.snapshot.node_names):
             if n < col.shape[1] and valid[n]:
                 fails = np.flatnonzero(~col[:, n])
                 if fails.size:
                     pred = enc.MASK_STACK_NAMES[fails[0]]
                     if pred == "HostPlugins":
-                        out[name] = ["NoDiskConflict"]
+                        out[name] = [host_fails.get(name, "NoDiskConflict")]
                         continue
                     if pred == "CheckNodeCondition":
                         # distinguish sub-reasons host-side for the
@@ -1200,7 +1364,7 @@ class Scheduler:
     def _handle_failure(self, pod: api.Pod, idx: int, fail_counts, masks):
         """fail_counts [Q, P] and masks [Q, P, N]: the wave's, fetched."""
         self.metrics.pods_failed.inc()
-        err = self._fit_error(pod, idx, fail_counts)
+        err = self._fit_error(pod, idx, fail_counts, masks)
         self._count_unschedulable(err)
         if not self.disable_preemption:
             t0 = self.clock()
@@ -1299,13 +1463,26 @@ class Scheduler:
             self.snapshot.refresh_node_resources(ni)
         self.snapshot.remove_pod(bound)
 
-    def _bind(self, pod: api.Pod, bound: api.Pod, node_name: str) -> bool:
+    def _bind_volumes(self, pod: api.Pod, ni):
+        """With the VolumeScheduling gate on, bind the pod's unbound
+        claims to PVs that admit the node (kubernetes_tpu/sched/
+        scheduler.py:3851-3859): (ok, rollback or None)."""
+        if (self.features.enabled("VolumeScheduling")
+                and self.volume_binder.pod_has_claims(pod)):
+            return self.volume_binder.bind_pod_volumes(pod, ni.node)
+        return True, None
+
+    def _bind(self, pod: api.Pod, bound: api.Pod, node_name: str,
+              vol_rollback=None) -> bool:
         """The bind POST and the cache's confirmation. A bind the store
-        refuses (the pod was deleted, or bound by another actor) rolls
-        the assumption back; the store's own event then tells the cache
-        the truth. A bind that lands observes the pod's latency from its
-        first enqueue (the queue's added_at, consumed only here, so a
-        failed bind's requeue keeps the original time)."""
+        refuses rolls the assumption and the pod's claim bindings back
+        (kubernetes_tpu/sched/scheduler.py:4066-4088); the store's own
+        event then tells the cache the truth. If the store still holds
+        the pod unbound, the pod parks with backoff, as the JAX
+        reconciler's ORPHANED outcome does. A bind that lands observes
+        the pod's latency from its first enqueue (the queue's added_at,
+        consumed only here, so a failed bind's requeue keeps the
+        original time)."""
         t0 = self.clock()
         try:
             self.store.bind(pod, node_name)
@@ -1313,6 +1490,11 @@ class Scheduler:
             self.metrics.scheduling_errors.labels(stage="bind").inc()
             if self.cache.is_assumed(bound):
                 self._forget(bound, node_name)
+            if vol_rollback is not None:
+                vol_rollback()
+            truth = self.store.get("pods", pod.namespace, pod.metadata.name)
+            if truth is not None and not truth.spec.node_name:
+                self._park_with_backoff(truth)
             return False
         self.cache.finish_binding(bound)
         self.metrics.binding_latency.observe(self.clock() - t0)
@@ -1326,9 +1508,15 @@ class Scheduler:
         return True
 
     def _commit(self, pod: api.Pod, node_name: str) -> bool:
-        """Exact int64 re-verification, then assume and bind (reference:
-        scheduler.go:486 assume -> :491 bind)."""
+        """Exact int64 re-verification, the pod's claims bound when the
+        VolumeScheduling gate is on, then assume and bind (reference:
+        scheduler.go:268 assumeAndBindVolumes, :486 assume -> :491
+        bind)."""
         ni = self.cache.node_infos.get(node_name)
         if ni is None or not ni.fits_exactly(pod):
             return False
-        return self._bind(pod, self._assume(pod, node_name), node_name)
+        got, vol_rollback = self._bind_volumes(pod, ni)
+        if not got:
+            return False
+        return self._bind(pod, self._assume(pod, node_name), node_name,
+                          vol_rollback)

@@ -132,7 +132,9 @@ def _later_pods(pkg, kind):
                 label_selector=sel,
                 topology_key="failure-domain.beta.kubernetes.io/zone")]))
     if kind == "volume":
-        spec["volumes"] = [api.Volume(name="data")]
+        spec["volumes"] = [api.Volume(name="data",
+                                      source_kind="GCEPersistentDisk",
+                                      source_id="pd-data")]
     if kind == "gang_multi_topology_key":
         meta["annotations"] = {api.POD_GROUP_NAME_ANNOTATION: "g"}
     return [api.Pod(metadata=api.ObjectMeta(name="later", uid="later", **meta),
@@ -143,20 +145,25 @@ def _later_pods(pkg, kind):
 
 @pytest.mark.parametrize("kind,names", [("volume", "volume")])
 def test_later_slice_backlogs_raise(kind, names):
-    """Pods the port does not take yet raise for the whole backlog and
-    are all left pending: pods with volumes."""
-    store, _ = store_world("kubernetes_tpu_torch", 5, 8, 20)
-    sched = Scheduler(store, device="cpu")
-    sched.schedule_pending()
-    for pod in _later_pods("kubernetes_tpu_torch", kind):
-        store.create("pods", pod)
-    pending = sched.pending_count()
-    with pytest.raises(NotImplementedError, match=names):
+    """Pods with volumes (`names`), which the port once refused with
+    NotImplementedError for the whole backlog, now raise nothing: the
+    pod with an inline GCE PD, which the host filters read, and the plain
+    pod beside it place where the JAX Scheduler places them, on the same
+    virtual clock."""
+    got = {}
+    for pkg in ("kubernetes_tpu", "kubernetes_tpu_torch"):
+        store, _ = store_world(pkg, 5, 8, 20)
+        clock = FakeClock()
+        sched = (JaxScheduler(store, clock=clock) if pkg == "kubernetes_tpu"
+                 else Scheduler(store, device="cpu", clock=clock))
         sched.schedule_pending()
-    assert sched.pending_count() == pending  # nothing was dropped
-    assert {"later", "plain"} <= {p.metadata.name
-                                  for p in sched.queue.active_pods()}
-    assert not bindings(store)["later"] and not bindings(store)["plain"]
+        for pod in _later_pods(pkg, kind):
+            store.create("pods", pod)
+        sched.schedule_pending()
+        got[pkg] = bindings(store)
+    assert got["kubernetes_tpu_torch"] == got["kubernetes_tpu"]
+    assert got["kubernetes_tpu_torch"]["later"]
+    assert got["kubernetes_tpu_torch"]["plain"]
 
 
 @pytest.mark.parametrize("kind", ["gang_multi_topology_key",
@@ -195,7 +202,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))
         assert not bad, bad
         assert {"kubernetes_tpu_torch.ops.affinity",
-                "kubernetes_tpu_torch.ops.topology"} <= set(sys.modules)
+                "kubernetes_tpu_torch.ops.topology",
+                "kubernetes_tpu_torch.utils.feature_gates",
+                "kubernetes_tpu_torch.plugins.volumes",
+                "kubernetes_tpu_torch.plugins.registry",
+                "kubernetes_tpu_torch.sched.equivalence",
+                "kubernetes_tpu_torch.sched.volume_binder"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -135,6 +135,12 @@ def compare_rounds(snap, inputs, has_ipa=False, vector=False, gating=None):
     return got[0].numpy()
 
 
+def claims(store) -> dict:
+    """claim name -> the PV it is bound to ('' while unbound)."""
+    return {c.metadata.name: c.spec.volume_name
+            for c in store.list("persistentvolumeclaims")}
+
+
 def metric_state(metrics) -> dict:
     """The SCHED_METRICS of one registry: a histogram's count, sum,
     bucket counts and max, a counter's value, a labelled family's
@@ -154,19 +160,32 @@ def metric_state(metrics) -> dict:
 class Both:
     """One scenario driven through both packages' schedulers in lockstep:
     every store write goes to both stores, every schedule_pending runs on
-    both and returns both counts; `check` compares the stores, the
-    queues, the preemption counters and the SCHED_METRICS."""
+    both and returns both counts; `check` compares the stores (bindings,
+    nominations, PodScheduled conditions, claim bindings), the queues,
+    the preemption counters, the equivalence caches' hits and misses and
+    the SCHED_METRICS. profile(pkg, store) and features(pkg), where
+    given, build each package's Profile and FeatureGates."""
 
-    def __init__(self, n_nodes=0, wave=16, **node_kw):
+    def __init__(self, n_nodes=0, wave=16, profile=None, features=None,
+                 **node_kw):
         self.clock = {"jax": FakeClock(), "torch": FakeClock()}
         self.stores = {"jax": JaxStore(), "torch": TorchStore()}
+        kw = {}
+        for side, store in self.stores.items():
+            kw[side] = {}
+            if profile is not None:
+                kw[side]["profile"] = profile(self.pkg(side), store)
+            if features is not None:
+                kw[side]["features"] = features(self.pkg(side))
         self.sched = {
             "jax": jsched.Scheduler(self.stores["jax"], wave_size=wave,
                                     clock=self.clock["jax"],
-                                    caps=jenc.Caps(**SCHED_CAPS)),
+                                    caps=jenc.Caps(**SCHED_CAPS),
+                                    **kw["jax"]),
             "torch": TorchScheduler(self.stores["torch"], wave_size=wave,
                                     clock=self.clock["torch"], device="cpu",
-                                    caps=tenc.Caps(**SCHED_CAPS)),
+                                    caps=tenc.Caps(**SCHED_CAPS),
+                                    **kw["torch"]),
         }
         for i in range(n_nodes):
             self.node(f"n{i}", **node_kw)
@@ -219,10 +238,20 @@ class Both:
                       for p in self.stores[s].list("pods")}
                      for s in ("jax", "torch")]
         assert nominated[1] == nominated[0]
+        # the PodScheduled messages carry each FitError
+        conditions = [{p.metadata.name: list(p.status.conditions)
+                       for p in self.stores[s].list("pods")}
+                      for s in ("jax", "torch")]
+        assert conditions[1] == conditions[0]
+        assert claims(self.stores["torch"]) == claims(self.stores["jax"])
         j, t = self.sched["jax"], self.sched["torch"]
         assert t.queue.pending_count() == j.queue.pending_count()
         assert t.pipeline_preemptions == j.pipeline_preemptions
         assert metric_state(t.metrics) == metric_state(j.metrics)
+        assert (t.ecache is None) == (j.ecache is None)
+        if t.ecache is not None:
+            assert ((t.ecache.hits, t.ecache.misses)
+                    == (j.ecache.hits, j.ecache.misses))
 
     def bound(self, gang):
         return sum(1 for p in self.stores["torch"].list("pods")

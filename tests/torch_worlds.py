@@ -14,7 +14,9 @@ required and preferred terms (the priority counts), pending pods with
 required and preferred pod (anti-)affinity over zone and hostname, term
 namespaces, the bootstrap rule (a required affinity that only the pod
 itself matches), hard and soft spread constraints on zone and hostname,
-and nodes without a zone label.
+and nodes without a zone label. `volume_pv`, `volume_pvc` and
+`volume_pod` build persistent volumes, claims and pods with claims or
+inline disks.
 """
 
 from __future__ import annotations
@@ -610,3 +612,66 @@ def pdb(pkg: str, name: str, match_labels: dict, allowed: int):
             selector=lbl.LabelSelector(match_labels=match_labels)),
         status=api.PodDisruptionBudgetStatus(disruptions_allowed=allowed))
 
+
+
+# --- volumes ----------------------------------------------------------------
+
+GI = 2 ** 30
+GCE_PD = "GCEPersistentDisk"
+EBS = "AWSElasticBlockStore"
+
+
+def zone_affinity(pkg: str, zone: str):
+    """A PV node affinity that admits the nodes of one zone."""
+    api, lbl = _mods(pkg)
+    return api.NodeSelector(node_selector_terms=[api.NodeSelectorTerm(
+        match_expressions=[lbl.Requirement(ZONE, lbl.IN, (zone,))])])
+
+
+def volume_pv(pkg: str, name: str, kind: str = "", vid: str = "",
+              zone=None, affinity=None, cls: str = "", gi=None):
+    """A PersistentVolume of source `kind`/`vid`: zone labels it with a
+    zone (or a '__'-joined zone set), affinity (a zone) gives it the
+    node affinity of that zone, gi its capacity."""
+    api, _ = _mods(pkg)
+    return api.PersistentVolume(
+        metadata=api.ObjectMeta(name=name,
+                                labels={ZONE: zone} if zone else {}),
+        spec=api.PersistentVolumeSpec(
+            source_kind=kind, source_id=vid, storage_class_name=cls,
+            capacity={"storage": gi * GI} if gi else {},
+            node_affinity=(zone_affinity(pkg, affinity) if affinity
+                           else None)))
+
+
+def volume_pvc(pkg: str, name: str, volume_name: str = "", cls: str = "",
+               wffc: bool = False, gi=None):
+    """A PersistentVolumeClaim, bound to `volume_name` or unbound;
+    wffc: its class binds WaitForFirstConsumer (the scheduler's
+    VolumeBinder binds it at commit), else Immediate."""
+    api, _ = _mods(pkg)
+    return api.PersistentVolumeClaim(
+        metadata=api.ObjectMeta(name=name),
+        spec=api.PersistentVolumeClaimSpec(
+            volume_name=volume_name, storage_class_name=cls,
+            volume_binding_mode=("WaitForFirstConsumer" if wffc
+                                 else "Immediate"),
+            requests={"storage": gi * GI} if gi else {}))
+
+
+def volume_pod(pkg: str, name: str, claims=(), disks=(), owner=None,
+               **kw):
+    """plain_pod(**kw) with a volume per claim name and per inline disk
+    (kind, id, read_only); owner names the StatefulSet that controls
+    it."""
+    api, _ = _mods(pkg)
+    pod = plain_pod(pkg, name, **kw)
+    pod.spec.volumes = (
+        [api.Volume(name=c, pvc_name=c) for c in claims]
+        + [api.Volume(name=f"disk-{i}", source_kind=k, source_id=v,
+                      read_only=ro) for i, (k, v, ro) in enumerate(disks)])
+    if owner is not None:
+        pod.metadata.owner_references = [api.OwnerReference(
+            kind="StatefulSet", name=owner, uid=f"ss-{owner}",
+            controller=True)]
+    return pod
