@@ -37,7 +37,7 @@ Phases (any failure exits non-zero and prints no result line):
                shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
                clock: identical bindings and victim sets; then the
                multi-key world: the reduced density world with anchor pods
-               bound first, drained, then 16 pods and a gang of 4 whose
+               bound first, drained, then 8 pods and a gang of 4 whose
                required pod affinity spans the zone and the host key (the
                exact host path, plugins/golden.py): identical bindings,
                every multi-key pod bound where both terms hold (read back
@@ -72,9 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
                spread: every Deployment's zone counts differ by at most 1,
                every round runs with topology spread; the same timing
                lines, and topo_statics timed on one full-width wave;
-  8. gang    — bench.py's gangstorm shape at 5 000 nodes, P = 16: 2 400
-               gangs of 8 members (4 cores, priority 1, min-available 8)
-               fill 96% of the CPU slots, one dispatch a gang; then 1 600
+  8. gang    — bench.py's gangstorm shape at 5 000 nodes, P = 16: 1 200
+               gangs of 8 members (8 cores, priority 1, min-available 8)
+               fill 96% of the CPU, one dispatch a gang; then 1 600
                single 4-core pods at priority 1000 get in by preemption.
                Every high pod bound, every gang with 0 or 8 members
                bound, every victim at priority 1, evictions a multiple of
@@ -125,6 +125,33 @@ Phases (any failure exits non-zero and prints no result line):
                dispatches, host seconds by phase (host_mask,
                volume_bind, ...), taint/port launches, the implicit host
                syncs of one volume and one density wave, claims bound.
+  14. traced — the flight recorder and the decision observatory: the
+               density world at 5 000 nodes with a 4 096-pod backlog (32
+               waves, one round) drained on two fresh schedulers from one
+               seed, untraced and traced (utils/tracing.py enable() with
+               a ledger file, a `live` WeightProfile equal to the default
+               weights, a bin-packing and a spreading candidate,
+               shadow_exact_interval=1): identical bindings; then the
+               bin-packer promoted to live and 512 more pods, then the
+               rollback (both live profiles deleted: the static table) and
+               512 more. Checks: every decision's chosen parts re-add by
+               `_f32_totals` to its total, every top list in lax.top_k
+               order, every ledger line v2 with weights_version (same@ ->
+               packer@ -> static), scores, an exact shadow sample and
+               telemetry; the packed telemetry vector from the card equal
+               bit for bit to the CPU's on a copy, 5 000 nodes, the zone
+               sums tying out; no telemetry failure; the taint/port kernel
+               == plain on the inputs. Printed: device_round ms a pod
+               traced and untraced, the host syncs of one traced and one
+               untraced wave, the host seconds a round of
+               _record_decisions, _shadow_exact_sample and
+               _emit_telemetry, the telemetry call's ms against its byte
+               bound, the ledger's bytes a round. Then a reduced traced
+               world (500 nodes, 1 000 pods, a gang, a preempting pod, a
+               pod the host filter sends to the per-wave loop, a
+               candidate) on the card and on the CPU: identical ledger
+               rows (less timings, path and pod UIDs), decisions, shadow
+               report, telemetry vector and scheduler metrics.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -152,9 +179,12 @@ SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
 SPREAD_PODS, SPREAD_APPS = 10000, 20
 SMALL_NODES, SMALL_PODS = 500, 1000
-# phase 8 (bench.py gangstorm, scaled to 5 000 nodes): gangs of 8 pods of
-# 4 cores at priority 1 fill 96% of the 4 slots a node, then high pods
-GANGS, GANG_SIZE, GANG_HIGH = 2400, 8, 1600
+# phase 8 (bench.py gangstorm, scaled to 5 000 nodes): gangs of 8 pods at
+# priority 1 fill 96% of the nodes' CPU, then 4-core high pods. Cut for
+# the script's time: 1 200 gangs of 8-core members (2 slots a node), not
+# 2 400 of 4-core members, so the fill keeps its 96% and the high pods
+# still break gangs with half the gang dispatches
+GANGS, GANG_SIZE, GANG_HIGH, GANG_CPU = 1200, 8, 1600, 8
 GANG_P = 16
 # phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
 # as many 8-core vips
@@ -163,8 +193,10 @@ PREEMPT_VIPS = 10000
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
 # phase 5's multi-key pods: single pods and one gang, each pod with
-# required pod affinity over the zone and the host
-MULTIKEY_PODS, MULTIKEY_GANG = 16, 4
+# required pod affinity over the zone and the host (8 single pods, cut
+# from 16 for the script's time: each host-path pass scans every bound
+# pod for every node)
+MULTIKEY_PODS, MULTIKEY_GANG = 8, 4
 # phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
 # trickle at 500 nodes, paced at 5 000)
 TRICKLE_PODS, TRICKLE_CHUNK = 2048, 64
@@ -180,6 +212,25 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # plus a per-wave dispatch a wave at the density drain's ms a pod
 SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
 SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 150.0, 8
+# phase 14: the density world's backlog drained untraced and traced (32
+# waves, one round), then twice more traced after a promotion and after
+# the rollback
+TRACED_PODS, TRACED_EXTRA = 4096, 512
+# the scheduler series phase 14 holds card == CPU: those every drain
+# observes and those the recorder, the decomposition, the shadow pass and
+# the telemetry feed
+TRACED_METRICS = (
+    "pod_scheduling_latency", "binding_latency", "pods_scheduled",
+    "e2e_scheduling_latency", "waves_total", "schedule_attempts",
+    "pods_failed", "unschedulable_reasons", "preemption_evaluation",
+    "total_preemption_attempts", "pod_preemption_victims",
+    "gang_schedule_attempts", "gang_wait_seconds", "scheduling_errors",
+    "score_margin", "score_priority_points", "shadow_divergence",
+    "shadow_scored_pods", "shadow_margin_delta", "cluster_requested",
+    "cluster_allocatable", "cluster_free_largest", "cluster_fragmentation",
+    "feasibility_headroom", "zone_utilization", "device_fetch_bytes")
+# ledger keys that hold wall-clock times, and the backend name
+LEDGER_TIMINGS = ("ts", "wall_s", "spans", "path")
 # phase 5's volumes world: pods on bound zoned claims, on their own
 # WaitForFirstConsumer claims against fewer free PVs in two zones of
 # three, on shared inline disks, aimed at PD_NODES nodes with 3 PDs each
@@ -442,13 +493,13 @@ def batch_pod(api, name, prefix, cpu, priority, gang=None):
     return p
 
 
-def add_gangs(api, store, n_gangs):
+def add_gangs(api, store, n_gangs, cpu=4):
     """bench.py's gangstorm gangs: n_gangs PodGroups of GANG_SIZE members,
-    4 cores each at priority 1, min-available GANG_SIZE."""
+    `cpu` cores each at priority 1, min-available GANG_SIZE."""
     for g in range(n_gangs):
         for j in range(GANG_SIZE):
             store.create("pods", batch_pod(api, f"gang-{g}-m{j}", "storm-low",
-                                           4, 1, gang=f"gang-{g}"))
+                                           cpu, 1, gang=f"gang-{g}"))
 
 
 def add_singles(api, store, prefix, n, cpu, priority):
@@ -1235,7 +1286,7 @@ def gang_phase(torch, mods, enc, bucket_size):
                     LV=bucket_size(FULL_NODES + 256, 64))
     watch = Watch(torch, mods, store, caps)
     add_plain_nodes(api, store, FULL_NODES)
-    add_gangs(api, store, GANGS)
+    add_gangs(api, store, GANGS, cpu=GANG_CPU)
     tp.taint_ports_masks.launches = 0
     pre.preempt_whatif.launches = 0
     try:
@@ -1275,7 +1326,8 @@ def gang_phase(torch, mods, enc, bucket_size):
     if launches < 1 or whatif_launches < 1:
         fail(f"gang: kernel launches {launches}, what-if launches "
              f"{whatif_launches}")
-    log(f"[gang] fill: {GANGS} gangs of {GANG_SIZE} in {fill_wall:.3f} s = "
+    log(f"[gang] fill: {GANGS} gangs of {GANG_SIZE} {GANG_CPU}-core pods in "
+        f"{fill_wall:.3f} s = "
         f"{GANGS * GANG_SIZE / fill_wall:.1f} pods/s, {fill_dispatches} gang "
         f"dispatches, {gang_launches} taint/port launches; high: "
         f"{GANG_HIGH} pods in {high_wall:.3f} s = "
@@ -1983,10 +2035,10 @@ def statefulset_phase(torch, mods, enc, bucket_size, lbl, filters,
 
     run_pipeline, run_wave = sched._run_pipeline, sched._run_wave
 
-    def pipeline(pods):
+    def pipeline(pods, **kw):
         rounds = seen["rounds"]
         seen["passes"] += 1
-        out = run_pipeline(pods)
+        out = run_pipeline(pods, **kw)
         seen["bailouts"] += seen["rounds"] == rounds
         return out
 
@@ -2064,6 +2116,433 @@ def statefulset_phase(torch, mods, enc, bucket_size, lbl, filters,
                 max_err=err)
 
 
+# --- phase 14: the flight recorder and the decision observatory -----------------
+
+
+def strip_uids(x):
+    """x with every "uid" key dropped, recursively: the store mints pod
+    UIDs from a process-wide counter, so two runs of one world differ in
+    them."""
+    if isinstance(x, dict):
+        return {k: strip_uids(v) for k, v in x.items() if k != "uid"}
+    if isinstance(x, list):
+        return [strip_uids(v) for v in x]
+    return x
+
+
+def metric_values(metrics, names=TRACED_METRICS) -> dict:
+    """The named series of one registry: a histogram's count, sum, bucket
+    counts and max, a counter's or gauge's value, a labelled family's
+    {series: value}."""
+    out = {}
+    for name in names:
+        m = getattr(metrics, name)
+        if hasattr(m, "counts"):
+            out[name] = (m.total, m.sum, tuple(m.counts), m.max)
+        elif hasattr(m, "children"):
+            out[name] = {c.name: c.value for c in m.children()}
+        else:
+            out[name] = m.value
+    return out
+
+
+def dispatch_totals(metrics) -> dict:
+    """Dispatches a program (device_jit_events, hits and misses)."""
+    out = {}
+    for (program, _bucket, _event), c in \
+            metrics.device_jit_events._children.items():
+        out[program] = out.get(program, 0) + int(c.value)
+    return out
+
+
+def profile_obj(api, name, table, role="candidate"):
+    return api.WeightProfile(
+        metadata=api.ObjectMeta(name=name),
+        spec=api.WeightProfileSpec(weights=dict(table), role=role))
+
+
+def default_table(weights_mod, stack, base):
+    """The default weights as a WeightProfile table (the non-zero planes:
+    unnamed planes are 0)."""
+    vec = weights_mod.stack_weights(base)
+    return {n: float(vec[s]) for s, n in enumerate(stack)
+            if weights_mod.WEIGHT_FIELDS[n] is not None and vec[s]}
+
+
+def telemetry_bound(nt, Z, packed_len):
+    """(least ms, what bounds it, bytes, float ops) of one telemetry
+    reduction: its inputs read once (valid, alloc, requested, zone_id,
+    cond, pod_count, allowed_pods, the shape requests) and the packed
+    vector written once, over HBM bandwidth; its f32 work (per node and
+    resource: the masks, free, the three trees, the two trees and masks
+    of each zone, the fraction and its bin; per shape and node and
+    resource: the fit) over the 67 TFLOP/s float32 peak."""
+    N, R = nt.alloc.shape
+    C = nt.cond.shape[1]
+    K = 4  # CANONICAL_SHAPES
+    nbytes = (N * (1 + 8 * R + 4 + C + 8) + 4 * K * R + 4 * packed_len)
+    ops = N * R * (6 + 4 * Z + 4) + K * N * R * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / 67e12 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, ops)
+
+
+def check_decisions(rec, sched, weights_mod, stack) -> int:
+    """Every decision's chosen parts re-add, by the shadow pass's
+    `_f32_totals` under its own weights, to its total; every `top` list
+    runs by total, highest first, the lower node index first on ties.
+    Returns the decisions checked."""
+    import numpy as np
+
+    index = sched.snapshot.node_index
+    n = 0
+    for uid, e in list(rec.decisions.items()):
+        w = np.asarray(e["weights"], np.float32)
+        parts = np.asarray([e["parts"][name]["chosen"] for name in stack],
+                           np.float32)
+        total = weights_mod._f32_totals(w, parts[:, None])[0]
+        if round(float(total), 4) != e["total"]:
+            fail(f"traced: {e['pod']}'s parts re-add to {float(total)}, "
+                 f"not its total {e['total']}")
+        top = [(t["total"], index[t["node"]]) for t in e["top"]]
+        for (t0, i0), (t1, i1) in zip(top, top[1:]):
+            if t1 > t0 or (t1 == t0 and i1 < i0):
+                fail(f"traced: {e['pod']}'s top list is out of order: {top}")
+        n += 1
+    return n
+
+
+def traced_world(mods, enc, bucket_size, Scheduler, PodBackoff, tracing,
+                 tele, device):
+    """Phase 14's card == CPU world on `device`, traced, on a virtual
+    clock: SMALL_NODES nodes and SMALL_PODS density pods, a gang of
+    GANG_SIZE, a priority-1000 pod that fits only by evicting the hog
+    bound on node-0, a pod whose inline disk a pod bound on node-1 holds
+    (the host filter sends the pass to the per-wave loop), a bin-packing
+    candidate profile and shadow_exact_interval=1. The hog and the disk
+    holder sit on the first two untainted nodes. Returns what is
+    compared."""
+    api, store_mod = mods[0], mods[-1]
+    tracing.disable()
+    rec = tracing.enable()
+    try:
+        store, n_bound = build_store(api, store_mod, SMALL_NODES, SMALL_PODS,
+                                     SEED)
+        free = [n.metadata.name for n in store.list("nodes")
+                if not n.spec.taints][:2]
+        hog = batch_pod(api, "hog", "hog", "15", 0)
+        hog.spec.node_name = free[0]
+        store.create("pods", hog)
+        holder = disk_pod(api, "disk-holder", disks=["pd-shared"])
+        holder.spec.node_name = free[1]
+        store.create("pods", holder)
+        store.create("weightprofiles", profile_obj(
+            api, "packer", {"MostRequested": 1.0, "BalancedAllocation": 1.0}))
+        clock = VirtualClock()
+        caps = scheduler_caps(enc, bucket_size, SMALL_NODES,
+                              SMALL_PODS + 2 * GANG_SIZE, n_bound + 2)
+        sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                          clock=clock,
+                          backoff=PodBackoff(initial=0.001, clock=clock),
+                          shadow_exact_interval=1)
+        settle(sched, clock)
+        for j in range(GANG_SIZE):
+            store.create("pods", batch_pod(api, f"gang-t-m{j}", "storm-low",
+                                           "100m", None, gang="gang-t"))
+        vip = batch_pod(api, "vip", "vip", "8", 1000)
+        vip.spec.node_selector = {HOSTNAME: free[0]}
+        store.create("pods", vip)
+        store.create("pods", disk_pod(api, "disk-user", disks=["pd-shared"]))
+        settle(sched, clock)
+        check_bindings(api, store)
+        nt = sched.snapshot.to_device(sched.device)[0]
+        packed = tele.cluster_telemetry(
+            nt, num_zones=sched.snapshot.caps.Z).cpu()
+        rows = [strip_uids({k: v for k, v in r.items()
+                            if k not in LEDGER_TIMINGS})
+                for r in rec.ledger_rows()]
+        decisions = {e["pod"]: strip_uids(e) for e in rec.decisions.values()}
+        return {
+            "bindings": bindings(store), "ledger": rows,
+            "decisions": decisions,
+            "report": strip_uids(sched.weightbook.report("packer")),
+            "telemetry": packed.view(__import__("torch").int32).tolist(),
+            "metrics": metric_values(sched.metrics),
+            "dispatches": dispatch_totals(sched.metrics),
+            "kinds": sorted({r["kind"] for r in rows}),
+            "evicted": int(sched.metrics.pod_preemption_victims.value)}
+    finally:
+        tracing.disable()
+
+
+def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
+                 weights_mod, stack):
+    """Phase 14: the density world (FULL_NODES nodes, TRACED_PODS pods, 32
+    waves, one round) drained on fresh schedulers from one seed, A with
+    tracing off and B traced with a ledger file, a `live` profile equal
+    to the defaults, a bin-packing candidate and a spreading candidate
+    (shadow_exact_interval=1); then B promotes the bin-packer and drains
+    TRACED_EXTRA more pods, and rolls back (both live profiles deleted:
+    the static table) and drains TRACED_EXTRA more. Then the reduced
+    traced world on the card and on the CPU. Returns what it saw."""
+    import tempfile
+
+    import numpy as np
+
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    t_phase = time.monotonic()
+    sync = torch.cuda.synchronize
+    n_total = TRACED_PODS + 2 * TRACED_EXTRA
+    seen = {"captured": {}, "rounds": {"A": [], "B": []}, "tag": "A"}
+    saved_round = sched_mod.schedule_round
+    round_launch = kernel_mod.taint_ports_masks
+    wave_launch = filters.taint_ports_masks
+
+    def timed_round(nt_, pm_, tt_, pbs, *a, **kw):
+        t0 = time.monotonic()
+        out = saved_round(nt_, pm_, tt_, pbs, *a, **kw)
+        sync()
+        seen["rounds"][seen["tag"]].append(
+            (time.monotonic() - t0, int(pbs.valid.sum())))
+        return out
+
+    def capturing(launch):
+        def capture(nt_, pb_, **kw):
+            rows = pb_.tol_key.shape[0]
+            if rows not in seen["captured"]:
+                seen["captured"][rows] = (
+                    nt_._replace(**{f: getattr(nt_, f).clone()
+                                    for f in KERNEL_NODE_FIELDS}),
+                    pb_._replace(**{f: getattr(pb_, f).clone()
+                                    for f in KERNEL_POD_FIELDS}))
+            return launch(nt_, pb_, **kw)
+        return capture
+
+    host = {"record_decisions": 0.0, "shadow_exact": 0.0, "telemetry": 0.0}
+
+    def host_timed(name, fn):
+        def timed(*a, **kw):
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            host[name] += time.monotonic() - t0
+            return out
+        return timed
+
+    ledger_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_ledger_"))
+    ledger = ledger_dir / "rounds.jsonl"
+    store_a, n_bound = build_store(api, store_mod, FULL_NODES, TRACED_PODS,
+                                   SEED)
+    store_b, _ = build_store(api, store_mod, FULL_NODES, TRACED_PODS, SEED)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, n_total, n_bound)
+    base = sched_mod.default_profile(store_b).weights()
+    same = default_table(weights_mod, stack, base)
+    packer = dict(same, MostRequested=2.0)
+    packer.pop("LeastRequested")
+    spreader = dict(same, BalancedAllocation=3.0)
+    sched_mod.schedule_round = timed_round
+    kernel_mod.taint_ports_masks = capturing(round_launch)
+    filters.taint_ports_masks = capturing(wave_launch)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    try:
+        tracing.disable()
+        sched_a = Scheduler(store_a, wave_size=WAVE, caps=caps,
+                            device="cuda")
+        t0 = time.monotonic()
+        placed_a = sched_a.schedule_pending()
+        sync()
+        wall_a = time.monotonic() - t0
+        rec = tracing.enable(ledger_path=str(ledger))
+        seen["tag"] = "B"
+        for name, table, role in (("same", same, "live"),
+                                  ("packer", packer, "candidate"),
+                                  ("spreader", spreader, "candidate")):
+            store_b.create("weightprofiles",
+                           profile_obj(api, name, table, role))
+        sched_b = Scheduler(store_b, wave_size=WAVE, caps=caps,
+                            device="cuda", shadow_exact_interval=1)
+        for name, attr in (("record_decisions", "_record_decisions"),
+                           ("shadow_exact", "_shadow_exact_sample"),
+                           ("telemetry", "_emit_telemetry")):
+            setattr(sched_b, attr, host_timed(name, getattr(sched_b, attr)))
+        versions = [sched_b.weightbook.live_version()]
+        t0 = time.monotonic()
+        placed_b = sched_b.schedule_pending()
+        sync()
+        wall_b = time.monotonic() - t0
+        # the ledger rows of each stage
+        stages = [len(rec.ledger_rows())]
+        if bindings(store_b) != bindings(store_a):
+            a, b = bindings(store_a), bindings(store_b)
+            diff = [k for k in a if a[k] != b.get(k)]
+            fail(f"traced: traced bindings differ from untraced for "
+                 f"{len(diff)} pods, e.g. {diff[:5]}")
+        seen["tag"] = "B+"
+        seen["rounds"]["B+"] = []
+        wp = store_b.get("weightprofiles", "default", "packer")
+        wp.spec.role = "live"
+        store_b.update("weightprofiles", wp)
+        versions.append(sched_b.weightbook.live_version())
+        add_singles(api, store_b, "swap", TRACED_EXTRA, "100m", None)
+        placed_b += sched_b.schedule_pending()
+        stages.append(len(rec.ledger_rows()))
+        for name in ("packer", "same"):
+            store_b.delete("weightprofiles", "default", name)
+        versions.append(sched_b.weightbook.live_version())
+        add_singles(api, store_b, "rollback", TRACED_EXTRA, "100m", None)
+        placed_b += sched_b.schedule_pending()
+        stages.append(len(rec.ledger_rows()))
+        sync()
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        sched_mod.schedule_round = saved_round
+        kernel_mod.taint_ports_masks = round_launch
+        filters.taint_ports_masks = wave_launch
+        tracing.disable()
+    if placed_b != placed_a + 2 * TRACED_EXTRA or placed_a < TRACED_PODS // 2:
+        fail(f"traced: placed {placed_a} untraced and {placed_b} traced of "
+             f"{TRACED_PODS} and {n_total}")
+    check_bindings(api, store_b)
+    if launches < 1 or sched_b.wave_path() != "cuda":
+        fail(f"traced: taint/port launches {launches}, wave_path "
+             f"{sched_b.wave_path()!r}")
+    if not (versions[0].startswith("same@")
+            and versions[1].startswith("packer@")
+            and versions[2] == "static"):
+        fail(f"traced: weights_version went {versions}")
+    # every line v2 with its stage's weights_version and telemetry; a
+    # round that placed pods has scores, and a pipeline round an exact
+    # shadow sample of the candidate loaded throughout
+    lines = [json.loads(x) for x in ledger.read_text().splitlines()]
+    want = [versions[k] for k in range(3)
+            for _ in range(stages[k] - (stages[k - 1] if k else 0))]
+    for r, ver in zip(lines, want):
+        shape = (r["v"], r["weights_version"], "telemetry" in r,
+                 "scores" in r or not r.get("placed"),
+                 r["kind"] != "pipeline" or "exact" in (
+                     r.get("shadow") or {}).get("spreader", {}))
+        if shape != (2, ver, True, True, True):
+            fail(f"traced: ledger line (v, weights_version, telemetry, "
+                 f"scores, exact shadow) {shape}, expected version {ver}")
+    if len(lines) != len(want) or not lines:
+        fail(f"traced: {len(lines)} ledger lines for {len(want)} rounds")
+    n_dec = check_decisions(rec, sched_b, weights_mod, stack)
+    if n_dec != min(placed_b, tracing.MAX_DECISIONS):
+        fail(f"traced: {n_dec} decisions recorded")
+    tele_errors = sched_b.metrics.scheduling_errors.value(stage="telemetry")
+    if tele_errors:
+        fail(f"traced: {tele_errors} telemetry failures")
+    # the telemetry vector from the card against the CPU on a copy
+    Z = sched_b.snapshot.caps.Z
+    R = sched_b.snapshot.caps.R
+    nt = sched_b.snapshot.to_device(sched_b.device)[0]
+    card = tele.cluster_telemetry(nt, num_zones=Z).cpu()
+    nt_cpu = nt._replace(**{f: getattr(nt, f).cpu() for f in nt._fields})
+    cpu = tele.cluster_telemetry(nt_cpu, num_zones=Z)
+    if not torch.equal(card.view(torch.int32), cpu.view(torch.int32)):
+        fail("traced: the telemetry vector differs between card and CPU")
+    ct = tele.ClusterTelemetry(card.numpy(), R, Z)
+    if ct.nodes_valid != FULL_NODES:
+        fail(f"traced: telemetry counts {ct.nodes_valid} nodes")
+    zone_sum = ct.zone_req.sum(axis=0, dtype=np.float64)
+    if not np.allclose(zone_sum, ct.req_total, rtol=1e-6):
+        fail(f"traced: zone sums {zone_sum} do not tie out to "
+             f"{ct.req_total}")
+    tele_ms = cuda_ms(torch, lambda: tele.cluster_telemetry(nt, num_zones=Z),
+                      reps=10, warm=2, runs=3)
+    t_bound, t_by, t_bytes, t_ops = telemetry_bound(
+        nt, Z, tele.packed_len(R, Z))
+    # the syncs of one untraced and one traced wave: 128 new density
+    # pods on the drained cluster
+    pods = [batch_pod(api, f"probe-{i}", "density", "100m", None)
+            for i in range(WAVE)]
+    dev = sched_b.device
+    pb = sched_b.featurizer.featurize(pods)
+    nt_, pm_, tt_ = sched_b.snapshot.to_device(dev)
+    pbt = enc.to_torch(None, None, None, pb, dev)[3]
+    gating, wvec, _ = sched_b._weights_kw()
+    extra = torch.ones((WAVE, nt_.valid.shape[0]), dtype=torch.bool,
+                       device=dev)
+    rr = torch.zeros((), dtype=torch.int32, device=dev)
+    wv = enc.weight_vec_to_torch(wvec, dev)
+    syncs = {}
+    for traced in (False, True):
+        def one():
+            res = kernel_mod.schedule_wave(
+                nt_, pm_, tt_, pbt, extra, rr, weights=gating,
+                num_zones=Z, num_label_values=sched_b.snapshot
+                .num_label_values, has_ts=False, collect_scores=traced,
+                weight_vec=wv)
+            sync()
+            return res
+        one()  # warm
+        _, syncs[traced] = count_syncs(torch, one)
+    err = check_captured(torch, tp, "traced", seen["captured"])
+    ms = {tag: 1e3 * sum(t for t, _ in rs) / max(sum(n for _, n in rs), 1)
+          for tag, rs in seen["rounds"].items()}
+    n_rounds = len(lines)
+    log(f"[traced] {FULL_NODES} nodes, {TRACED_PODS} density pods: "
+        f"untraced {placed_a} in {wall_a:.3f} s = {placed_a / wall_a:.1f} "
+        f"pods/s, traced {TRACED_PODS} in {wall_b:.3f} s = "
+        f"{TRACED_PODS / wall_b:.1f} pods/s, bindings equal; then "
+        f"{TRACED_EXTRA} after the swap and {TRACED_EXTRA} after the "
+        f"rollback; weights_version {' -> '.join(versions)}")
+    log(f"[traced] device_round ms a pod: untraced {ms['A']:.4f}, traced "
+        f"{ms['B']:.4f} ({ms['B'] / ms['A']:.3f}x); after the swap and "
+        f"rollback {ms.get('B+', 0.0):.4f}")
+    log(f"[traced] host seconds a round ({n_rounds} traced rounds): "
+        + ", ".join(f"{k} {v / n_rounds:.4f}" for k, v in host.items()))
+    log(f"[traced] implicit host syncs of one {WAVE}-pod wave: untraced "
+        f"{sum(syncs[False].values())} (" + ", ".join(
+            f"{k} x{v}" for k, v in sorted(syncs[False].items()))
+        + f"), traced {sum(syncs[True].values())} (" + ", ".join(
+            f"{k} x{v}" for k, v in sorted(syncs[True].items())) + ")")
+    log(f"[traced] telemetry reduction (N={nt.valid.shape[0]}, R={R}, "
+        f"Z={Z}): {tele_ms:.4f} ms a call, bound {t_bound:.6f} ms "
+        f"({t_by}: {t_bytes} B, {t_ops} float ops); card == CPU bit for "
+        f"bit, {ct.nodes_valid} nodes, zone sums tie out")
+    log(f"[traced] ledger {ledger.stat().st_size / n_rounds:.0f} bytes a "
+        f"round ({n_rounds} lines, v2, weights_version, scores, shadow with "
+        f"exact, telemetry); {n_dec} decisions re-add to their totals and "
+        "rank their top lists; 0 telemetry failures; taint/port launches "
+        f"{launches}")
+    ledger.unlink()
+    ledger_dir.rmdir()
+    del store_a, store_b, sched_a, sched_b, nt, nt_, pm_, tt_, pbt
+    torch.cuda.empty_cache()
+    # card == CPU on the reduced traced world
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        got[device] = traced_world(mods, enc, bucket_size, Scheduler,
+                                   PodBackoff, tracing, tele, device)
+        log(f"[traced] reduced world {device}: kinds {got[device]['kinds']}"
+            f", {got[device]['evicted']} evicted, "
+            f"{len(got[device]['decisions'])} decisions, world "
+            f"{time.monotonic() - t0:.3f} s")
+    for key in ("bindings", "ledger", "decisions", "report", "telemetry",
+                "metrics", "dispatches"):
+        if got["cuda"][key] != got["cpu"][key]:
+            a, b = got["cuda"][key], got["cpu"][key]
+            diff = (sorted(k for k in set(a) | set(b)
+                           if a.get(k) != b.get(k))[:5]
+                    if isinstance(a, dict) else "lists differ")
+            fail(f"traced: reduced world, card and CPU {key} differ: {diff}")
+    kinds = got["cuda"]["kinds"]
+    if not {"pipeline", "wave", "gang"} <= set(kinds) or \
+            not got["cuda"]["evicted"]:
+        fail(f"traced: reduced world ran {kinds}, evicted "
+             f"{got['cuda']['evicted']}")
+    log(f"[traced] reduced world ({SMALL_NODES} nodes, {SMALL_PODS} pods, a "
+        "gang, a preemption, a per-wave pass, a candidate): card == CPU "
+        "ledger rows, decisions, shadow report, telemetry, metrics; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                max_err=err)
+
+
 # --- main ----------------------------------------------------------------------
 
 
@@ -2084,14 +2563,18 @@ def main() -> None:
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
     from kubernetes_tpu_torch.ops import preempt as pre
     from kubernetes_tpu_torch.ops import taint_ports as tp
+    from kubernetes_tpu_torch.ops import telemetry as tele
     from kubernetes_tpu_torch.ops import topology
+    from kubernetes_tpu_torch.ops.scores import SCORE_STACK
     from kubernetes_tpu_torch.plugins.registry import Registry
     from kubernetes_tpu_torch.runtime import store as store_mod
     from kubernetes_tpu_torch.sched import scheduler as sched_mod
+    from kubernetes_tpu_torch.sched import weights as weights_mod
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
     from kubernetes_tpu_torch.state.vocab import bucket_size
     from kubernetes_tpu_torch.utils.backoff import PodBackoff
     from kubernetes_tpu_torch.utils.feature_gates import FeatureGates
+    from kubernetes_tpu_torch.utils import tracing
     from kubernetes_tpu_torch.utils.metrics import Metrics
 
     mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
@@ -2454,9 +2937,17 @@ def main() -> None:
                            / 1e3)
     max_err = max(max_err, ss.pop("max_err"))
     t_vol += time.monotonic() - t0
+
+    # 14. the flight recorder and the decision observatory
+    t0 = time.monotonic()
+    traced = traced_phase(torch, phase_mods, enc, bucket_size, filters, tele,
+                          tracing, weights_mod, SCORE_STACK)
+    max_err = max(max_err, traced.pop("max_err"))
+    t_traced = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
-              "paced": paced, "preempt_host": phost, "statefulset": ss}
+              "paced": paced, "preempt_host": phost, "statefulset": ss,
+              "traced": traced}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -2465,7 +2956,7 @@ def main() -> None:
         f"{k} {d['whatif_launches']}" for k, d in drains.items())
         + f"; phases multikey, trickle, paced and preempt_host "
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
-        f"total {time.monotonic() - t_start:.1f} s")
+        f"traced {t_traced:.1f} s; total {time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import encoding as enc
-from .kernel import Weights, _wave_body
+from .kernel import Weights, _wave_body, dispatch_bucket, record_dispatch
 
 
 class GangResult(NamedTuple):
@@ -60,10 +60,25 @@ def schedule_gang(nt: enc.NodeTensors, pm: enc.PodMatrix,
     Members the loop could not place keep chosen == -1 even when the
     gang admits (minMember < gang size: the surplus parks individually);
     when it does not admit, ALL members report -1 and the usage the loop
-    accumulated is dropped with its carry."""
+    accumulated is dropped with its carry. Counted as a "gang" dispatch
+    (ops/kernel.py record_dispatch)."""
     if has_ts is None:
         src = ts_valid_host if ts_valid_host is not None else pb.ts_valid
         has_ts = bool(src.any())
+    kw = dict(num_zones=num_zones, num_label_values=num_label_values,
+              has_ipa=has_ipa, has_ts=has_ts, use_pallas=nt.valid.is_cuda,
+              weight_vec=weight_vec)
+    bucket = dispatch_bucket(nt, pm, tt, kw, lead=(pb.req.shape[0],))
+    return record_dispatch("gang", bucket, lambda: _schedule_gang(
+        nt, pm, tt, pb, extra_mask, rr_start, extra_scores, need,
+        weights=weights, num_zones=num_zones,
+        num_label_values=num_label_values, has_ipa=has_ipa, has_ts=has_ts,
+        weight_vec=weight_vec))
+
+
+def _schedule_gang(nt, pm, tt, pb, extra_mask, rr_start, extra_scores, need,
+                   *, weights: Weights, num_zones: int, num_label_values: int,
+                   has_ipa: bool, has_ts: bool, weight_vec) -> GangResult:
     dev = nt.valid.device
     rr0 = torch.as_tensor(rr_start, dtype=torch.int32, device=dev)
     res, _usage = _wave_body(nt, pm, tt, pb, extra_mask, rr0, extra_scores,

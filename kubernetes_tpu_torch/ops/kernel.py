@@ -28,22 +28,40 @@ first failing predicate.
 Inter-pod affinity (`has_ipa`, ops/affinity.py) and topology spread
 (`has_ts`, ops/topology.py) add per-wave statics and a step each to the
 per-pod loop, which sees the wave's earlier placements through its
-`placed` tensor. The score decomposition (`collect_scores`) raises
-NotImplementedError until its slice lands. Every op follows the JAX
-kernel's f32 op order (see ops/scores.py) so the outputs are bit-equal
-to it.
+`placed` tensor. Every op follows the JAX kernel's f32 op order (see
+ops/scores.py) so the outputs are bit-equal to it.
+
+With `collect_scores` (the scheduler sets it exactly when tracing is
+on), the loop also keeps each pod's per-priority score planes long
+enough to gather the chosen node's raw parts and the top
+min(SCORE_TOPK, N) nodes by total, with their totals and parts
+(`ScoreDeco`). The planes a 0 weight leaves out of the total are
+computed too, so a priority that did not move the decision still
+explains it; the total is the same expression either way, so the
+placements do not change.
+
+Every entry point (`schedule_wave`, `schedule_round`, ops/gang.py
+`schedule_gang`, ops/preempt.py `preemption_stats`, ops/telemetry.py
+`cluster_telemetry`) runs through `record_dispatch`, which counts its
+dispatches by shape bucket in the metrics registered by
+`set_telemetry`, as the JAX package counts its jit cache hits and
+misses.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import tracing
 from . import encoding as enc
 from .affinity import IncomingStatics, gather_domains, incoming_statics
 from .filters import resource_fit, static_predicate_masks
 from .scores import (
+    SCORE_STACK,
+    SCORE_TOPK,
     W_AFFINITY,
     W_AVOID,
     W_BALANCED,
@@ -55,6 +73,7 @@ from .scores import (
     W_SPREAD,
     W_TAINT,
     W_TOPO_SPREAD,
+    ScoreDeco,
     balanced_allocation,
     floor_div,
     image_locality,
@@ -102,19 +121,104 @@ class WaveResult(NamedTuple):
     fail_counts: torch.Tensor  # i32 [Q, P]  first-fail per predicate
     masks: torch.Tensor  # bool [Q, P, N]  per-predicate pass masks
     rr_end: torch.Tensor  # i32  round-robin counter after the wave
-    # score decomposition: collect_scores is a later slice, always None
-    deco: Optional[tuple] = None
+    # per-priority decomposition of the decision (collect_scores only;
+    # None otherwise)
+    deco: Optional[ScoreDeco] = None
     # numeric-integrity sentinel: bool [P] — False where the pod's own
     # inputs (req/nonzero) or its winning score are non-finite (a NaN
     # req poisons the usage carry for every later pod in the wave)
     finite: Optional[torch.Tensor] = None
 
 
-def _not_in_slice(collect_scores: bool) -> None:
-    if collect_scores:
-        raise NotImplementedError(
-            "collect_scores: the score decomposition is a later slice of "
-            "the port")
+# -- dispatch accounting -------------------------------------------------------
+#
+# The scheduler registers its Metrics here (set_telemetry) so every
+# dispatch is counted by program and shape bucket, as the JAX package
+# counts its jit program-cache hits and misses
+# (kubernetes_tpu/ops/kernel.py:143-290). Process-global like the JAX
+# hook; the last scheduler built owns the series. A "miss" is the first
+# dispatch at a bucket in this process: no program is compiled here, so
+# its seconds are the host's time to issue the call, plus the kernels'
+# first build on the card. The watchdog and the fault points of the JAX
+# seam are left out.
+_TELEMETRY = None
+_COMPILED: set = set()
+
+
+def set_telemetry(metrics) -> None:
+    global _TELEMETRY
+    _TELEMETRY = metrics
+
+
+def dispatch_bucket(nt, pm, tt, kw, lead=()) -> tuple:
+    """The shape bucket of a dispatch: the JAX bucket tuple
+    (kubernetes_tpu/ops/kernel.py:214) — the caller's wave/pod rows
+    (`lead`), node rows, pod-matrix and term-table caps, one device (the
+    port has no mesh), num_label_values, num_zones and the formulation
+    flags; weight values are left out, the weight_vec's presence is in.
+    `use_pallas` is 1 on the card, where the taint/port kernel launches,
+    and 0 on the CPU (the JAX package's pallas_default() there)."""
+    return tuple(lead) + (
+        nt.valid.shape[0], pm.node.shape[0], tt.node.shape[0], 1,
+        int(kw.get("num_label_values", 64)), int(kw.get("num_zones", 0)),
+        int(bool(kw.get("has_ipa", False))),
+        int(bool(kw.get("has_ts", False))),
+        int(bool(kw.get("use_pallas", False))),
+        int(bool(kw.get("collect_scores", False))),
+        int(kw.get("weight_vec") is not None))
+
+
+def record_dispatch(program: str, bucket_key: tuple, fn):
+    """Run one dispatch, counting it as a hit or a miss of its shape
+    bucket in the registered metrics (`device_jit_events`) and observing
+    a miss's seconds (`device_jit_compile_seconds`, and a `jit_compile`
+    tracing event). A failed dispatch counts
+    scheduling_errors{stage="dispatch", device="unknown"} and raises.
+    With no metrics registered it only calls fn."""
+    tel = _TELEMETRY
+    if tel is None:
+        return fn()
+    key = (program,) + bucket_key
+    miss = key not in _COMPILED
+    t0 = time.monotonic()
+    try:
+        out = fn()
+    except Exception:
+        tel.scheduling_errors.labels(stage="dispatch",
+                                     device="unknown").inc()
+        raise
+    _COMPILED.add(key)
+    bucket = "x".join(str(d) for d in bucket_key)
+    tel.device_jit_events.labels(
+        program=program, bucket=bucket,
+        event="miss" if miss else "hit").inc()
+    if miss:
+        dt = time.monotonic() - t0
+        tel.device_jit_compile_seconds.observe(dt)
+        tracing.event("jit_compile", program=program, bucket=bucket,
+                      seconds=round(dt, 3))
+    return out
+
+
+def top_k_first(sm: torch.Tensor, k: int):
+    """The k largest entries of sm [N] in lax.top_k's order: descending
+    in IEEE total order (+NaN above +inf, -0.0 below +0.0, -NaN below
+    -inf), the lower index first among equal values. Returns (values
+    f32 [k], indices i32 [k]).
+
+    torch.topk keeps no order among equal values and torch.sort orders
+    neither NaNs by sign nor -0.0 against +0.0, so each value is mapped
+    to an int32 key monotone in the total order (a negative float's low
+    31 bits flipped) and the key is widened to a unique int64 whose low
+    32 bits rank the lower index higher; topk over unique keys has one
+    answer, and it reads no value on the host."""
+    bits = sm.view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    n = sm.shape[0]
+    rev = torch.arange(n - 1, -1, -1, dtype=torch.int64, device=sm.device)
+    comp = key.to(torch.int64) * 4294967296 + rev
+    idx = torch.topk(comp, k).indices
+    return sm[idx], idx.to(torch.int32)
 
 
 def _ipa_step(ipa: IncomingStatics, pb: enc.PodBatch, i: int, active,
@@ -205,8 +309,14 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     weight_vec: optional f32 [S] SCORE_STACK-aligned weight vector on the
     device; it supplies the multipliers of the weighted sum. The static
     `weights` gates which score planes are computed. None uses
-    stack_weights(weights)."""
-    _not_in_slice(collect_scores)
+    stack_weights(weights).
+
+    collect_scores: also return, per pod, the SCORE_STACK-ordered raw
+    planes at the chosen node (column max(chosen, 0): an unplaced pod
+    reports column 0) and the top min(SCORE_TOPK, N) nodes by `sm` with
+    their totals and raw planes (WaveResult.deco), as the JAX kernel does
+    (kernel.py:405-415, :595-612). The planes are computed whatever
+    their weight; the total gains no term."""
     dev = nt.valid.device
     N = nt.valid.shape[0]
     P = pb.req.shape[0]
@@ -234,13 +344,17 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
             topo.counts.shape[:2] + (1,))], dim=2)
 
     w = weights
+    collect = collect_scores
     wv = (weight_vec if weight_vec is not None
           else torch.from_numpy(stack_weights(w)).to(dev))
-    aff_raw = (node_affinity_raw(nt, pb) if w.node_affinity
+    # raw planes also feed the decomposition: under collect_scores they
+    # are computed even at weight 0
+    aff_raw = (node_affinity_raw(nt, pb) if w.node_affinity or collect
                else torch.zeros((P, N), dtype=torch.float32, device=dev))
-    taint_raw = (taint_intolerable_raw(nt, pb) if w.taint_toleration
+    taint_raw = (taint_intolerable_raw(nt, pb)
+                 if w.taint_toleration or collect
                  else torch.zeros((P, N), dtype=torch.float32, device=dev))
-    spread_cnt = (spread_counts(pm, pb, N) if w.selector_spread
+    spread_cnt = (spread_counts(pm, pb, N) if w.selector_spread or collect
                   else torch.zeros((P, N), dtype=torch.int32, device=dev))
     static_score = torch.zeros((P, N), dtype=torch.float32, device=dev)
     if w.image_locality:
@@ -249,6 +363,15 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
         static_score = static_score + wv[W_AVOID] * prefer_avoid(nt, pb)
     if extra_scores is not None:
         static_score = static_score + extra_scores
+    if collect:
+        # the raw planes the total takes pre-weighted, never added again
+        avoid_full = prefer_avoid(nt, pb)
+        img_full = image_locality(nt, pb)
+        extra_full = (extra_scores if extra_scores is not None
+                      else torch.zeros((P, N), dtype=torch.float32,
+                                       device=dev))
+        kk = min(SCORE_TOPK, N)
+        cparts_l, tidx_l, tvals_l, tparts_l = [], [], [], []
 
     usage0 = usage_in if usage_in is not None else (
         nt.requested, nt.nonzero, nt.pod_count)
@@ -285,8 +408,12 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
             ts_l.append(ts_ok)
         # the weighted sum, plane by plane in the JAX kernel's order
         # (kernel.py:504-576); each `total + wv * plane` is two ops
+        # each plane is computed when its weight or collect_scores asks
+        # for it, and added only when its weight does
         total = static_score[i]
-        if has_ipa and w.interpod:
+        fscore = aff_n = taint_n = spread_n = lr = ba = mr = None
+        ts_n = compact_n = None
+        if has_ipa and (w.interpod or collect):
             counts_row = ipa.counts[i]
             cmasked = torch.where(feasible, counts_row, 0.0)
             cmin = torch.clamp(cmasked.min(), max=0.0)
@@ -296,25 +423,34 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
             fscore = torch.where(
                 crange > 0, floor_div(10.0 * (counts_row - cmin) / crange),
                 0.0)
+        if has_ipa and w.interpod:
             total = total + wv[W_INTERPOD] * fscore
-        if w.node_affinity:
+        if w.node_affinity or collect:
             aff_n = normalize_reduce(aff_raw[i], feasible, False)
+        if w.node_affinity:
             total = total + wv[W_AFFINITY] * aff_n
-        if w.taint_toleration:
+        if w.taint_toleration or collect:
             taint_n = normalize_reduce(taint_raw[i], feasible, True)
+        if w.taint_toleration:
             total = total + wv[W_TAINT] * taint_n
-        if w.selector_spread:
+        if w.selector_spread or collect:
             spread_n = spread_reduce(spread_cnt[i], feasible, nt.zone_id,
                                      num_zones)
+        if w.selector_spread:
             total = total + wv[W_SPREAD] * spread_n
+        if w.least_requested or collect:
+            lr = least_requested(nz_c, alloc2, pnz)
         if w.least_requested:
-            total = total + wv[W_LEAST] * least_requested(nz_c, alloc2, pnz)
+            total = total + wv[W_LEAST] * lr
+        if w.balanced or collect:
+            ba = balanced_allocation(nz_c, alloc2, pnz)
         if w.balanced:
-            total = total + wv[W_BALANCED] * balanced_allocation(
-                nz_c, alloc2, pnz)
+            total = total + wv[W_BALANCED] * ba
+        if w.most_requested or collect:
+            mr = most_requested(nz_c, alloc2, pnz)
         if w.most_requested:
-            total = total + wv[W_MOST] * most_requested(nz_c, alloc2, pnz)
-        if has_ts and w.topology_spread:
+            total = total + wv[W_MOST] * mr
+        if has_ts and (w.topology_spread or collect):
             # raw spread score: headroom below the fullest domain — a
             # node in a less-crowded domain scores higher; key-less
             # nodes score 0. The TS-axis sum adds integer-valued f32:
@@ -326,8 +462,9 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
                 (topo.node_dom[i] > 0) & pb.ts_valid[i][:, None],
                 torch.clamp(maxm[:, None] - cnt_at, min=0.0), 0.0).sum(dim=0)
             ts_n = normalize_reduce(ts_raw, feasible, False)
+        if has_ts and w.topology_spread:
             total = total + wv[W_TOPO_SPREAD] * ts_n
-        if w.topology_compactness:
+        if w.topology_compactness or collect:
             # count this wave's placements per rack/superpod (ids intern
             # into the shared zone vocabulary, so num_zones bounds both
             # segment sums). The sums add integer counts: the atomic order
@@ -342,6 +479,7 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
             gen = nt.accel_gen.to(torch.float32) * (pb.prio[i] > 0)
             compact_raw = 3.0 * rackc + spc + gen
             compact_n = normalize_reduce(compact_raw, feasible, False)
+        if w.topology_compactness:
             total = total + wv[W_COMPACT] * compact_n
         sm = torch.where(feasible, total, -1.0)
         best = sm.max()  # NaN propagates, as jnp.max does
@@ -361,6 +499,20 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
         rr = rr + has.to(torch.int32)
         if has_ipa or has_ts:
             placed[i] = chosen
+        if collect:
+            # SCORE_STACK-ordered raw planes [S, N]: the chosen node's
+            # column and the top-k nodes' columns leave the loop
+            zr = torch.zeros_like(total)
+            parts = torch.stack([
+                lr, ba, mr, aff_n, taint_n, spread_n, avoid_full[i],
+                img_full[i], fscore if fscore is not None else zr,
+                ts_n if ts_n is not None else zr,
+                compact_n if compact_n is not None else zr, extra_full[i]])
+            top_vals, top_idx = top_k_first(sm, kk)
+            cparts_l.append(parts.index_select(1, safe)[:, 0])
+            tidx_l.append(top_idx)
+            tvals_l.append(top_vals)
+            tparts_l.append(parts.index_select(1, top_idx.long()))
         chosen_l.append(chosen)
         best_l.append(best)
         fits_l.append(fits)
@@ -385,10 +537,16 @@ def _wave_body(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     finite = (torch.isfinite(pb.req).all(dim=1)
               & torch.isfinite(pb.nonzero).all(dim=1)
               & torch.isfinite(best))
+    deco = None
+    if collect:
+        deco = ScoreDeco(chosen_parts=torch.stack(cparts_l),
+                         top_idx=torch.stack(tidx_l),
+                         top_vals=torch.stack(tvals_l),
+                         top_parts=torch.stack(tparts_l))
     res = WaveResult(chosen=chosen, score=best,
                      feasible_count=torch.stack(feas_l),
                      fail_counts=fail_counts, masks=masks, rr_end=rr,
-                     deco=None, finite=finite)
+                     deco=deco, finite=finite)
     return res, (req_c, nz_c, cnt_c)
 
 
@@ -398,21 +556,34 @@ def schedule_wave(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
                   num_label_values: int = 64, has_ipa: bool = False,
                   has_ts: Optional[bool] = None,
                   collect_scores: bool = False,
-                  weight_vec=None) -> WaveResult:
+                  weight_vec=None, account: bool = True) -> WaveResult:
     """One wave. extra_mask: bool [P, N] — host-evaluated predicates,
     appended to the mask stack as a final "HostPlugins" pseudo-predicate.
     extra_scores: optional f32 [P, N] — host-evaluated score
     contributions, pre-multiplied by their weights.
 
     has_ts defaults to whether any pod carries a topology spread
-    constraint, as the JAX entry point derives it."""
+    constraint, as the JAX entry point derives it. collect_scores adds
+    the decomposition (WaveResult.deco, [P, ...] planes). Counted as a
+    "wave" dispatch (record_dispatch) unless account is False: the
+    scheduler's exact shadow replays, which the JAX package runs on its
+    numpy twin outside its dispatch counts."""
     if has_ts is None:
         has_ts = bool(pb.ts_valid.any())
-    res, _ = _wave_body(nt, pm, tt, pb, extra_mask, rr_start, extra_scores,
-                        weights, num_zones, num_label_values, has_ipa,
-                        collect_scores=collect_scores,
-                        weight_vec=weight_vec, has_ts=has_ts)
-    return res
+
+    def run():
+        return _wave_body(nt, pm, tt, pb, extra_mask, rr_start, extra_scores,
+                          weights, num_zones, num_label_values, has_ipa,
+                          collect_scores=collect_scores,
+                          weight_vec=weight_vec, has_ts=has_ts)[0]
+
+    if not account:
+        return run()
+    kw = dict(num_zones=num_zones, num_label_values=num_label_values,
+              has_ipa=has_ipa, has_ts=has_ts, use_pallas=nt.valid.is_cuda,
+              collect_scores=collect_scores, weight_vec=weight_vec)
+    bucket = dispatch_bucket(nt, pm, tt, kw, lead=(pb.req.shape[0],))
+    return record_dispatch("wave", bucket, run)
 
 
 def _stage_placements(pm: enc.PodMatrix, tt: enc.TermTable, chosen,
@@ -499,15 +670,35 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     from its numpy inputs.
 
     Returns (chosen [W, P], fail_counts [W, Q, P], usage', rr_end, deco,
-    finite [W, P]); deco is None (collect_scores is a later slice)."""
+    finite [W, P]); deco is a ScoreDeco of [W, P, ...] planes with
+    collect_scores, pad waves carrying zeros and top_vals of -1 as in
+    the JAX round, and None otherwise. Counted as a "round" dispatch
+    (record_dispatch)."""
     if has_ts is None:
         has_ts = bool(pbs.ts_valid.any())
-    _not_in_slice(collect_scores)
+    kw = dict(num_zones=num_zones, num_label_values=num_label_values,
+              has_ipa=has_ipa, has_ts=has_ts, use_pallas=nt.valid.is_cuda,
+              collect_scores=collect_scores, weight_vec=weight_vec)
+    bucket = dispatch_bucket(nt, pm, tt, kw,
+                             lead=(pbs.req.shape[0], pbs.req.shape[1]))
+    return record_dispatch("round", bucket, lambda: _schedule_round(
+        nt, pm, tt, pbs, usage, rr_start, pm_rows, term_rows,
+        weights=weights, num_zones=num_zones,
+        num_label_values=num_label_values, has_ipa=has_ipa, has_ts=has_ts,
+        collect_scores=collect_scores, weight_vec=weight_vec))
+
+
+def _schedule_round(nt, pm, tt, pbs, usage, rr_start, pm_rows, term_rows, *,
+                    weights: Weights, num_zones: int, num_label_values: int,
+                    has_ipa: bool, has_ts: bool, collect_scores: bool,
+                    weight_vec):
     dev = nt.valid.device
     W = pbs.req.shape[0]
     P = pbs.req.shape[1]
     N = nt.valid.shape[0]
     Q = len(enc.MASK_STACK_NAMES)
+    S = len(SCORE_STACK)
+    KK = min(SCORE_TOPK, N)
     ones = torch.ones((P, N), dtype=torch.bool, device=dev)
     active = pbs.valid.any(dim=1).tolist()
     n_live = max((wi + 1 for wi, a in enumerate(active) if a), default=0)
@@ -517,7 +708,7 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     pm_c, tt_c = pm, tt
     usage_c = tuple(usage)
     rr_c = torch.as_tensor(rr_start, dtype=torch.int32, device=dev)
-    chosen_w, fail_w, finite_w = [], [], []
+    chosen_w, fail_w, finite_w, deco_w = [], [], [], []
     for wi in range(W):
         if not active[wi]:
             chosen_w.append(torch.full((P,), -1, dtype=torch.int32,
@@ -525,18 +716,32 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
             fail_w.append(torch.zeros((Q, P), dtype=torch.int32, device=dev))
             # pad waves schedule nothing: their sentinel rows are clean
             finite_w.append(torch.ones((P,), dtype=torch.bool, device=dev))
+            if collect_scores:
+                # top_vals at -1 read as infeasible to every consumer
+                deco_w.append(ScoreDeco(
+                    torch.zeros((P, S), dtype=torch.float32, device=dev),
+                    torch.zeros((P, KK), dtype=torch.int32, device=dev),
+                    torch.full((P, KK), -1.0, dtype=torch.float32,
+                               device=dev),
+                    torch.zeros((P, S, KK), dtype=torch.float32,
+                                device=dev)))
             continue
         pb = enc.PodBatch(*[a[wi] for a in pbs])
         res, usage_c = _wave_body(
             nt, pm_c, tt_c, pb, ones, rr_c, None, weights, num_zones,
             num_label_values, has_ipa, usage_in=usage_c,
             taint_ports=(taints_all[wi], ports_all[wi]),
-            weight_vec=weight_vec, has_ts=has_ts)
+            collect_scores=collect_scores, weight_vec=weight_vec,
+            has_ts=has_ts)
         pm_c, tt_c = _stage_placements(pm_c, tt_c, res.chosen, pm_rows[wi],
                                        term_rows[wi])
         rr_c = res.rr_end
         chosen_w.append(res.chosen)
         fail_w.append(res.fail_counts)
         finite_w.append(res.finite)
-    return (torch.stack(chosen_w), torch.stack(fail_w), usage_c, rr_c, None,
+        if collect_scores:
+            deco_w.append(res.deco)
+    deco = (ScoreDeco(*[torch.stack(planes) for planes in zip(*deco_w)])
+            if collect_scores else None)
+    return (torch.stack(chosen_w), torch.stack(fail_w), usage_c, rr_c, deco,
             torch.stack(finite_w))

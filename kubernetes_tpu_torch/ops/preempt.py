@@ -48,6 +48,7 @@ import torch
 from . import encoding as enc
 from .cuda_build import PKG, compile_shared
 from .filters import static_predicate_masks
+from .kernel import record_dispatch
 
 SOURCE = PKG / "csrc" / "preempt_whatif.cu"
 NEG = -(2**31) + 1
@@ -498,10 +499,15 @@ def preemption_stats(nt: enc.NodeTensors, pm: enc.PodMatrix,
     """The what-if for a batch of failed pods -> packed i32 [5, P, N]
     (see PreemptStats), on the tensors' device: the kernels on the card,
     the plain version on the CPU. levels: i32 [num_levels] ascending
-    thresholds; gang_w: optional f32 [M] gang-disruption weights."""
+    thresholds; gang_w: optional f32 [M] gang-disruption weights.
+    Counted as a "preempt" dispatch under the JAX bucket
+    (kubernetes_tpu/ops/preempt.py:75; ops/kernel.py record_dispatch)."""
     if len(levels) != num_levels:
         raise ValueError(f"{len(levels)} levels, num_levels={num_levels}")
-    return preempt_whatif(whatif_inputs(nt, pm, pb, levels, gang_w))
+    bucket = (pb.req.shape[0], nt.valid.shape[0], pm.node.shape[0],
+              int(num_levels), 1, int(gang_w is not None))
+    return record_dispatch("preempt", bucket, lambda: preempt_whatif(
+        whatif_inputs(nt, pm, pb, levels, gang_w)))
 
 
 def preemption_stats_plain(nt: enc.NodeTensors, pm: enc.PodMatrix,

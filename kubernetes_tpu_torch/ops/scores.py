@@ -22,6 +22,8 @@ can differ in the last bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -32,8 +34,13 @@ from .selectors import eval_and_program
 MAX_PRIORITY = 10.0
 EPS = 1e-5
 
-# Row order of the per-priority score stack — the contract every
-# consumer of a weight vector relies on.
+# --- score decomposition (the decision observatory) --------------------------
+#
+# With collect_scores on (tracing), the per-pod loop of ops/kernel.py
+# keeps the per-priority planes alive long enough to gather, per pod, the
+# raw contributions of the chosen node and of the top-k candidates by
+# total score. Row order here is the contract every consumer of a weight
+# vector or a decomposition relies on (ledger, decisions, tests).
 SCORE_STACK = (
     "LeastRequested",
     "BalancedAllocation",
@@ -49,10 +56,46 @@ SCORE_STACK = (
     "HostExtra",  # pre-weighted host/extender scores (weight renders as 1)
 )
 
+# candidates gathered per pod (the chosen node is gathered separately:
+# round-robin tie-breaks can pick a node top-k would rank past K)
+SCORE_TOPK = 4
+
+# SCORE_STACK row -> ops/kernel.py Weights field. HostExtra rows arrive
+# pre-weighted (weight renders as 1), so it maps to no field. The live
+# WeightProfile machinery (sched/weights.py) uses this to gate planes and
+# to build SCORE_STACK-aligned vectors from name-keyed weight tables.
+WEIGHT_FIELDS = {
+    "LeastRequested": "least_requested",
+    "BalancedAllocation": "balanced",
+    "MostRequested": "most_requested",
+    "NodeAffinity": "node_affinity",
+    "TaintToleration": "taint_toleration",
+    "SelectorSpread": "selector_spread",
+    "PreferAvoid": "prefer_avoid",
+    "ImageLocality": "image_locality",
+    "InterPodAffinity": "interpod",
+    "TopologySpread": "topology_spread",
+    "TopologyCompactness": "topology_compactness",
+    "HostExtra": None,
+}
+
 # SCORE_STACK row indices, named
 (W_LEAST, W_BALANCED, W_MOST, W_AFFINITY, W_TAINT, W_SPREAD, W_AVOID,
  W_IMAGE, W_INTERPOD, W_TOPO_SPREAD, W_COMPACT,
  W_EXTRA) = range(len(SCORE_STACK))
+
+
+class ScoreDeco(NamedTuple):
+    """Per-pod score decomposition planes fetched alongside a wave's
+    placements (only when tracing): raw 0-10 per-priority scores — NOT
+    weighted — for the chosen node and the top-k nodes by weighted
+    total. Leading axes match the producing call ([P] per wave, [W, P]
+    per round)."""
+
+    chosen_parts: torch.Tensor  # f32 [..., S]     chosen node's raw scores
+    top_idx: torch.Tensor  # i32 [..., K]     top-k node indices by total
+    top_vals: torch.Tensor  # f32 [..., K]     their weighted totals (-1 infeasible)
+    top_parts: torch.Tensor  # f32 [..., S, K]  their raw per-priority scores
 
 
 def stack_weights(w) -> np.ndarray:

@@ -32,6 +32,7 @@ from ..api import types as api
 from ..state.cache import SchedulerCache
 from ..state.node_info import NodeInfo
 from ..plugins import golden
+from ..utils import tracing
 from .errors import UNRESOLVABLE
 
 # exact select_victims_on_node validations per preempt() call when the
@@ -267,11 +268,13 @@ def preempt(pod: api.Pod, cache: SchedulerCache,
                   if with_affinity or golden.has_hard_spread(pod) else None)
     helpful = nodes_where_preemption_might_help(failed_predicates)
     node_order: List[str] = helpful
+    pruned = -1
     if snapshot is not None and featurizer is not None:
         order = vector_candidate_order(pod, snapshot, featurizer)
         if order is not None:
             hs = set(helpful)
             ranked = [n for n in order if n in hs]
+            pruned = len(helpful) - len(ranked)
             node_order = ranked[:PRUNE_HOST_CANDIDATES]
     candidates: Dict[str, Tuple[List[api.Pod], int]] = {}
     for node_name in node_order:
@@ -283,6 +286,11 @@ def preempt(pod: api.Pod, cache: SchedulerCache,
         if sel is not None:
             candidates[node_name] = sel
     chosen = pick_one_node(candidates)
+    # flight-recorder event (kubernetes_tpu/sched/preemption.py:329)
+    tracing.event("preempt_whatif", pod=pod.uid, path="host",
+                  candidates=len(candidates), chosen=chosen or "",
+                  pruned=max(pruned, 0),
+                  backend="vector" if pruned >= 0 else "golden")
     if chosen is None:
         return None
     victims, nviol = candidates[chosen]

@@ -76,11 +76,38 @@ does. With the VolumeScheduling gate on, a commit binds the pod's
 unbound claims first (sched/volume_binder.py) and a failed bind or a
 rolled-back gang unbinds them.
 
+With tracing on (the port's own flight recorder,
+utils/tracing.py `enable()`), every round, per-wave dispatch and gang
+dispatch is recorded as in the JAX scheduler: a RoundTrace whose stage
+marks tile the round, queue-wait and bind pod spans, and one ledger
+record (v2) a round. The round and the per-wave dispatch then also
+carry the score decomposition (ops/kernel.py `collect_scores`) out of
+the loop: `_record_decisions` files a decision a placed pod in the
+recorder and scores the wave under every candidate WeightProfile
+(sched/weights.py `WeightBook.score_wave`); `_emit_telemetry` reduces
+the cluster's node tensors on the device once a round
+(ops/telemetry.py). With tracing off none of it runs: the per-pod loop,
+the fetches and the placements are those of an untraced scheduler.
+
+The weights come from `weightbook` (sched/weights.py `WeightBook`),
+which watches `weightprofiles` objects: the `live` one is hot-swapped
+between rounds and rolled back by deleting or demoting it; the others
+are candidates, scored in shadow. `_weights_kw()` resolves the
+(gating Weights, vector, version) view once a round.
+`shadow_exact_interval=N` replays the first wave of every Nth traced
+round under each candidate (`_shadow_exact_sample`).
+
+A bind the store refuses is resolved against the store's copy of the
+pod, as the JAX reconciler resolves it: bound there (by another writer:
+CONFIRMED) adopts that binding; unbound (ORPHANED) forgets the
+assumption and parks the pod with backoff; gone (GONE) forgets it.
+
 Left out with no stand-in: the circuit breakers, the bind journal and
 the reconciler's retries, extenders (a profile with extenders raises
-NotImplementedError), tracing, the mesh, the memory governor, poison
-quarantine and load shedding; the series of that machinery (breaker,
-store, mesh, HBM, shedding, poison, spool) stay at zero in `metrics`.
+NotImplementedError), the mesh, the memory governor, poison quarantine
+and load shedding; the series of that machinery (breaker, store, mesh,
+HBM, shedding, poison, spool) stay at zero in `metrics`. The ledger
+writes `breaker="closed"`, the JAX value while its breaker is closed.
 """
 
 from __future__ import annotations
@@ -98,10 +125,11 @@ from ..api import labels as lbl
 from ..api import types as api
 from ..ops import encoding as enc
 from ..ops.gang import schedule_gang
-from ..ops.kernel import schedule_round, schedule_wave
+from ..ops import telemetry as tele
+from ..ops.kernel import schedule_round, schedule_wave, set_telemetry
 from ..ops.preempt import (PreemptStats, preemption_stats,
                            preemption_stats_host, victim_levels)
-from ..ops.scores import W_INTERPOD, stack_weights
+from ..ops.scores import SCORE_STACK, W_INTERPOD
 from ..ops.taint_ports import taint_ports_masks
 from ..plugins import golden
 from ..plugins.registry import Profile, default_profile
@@ -109,9 +137,11 @@ from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectSto
 from ..state.cache import SchedulerCache
 from ..state.featurize import PodFeaturizer
 from ..state.snapshot import Snapshot
+from ..utils import tracing
 from ..utils.backoff import PodBackoff
 from ..utils.feature_gates import FeatureGates
 from ..utils.metrics import Metrics, bounded_label
+from ..utils.trace import Trace
 from .equivalence import EquivalenceCache, equivalence_class
 from .errors import REASON_KEYS, REASONS, FitError, insufficient_resource_reason
 from .gang import GangDirectory
@@ -121,6 +151,7 @@ from .preemption import (GangGuard, PreemptionResult,
                          preempt, select_victims_on_node)
 from .queue import SchedulingQueue
 from .volume_binder import VolumeBinder
+from .weights import WeightBook, gate_weights
 
 # Max chained waves per device-resident round; rounds are bucketed per
 # power-of-two wave count (a fixed W would make small rounds pay for 128
@@ -133,6 +164,11 @@ PIPELINE_MAX_WAVES_IPA = 64
 # exact victim validations a failed pod gets (its top-ranked nodes)
 PREEMPT_LEVELS = 8
 PREEMPT_HOST_CANDIDATES = 8
+# outcomes of a bind (kubernetes_tpu/sched/reconciler.py:46-49)
+BOUND = "bound"  # the POST succeeded
+CONFIRMED = "confirmed"  # refused, but the store shows the pod bound
+ORPHANED = "orphaned"  # refused, and the store shows it unbound
+GONE = "gone"  # refused, and the pod is gone from the store
 
 
 def pipeline_bucket(n_waves: int, lo: int = 4,
@@ -209,7 +245,9 @@ class Scheduler:
     `device_preemption`. `profile` (default `default_profile(store)`)
     and `features` (default FeatureGates()) are the JAX scheduler's
     arguments of the same names; disable_preemption=True turns
-    preemption off as the profile's switch of the same name does."""
+    preemption off as the profile's switch of the same name does.
+    shadow_exact_interval > 0 replays the first wave of every Nth
+    traced round under each candidate WeightProfile."""
 
     # idle backoff entries are swept on this cadence (2x the backoff
     # ceiling matches the reference Gc()'s retention window)
@@ -220,7 +258,8 @@ class Scheduler:
                  clock=time.monotonic, backoff: Optional[PodBackoff] = None,
                  disable_preemption: bool = False,
                  profile: Optional[Profile] = None,
-                 features: Optional[FeatureGates] = None):
+                 features: Optional[FeatureGates] = None,
+                 shadow_exact_interval: int = 0):
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -232,10 +271,12 @@ class Scheduler:
         self.features = features or FeatureGates()
         self.clock = clock
         self._disable_preemption = disable_preemption
-        # the profile's weights: with no weightprofiles object, the JAX
-        # WeightBook's dispatch view is these gating weights and their
-        # stacked vector
-        self.weights = self.profile.weights()
+        # live and candidate WeightProfiles; with none loaded, its
+        # dispatch view is the profile's weights and their stacked
+        # vector
+        self.weightbook = WeightBook(self.profile.weights())
+        self.shadow_exact_interval = int(shadow_exact_interval)
+        self._shadow_rounds = 0
         # guards cache + snapshot against concurrent informer delivery;
         # RLock: the in-process store delivers bind events re-entrantly
         # on the committing thread
@@ -244,6 +285,12 @@ class Scheduler:
         self.snapshot = Snapshot(caps=caps)
         self.featurizer = PodFeaturizer(self.snapshot, GroupLister(store))
         self.metrics = Metrics()
+        # dispatches are counted into this registry by program and shape
+        # bucket (process-global, as in the JAX package)
+        set_telemetry(self.metrics)
+        # (resources, (zone, resource) pairs) the telemetry gauges last
+        # exported, so a vanished one is removed
+        self._tele_exported = (set(), set())
         self.queue = SchedulingQueue(
             clock=clock,
             pod_priority_enabled=self.features.enabled("PodPriority"))
@@ -290,6 +337,9 @@ class Scheduler:
         # a PodGroup created/updated AFTER its pods may complete a gang
         # that was parked against a higher annotation-derived minMember
         self.store.watch("podgroups", self._on_podgroup_event)
+        # live weight profiles: a promotion to role=live, a demotion or a
+        # delete takes effect on the next round
+        self.store.watch("weightprofiles", self._on_weight_profile_event)
         if self.ecache is not None:
             # targeted invalidation (kubernetes_tpu/sched/scheduler.py:
             # 564-577), under _mu so it never interleaves with a wave's
@@ -305,6 +355,8 @@ class Scheduler:
             self._on_pod_add(pod)
         if self.store.list("podgroups"):
             self.queue.gang_reevaluate()
+        for obj in self.store.list("weightprofiles"):
+            self._on_weight_profile(obj)
 
     def _on_node_event(self, ev: Event) -> None:
         if ev.type == DELETED:
@@ -324,6 +376,40 @@ class Scheduler:
     def _on_podgroup_event(self, ev: Event) -> None:
         if ev.type in (ADDED, MODIFIED):
             self.queue.gang_reevaluate()
+
+    def _on_weight_profile_event(self, ev: Event) -> None:
+        if ev.type == DELETED:
+            self._on_weight_profile_delete(ev.obj)
+        else:
+            self._on_weight_profile(ev.obj)
+
+    def _on_weight_profile(self, obj) -> None:
+        """Add or update one WeightProfile (kubernetes_tpu/sched/
+        scheduler.py:659-675): a bad table is logged and the old one
+        stays in force."""
+        with self._mu:
+            before = self.weightbook.live_version()
+            try:
+                self.weightbook.on_profile(obj)
+            except ValueError as e:
+                logging.getLogger(__name__).error(
+                    "rejecting WeightProfile %s: %s", obj.metadata.name, e)
+                return
+            after = self.weightbook.live_version()
+        if after != before:
+            logging.getLogger(__name__).info(
+                "weight vector hot-swapped: %s -> %s", before, after)
+            tracing.event("weights_swapped", before=before, after=after)
+
+    def _on_weight_profile_delete(self, obj) -> None:
+        with self._mu:
+            before = self.weightbook.live_version()
+            self.weightbook.on_profile_delete(obj)
+            after = self.weightbook.live_version()
+        if after != before:
+            logging.getLogger(__name__).info(
+                "weight vector rolled back: %s -> %s", before, after)
+            tracing.event("weights_swapped", before=before, after=after)
 
     def _on_volume_event(self, ev: Event) -> None:
         with self._mu:
@@ -424,14 +510,34 @@ class Scheduler:
         self._last_path = ("cuda" if taint_ports_masks.launches > launches0
                            else "torch-cpu")
 
-    def _weight_vec(self) -> torch.Tensor:
-        return enc.weight_vec_to_torch(stack_weights(self.weights),
-                                       self.device)
+    def _weights_kw(self):
+        """(gating Weights, f32 [S] live vector, version string) for one
+        round, under one WeightBook lock hold (dispatch_view): the
+        gating Weights pick the planes the loop computes, the vector
+        (on the device, the kernel's weight_vec) supplies the
+        multipliers, and the version is what the round's ledger record
+        and decisions report."""
+        return self.weightbook.dispatch_view(self.profile.weights())
+
+    def _golden_reasons(self, pods: List[api.Pod]) -> Dict[str, int]:
+        """{reason: count} of the pods routed to the exact host path —
+        the pods with no ScoreDeco, the shadow observatory's coverage
+        gap."""
+        counts: Dict[str, int] = {}
+        for p in pods:
+            r = self.featurizer.golden_reason(p)
+            counts[r] = counts.get(r, 0) + 1
+        return counts
 
     # -- metrics (kubernetes_tpu/sched/scheduler.py:851, :1165) -----------------
 
     def _gang_released(self, key: str, waited: float) -> None:
         self.metrics.gang_wait_seconds.observe(waited)
+        rec = tracing.active()
+        if rec is not None:
+            now = rec.now()
+            rec.add_span("gang_wait", now - waited, now, cat="gang",
+                         gang=key, waited_s=round(waited, 6))
 
     def _count_unschedulable(self, err: FitError) -> None:
         """scheduler_unschedulable_reasons_total{predicate}: one increment
@@ -446,6 +552,283 @@ class Scheduler:
                 pred = bounded_label(REASON_KEYS.get(reason, reason),
                                      REASONS)
             self.metrics.unschedulable_reasons.labels(predicate=pred).inc()
+
+    # -- per-round records (kubernetes_tpu/sched/scheduler.py:859-1165) ----------
+
+    def _trace_queue_waits(self, rt, pods: List[api.Pod]) -> None:
+        """Per-pod queue_wait spans (first enqueue -> popped into this
+        round), keyed by UID; added_at survives until bind, so reading it
+        here consumes nothing."""
+        now = self.clock()
+        added_at = self.queue.added_at
+        for p in pods:
+            added = added_at.get(p.uid)
+            if added is not None:
+                rt.pod_span(p.uid, "queue_wait", now - added)
+
+    def _round_snapshot_shape(self) -> Dict[str, int]:
+        c = self.snapshot.caps
+        return {"nodes": int(np.sum(self.snapshot.valid)),
+                "N": c.N, "M": c.M, "E": c.E}
+
+    def _record_decisions(self, rec, pods: List[api.Pod], chosen,
+                          cparts, tidx, tvals, tparts,
+                          committed: Optional[set] = None,
+                          wvec=None, wver: Optional[str] = None):
+        """Consume one fetched ScoreDeco slice ([P, ...] numpy arrays
+        aligned with `pods`), as the JAX scheduler does (:875-982), in
+        f64 numpy rounded to 4 places: a decision entry a committed pod
+        in the recorder, margins into scheduler_score_margin, weighted
+        per-priority contributions into
+        scheduler_score_priority_points_total, the shadow pass over every
+        candidate WeightProfile, and the (scores, shadow) aggregates of
+        the round's ledger record. committed: the uids whose exact
+        recheck and bind succeeded; wvec/wver: the round's weight view
+        (_weights_kw)."""
+        w = wvec if wvec is not None else self.weightbook.live_vector()
+        if wver is None:
+            wver = self.weightbook.live_version()
+        shadow = self.weightbook.score_wave(
+            pods, chosen, self.snapshot.node_names, cparts, tidx, tvals,
+            tparts, committed=committed, metrics=self.metrics)
+        margins: List[float] = []
+        totals: List[float] = []
+        contrib = np.zeros(len(SCORE_STACK), np.float64)
+        names = self.snapshot.node_names
+        placed = 0
+        for i, pod in enumerate(pods):
+            c = int(chosen[i])
+            if c < 0 or c >= len(names):
+                continue
+            if committed is not None and pod.uid not in committed:
+                continue
+            placed += 1
+            total = float(tvals[i][0])  # argmax total == top-1 value
+            totals.append(total)
+            # runner-up: the best-scoring OTHER feasible node (the
+            # chosen node usually holds rank 0; a round-robin tie-break
+            # can place it deeper, so scan)
+            runner = None
+            for j in range(tidx[i].shape[0]):
+                if int(tidx[i][j]) != c and float(tvals[i][j]) >= 0:
+                    runner = j
+                    break
+            margin = (total - float(tvals[i][runner])
+                      if runner is not None else None)
+            if margin is not None:
+                margins.append(margin)
+                self.metrics.score_margin.observe(margin)
+            wparts = w.astype(np.float64) * cparts[i]
+            contrib += wparts
+            parts = {}
+            for s, name in enumerate(SCORE_STACK):
+                parts[name] = {
+                    "weight": float(w[s]),
+                    "chosen": round(float(cparts[i][s]), 4),
+                    "runner_up": (round(float(tparts[i][s][runner]), 4)
+                                  if runner is not None else None)}
+            top = [{"node": names[int(tidx[i][j])],
+                    "total": round(float(tvals[i][j]), 4)}
+                   for j in range(tidx[i].shape[0])
+                   if float(tvals[i][j]) >= 0 and int(tidx[i][j]) < len(names)]
+            rec.record_decision(pod.uid, {
+                "pod": pod.full_name(),
+                "node": names[c],
+                "round": rec.current().rid,
+                "total": round(total, 4),
+                "margin": None if margin is None else round(margin, 4),
+                "runner_up": (names[int(tidx[i][runner])]
+                              if runner is not None else None),
+                "weights_version": wver,
+                "weights": [float(x) for x in w],
+                "parts": parts,
+                "top": top,
+            })
+        if not placed:
+            return None, shadow
+        for s, name in enumerate(SCORE_STACK):
+            if contrib[s]:
+                self.metrics.score_priority_points.labels(
+                    priority=name).inc(float(contrib[s]))
+        out: Dict = {
+            "min": round(min(totals), 4), "max": round(max(totals), 4),
+            "mean": round(sum(totals) / len(totals), 4),
+            "breakdown": {name: round(float(contrib[s]) / placed, 4)
+                          for s, name in enumerate(SCORE_STACK)
+                          if contrib[s]},
+        }
+        if margins:
+            out["margin"] = {
+                "min": round(min(margins), 4),
+                "mean": round(sum(margins) / len(margins), 4),
+                "max": round(max(margins), 4)}
+        return out, shadow
+
+    def _shadow_exact_sample(self, wave_pods, pbt, chosen_row, rr_start,
+                             has_ipa: bool, has_ts: bool, gating, dev_tensors
+                             ) -> Optional[Dict]:
+        """Exact shadow mode (shadow_exact_interval > 0): every Nth
+        traced round replays its FIRST wave under each candidate vector
+        and counts the pods whose node changes
+        (kubernetes_tpu/sched/scheduler.py:984-1021). The JAX scheduler
+        replays through its numpy twin; this one replays through its own
+        `schedule_wave` on the same round's device tensors (`dev_tensors`
+        = nt, pm, tt, and `pbt`, the wave's batch), before any commit
+        changes them, so on the card the plain version stays off the
+        main path. The placements are the twin's: the wave is bit-equal
+        to it. The replay is left out of the dispatch counts, as the
+        twin's is. Costs one wave a candidate and one read of the rr
+        counter a sampled round."""
+        if (self.shadow_exact_interval <= 0
+                or not self.weightbook.has_candidates()):
+            return None
+        self._shadow_rounds += 1
+        if self._shadow_rounds % self.shadow_exact_interval:
+            return None
+        nt, pm, tt = dev_tensors
+        dev = nt.valid.device
+        P = pbt.req.shape[0]
+        extra = torch.ones((P, nt.valid.shape[0]), dtype=torch.bool,
+                           device=dev)
+        rr0 = torch.tensor(0 if rr_start is None else int(rr_start),
+                           dtype=torch.int32, device=dev)
+        n = len(wave_pods)
+        chosen_dev = np.asarray(chosen_row)[:n]
+        out: Dict[str, Dict] = {}
+        for name, vec in self.weightbook.candidate_vectors().items():
+            res = schedule_wave(
+                nt, pm, tt, pbt, extra, rr0, None,
+                weights=gate_weights(gating, vec),
+                num_zones=self.snapshot.caps.Z,
+                num_label_values=self.snapshot.num_label_values,
+                has_ipa=has_ipa, has_ts=has_ts,
+                weight_vec=enc.weight_vec_to_torch(vec, dev), account=False)
+            got = res.chosen.cpu().numpy()[:n]
+            flips = int(np.sum(got != chosen_dev))
+            self.weightbook.record_exact(name, n, flips)
+            out[name] = {"pods": n, "flips": flips}
+        return out or None
+
+    @staticmethod
+    def _merge_exact(shadow: Optional[Dict],
+                     exact_info: Optional[Dict]) -> Optional[Dict]:
+        """Fold a sampled exact-mode result into the round's shadow
+        ledger record (creating profile entries the lower-bound pass
+        produced nothing for)."""
+        if not exact_info:
+            return shadow
+        shadow = shadow or {}
+        for name, ex in exact_info.items():
+            shadow.setdefault(
+                name, {"pods": 0, "flips": 0,
+                       "lower_bound": True})["exact"] = ex
+        return shadow
+
+    def _resource_names(self) -> List[str]:
+        """Column -> resource name for the telemetry exports (core
+        columns by convention, extended ones from the resource vocab)."""
+        names = list(tele.CORE_RESOURCE_NAMES)
+        for c in range(enc.RES_FIXED, self.snapshot.caps.R):
+            try:
+                names.append(self.snapshot.extended.string(
+                    c - enc.RES_FIXED + 1))
+            except Exception:
+                names.append(f"ext{c}")
+        return names
+
+    def _emit_telemetry(self, rt) -> None:
+        """One cluster-state reduction for a traced round (rt is the
+        round trace; callers gate on it, so tracing off costs nothing),
+        as the JAX scheduler's (:1052-1165): ops/telemetry.py on the
+        node tensors' device, one fetch, the gauges refreshed, the
+        round's ledger record extended and its stage marked. There is no
+        CPU stand-in: a failure counts
+        scheduling_errors{stage="telemetry"}, is logged, and the round
+        records no telemetry."""
+        Z = self.snapshot.caps.Z
+        R = self.snapshot.caps.R
+        try:
+            nt, _pm, _tt = self.snapshot.to_device(self.device)
+            packed = tele.cluster_telemetry(nt, num_zones=Z).cpu().numpy()
+        except Exception as e:
+            self.metrics.scheduling_errors.labels(stage="telemetry").inc()
+            logging.getLogger(__name__).error(
+                "cluster telemetry failed; round %s records none", rt.rid,
+                exc_info=e)
+            return
+        self.metrics.device_fetch_bytes.inc(packed.nbytes)
+        backend = "device"
+        ct = tele.ClusterTelemetry(packed, R, Z)
+        res_names = self._resource_names()
+        util = ct.utilization()
+        frag = ct.fragmentation()
+        m = self.metrics
+        seen_res: set = set()
+        for c, name in enumerate(res_names):
+            if not (ct.alloc_total[c] or ct.req_total[c]):
+                continue
+            seen_res.add(name)
+            m.cluster_requested.labels(resource=name).set(
+                float(ct.req_total[c]))
+            m.cluster_allocatable.labels(resource=name).set(
+                float(ct.alloc_total[c]))
+            m.cluster_free_largest.labels(resource=name).set(
+                float(ct.free_max[c]))
+            m.cluster_fragmentation.labels(resource=name).set(
+                float(frag[c]))
+        for k, (sname, _cpu, _mem) in enumerate(tele.CANONICAL_SHAPES):
+            m.feasibility_headroom.labels(shape=sname).set(
+                int(ct.headroom[k]))
+        zones = {}
+        seen_zone: set = set()
+        # zone slot 0 is "no zone key" (the vocab pad) — real zones only
+        for z in range(1, Z):
+            if not np.any(ct.zone_alloc[z]):
+                continue
+            try:
+                zname = self.snapshot.vocabs.zones.string(z)
+            except Exception:
+                zname = str(z)
+            zu = {}
+            for c, name in enumerate(res_names):
+                if ct.zone_alloc[z][c]:
+                    u = float(ct.zone_req[z][c] / ct.zone_alloc[z][c])
+                    zu[name] = round(u, 4)
+                    seen_zone.add((zname, name))
+                    m.zone_utilization.labels(zone=zname,
+                                              resource=name).set(u)
+            zones[zname] = zu
+        # a zone or resource that disappeared must stop exporting, not
+        # freeze at its last value
+        prev_res, prev_zone = self._tele_exported
+        for name in sorted(prev_res - seen_res):
+            for fam in (m.cluster_requested, m.cluster_allocatable,
+                        m.cluster_free_largest, m.cluster_fragmentation):
+                fam.remove(resource=name)
+        for zname, name in sorted(prev_zone - seen_zone):
+            m.zone_utilization.remove(zone=zname, resource=name)
+        self._tele_exported = (seen_res, seen_zone)
+        summary = {
+            "backend": backend,
+            "nodes": ct.nodes_valid,
+            "schedulable": ct.nodes_schedulable,
+            "util": {n: round(float(util[c]), 4)
+                     for c, n in enumerate(res_names)
+                     if ct.alloc_total[c]},
+            "frag": {n: round(float(frag[c]), 4)
+                     for c, n in enumerate(res_names)
+                     if ct.free_total[c]},
+            "headroom": {sname: int(ct.headroom[k])
+                         for k, (sname, _c, _m2) in
+                         enumerate(tele.CANONICAL_SHAPES)},
+            "free_hist": {n: ct.free_hist[c].tolist()
+                          for c, n in enumerate(res_names)
+                          if ct.alloc_total[c]},
+        }
+        if zones:
+            summary["zones"] = zones
+        rt.ledger["telemetry"] = summary
+        rt.mark("telemetry", backend=backend)
 
     # -- the drain (kubernetes_tpu/sched/scheduler.py:1213) ----------------------
 
@@ -518,15 +901,20 @@ class Scheduler:
                 all_pods = [p for p in all_pods
                             if self.gangs.key(p) is None]
                 placed += self._schedule_gangs(gang_pods)
-            # pods the device cannot encode take the exact host path
+            # pods the device cannot encode take the exact host path;
+            # they carry no ScoreDeco, so they are counted by reason as
+            # the round's coverage gap
             host_path = [p for p in all_pods
                          if self.featurizer.needs_host_path(p)]
+            golden = self._golden_reasons(host_path)
             pods = [p for p in all_pods
                     if not self.featurizer.needs_host_path(p)]
             placed += self._schedule_host_batch(host_path, rest=pods)
             if not pods:
+                if golden:
+                    tracing.event("golden_gap", **golden)
                 return placed
-            return placed + self._run_pipeline(pods)
+            return placed + self._run_pipeline(pods, golden=golden)
 
     def warm_pipeline(self, pods: List[api.Pod],
                       n_waves: Optional[int] = None) -> None:
@@ -560,15 +948,20 @@ class Scheduler:
                 pbs_stacked, rows, trows = assemble_round(
                     [pb], [pods], pm_rows, term_rows, wbucket,
                     term_rows.shape[1])
+                gating, wvec, _wver = self._weights_kw()
+                # the variant the measured rounds will run: with tracing
+                # on they carry the decomposition
                 schedule_round(
                     nt, pm, tt,
                     enc.to_torch(None, None, None, pbs_stacked, dev)[3],
                     usage, torch.zeros((), dtype=torch.int32, device=dev),
                     torch.from_numpy(rows).to(dev),
                     torch.from_numpy(trows).to(dev),
-                    weights=self.weights, num_zones=self.snapshot.caps.Z,
+                    weights=gating, num_zones=self.snapshot.caps.Z,
                     num_label_values=self.snapshot.num_label_values,
-                    has_ipa=has_ipa, weight_vec=self._weight_vec())
+                    has_ipa=has_ipa,
+                    collect_scores=tracing.active() is not None,
+                    weight_vec=enc.weight_vec_to_torch(wvec, dev))
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             finally:
@@ -577,10 +970,13 @@ class Scheduler:
 
     # -- the round -------------------------------------------------------------
 
-    def _run_pipeline(self, pods: List[api.Pod]) -> int:
+    def _run_pipeline(self, pods: List[api.Pod],
+                      golden: Optional[Dict[str, int]] = None) -> int:
         """One device-resident round over `pods` (queue order); the pods
         it leaves unplaced go to batched preemption, and those it does
-        not handle back to the queue. Returns pods placed."""
+        not handle back to the queue. golden: the pass's host-path pods
+        by reason, ledgered with a traced round. Returns pods placed."""
+        trace = Trace(f"pipeline of {len(pods)}", clock=self.clock)
         start = self.clock()
         W = self.wave_size
         # ipa anywhere in the backlog (or already placed) caps the round
@@ -596,6 +992,17 @@ class Scheduler:
             for p in pods[keep:]:
                 self.queue.add_if_not_present(p)
             pods, waves = pods[:keep], waves[:max_waves]
+        # ONE weight view a round: dispatch, decisions and the ledger's
+        # weights_version all come from it
+        gating, wvec, wver = self._weights_kw()
+        rec = tracing.active()
+        rt = None
+        if rec is not None:
+            rt = rec.begin_round("pipeline", pending=len(pods),
+                                 waves=len(waves), weights_version=wver)
+            self._trace_queue_waits(rt, pods)
+            if golden:
+                rt.ledger["golden"] = golden
         # pass 1 grows every vocab/cap to its final size; when it grew,
         # pass 2 re-emits every batch at the uniform final shapes
         sig0 = (self.featurizer.vocabs.version(),
@@ -614,11 +1021,21 @@ class Scheduler:
                 # (kubernetes_tpu/sched/scheduler.py:1670-1682)
                 for p in pods:
                     self.queue.add_if_not_present(p)
+                if rt is not None:
+                    rec.end_round(rt, outcome="host_fallback")
                 return 0
         pm_rows_all, term_rows_all = self.snapshot.stage_pending(pods)
         tpp = term_rows_all.shape[1]
+        trace.step("featurized+staged")
+        if rt is not None:
+            rt.mark("featurize", pods=len(pods))
+            up0 = self.snapshot.upload_bytes_total
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
+        trace.step("uploaded")
+        if rt is not None:
+            rt.mark("upload", cat="device",
+                    bytes=self.snapshot.upload_bytes_total - up0, shards=1)
         usage = (nt.requested, nt.nonzero, nt.pod_count)
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
@@ -634,15 +1051,35 @@ class Scheduler:
         pm_rows_t = torch.from_numpy(pm_rows).to(dev)
         term_rows_t = torch.from_numpy(term_rows).to(dev)
         launches0 = taint_ports_masks.launches
-        chosen_d, _fail, _usage_end, rr_end, _deco, fin_d = schedule_round(
+        # the decomposition rides along exactly when tracing
+        chosen_d, _fail, _usage_end, rr_end, deco_d, fin_d = schedule_round(
             nt, pm, tt, pbs_t, usage, self._rr, pm_rows_t, term_rows_t,
-            weights=self.weights, num_zones=self.snapshot.caps.Z,
+            weights=gating, num_zones=self.snapshot.caps.Z,
             num_label_values=self.snapshot.num_label_values,
-            has_ipa=has_ipa, weight_vec=self._weight_vec())
-        # the round's one fetch: chosen and the sentinel together
+            has_ipa=has_ipa, collect_scores=rt is not None,
+            weight_vec=enc.weight_vec_to_torch(wvec, dev))
+        trace.step("dispatched")
+        self._note_path(launches0)
+        if rt is not None:
+            # a traced round waits for the card here, so that its
+            # device_wave span holds the device time
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            rt.mark("device_wave", cat="device", waves=len(waves),
+                    path=self.wave_path())
+        # the round's one fetch: chosen and the sentinel together (and
+        # the decomposition planes when tracing)
         chosen_all = chosen_d.cpu().numpy()
         fin_all = fin_d.cpu().numpy()
-        self._note_path(launches0)
+        fetched = chosen_all.nbytes + fin_all.nbytes
+        deco_all = None
+        if deco_d is not None:
+            deco_all = tuple(a.cpu().numpy() for a in deco_d)
+            fetched += sum(a.nbytes for a in deco_all)
+        self.metrics.device_fetch_bytes.inc(fetched)
+        trace.step("fetched")
+        if rt is not None:
+            rt.mark("fetch", cat="device", bytes=int(fetched))
         bad = [wv_pods[i].uid for wi, wv_pods in enumerate(waves)
                for i in range(len(wv_pods)) if not fin_all[wi, i]]
         if bad:
@@ -651,10 +1088,21 @@ class Scheduler:
             for p in pods:
                 self.snapshot.unstage(p)
                 self.queue.add_if_not_present(p)
+            if rt is not None:
+                rec.end_round(rt, outcome="input_fault", poison=len(bad))
             raise FloatingPointError(
                 f"numeric-integrity sentinel flagged pods {bad}")
+        # exact shadow sampling runs BEFORE any commit changes the
+        # snapshot: the replay must see the state the round scored
+        exact_info = None
+        if rt is not None:
+            exact_info = self._shadow_exact_sample(
+                waves[0], enc.PodBatch(*[a[0] for a in pbs_t]),
+                chosen_all[0], self._rr, has_ipa,
+                bool(pbs[0].ts_valid.any()), gating, (nt, pm, tt))
         self._rr = rr_end
         placed = 0
+        committed: set = set()
         retry: List[api.Pod] = []
         for wi, wv_pods in enumerate(waves):
             for i, pod in enumerate(wv_pods):
@@ -664,18 +1112,44 @@ class Scheduler:
                     node_name = self.snapshot.node_names[node_idx]
                     if self._commit(pod, node_name):
                         placed += 1
+                        committed.add(pod.uid)
                         continue
                 # rejected by the exact recheck, or failed on the device:
                 # batched preemption handles resource-starved failures;
                 # everything else goes back through the queue
                 self.snapshot.unstage(pod)
                 retry.append(pod)
+        if rt is not None:
+            rt.mark("commit", placed=placed)
         handled = self._pipeline_preempt(retry) if retry else set()
         for pod in retry:
             if pod.uid not in handled:
                 self.queue.add_if_not_present(pod)
+        trace.step("committed")
         self.metrics.e2e_scheduling_latency.observe(self.clock() - start)
         self.metrics.waves_total.labels(path="device").inc(len(waves))
+        if rt is not None:
+            if retry:
+                rt.mark("preempt", candidates=len(retry),
+                        handled=len(handled))
+            # the [W, P, ...] planes flattened to the real pods (pad
+            # waves and pad rows carry none)
+            sel = [(wi, i) for wi, wv in enumerate(waves)
+                   for i in range(len(wv))]
+            wi_idx = np.asarray([x[0] for x in sel], np.int64)
+            i_idx = np.asarray([x[1] for x in sel], np.int64)
+            scores, shadow = self._record_decisions(
+                rec, pods, chosen_all[wi_idx, i_idx],
+                *(a[wi_idx, i_idx] for a in deco_all),
+                committed=committed, wvec=wvec, wver=wver)
+            shadow = self._merge_exact(shadow, exact_info)
+            self._emit_telemetry(rt)
+            rec.end_round(
+                rt, outcome="ok", placed=placed, retried=len(retry),
+                preempted=len(handled), scores=scores, shadow=shadow,
+                path=self.wave_path(),
+                snapshot=self._round_snapshot_shape(), breaker="closed")
+        trace.log_if_long(0.5)
         return placed
 
     # -- batched preemption (kubernetes_tpu/sched/scheduler.py:1965) -----------
@@ -750,13 +1224,16 @@ class Scheduler:
                        claimed: Dict[str, List[api.Pod]],
                        exhausted: Dict[str, int]) -> set:
         t0 = self.clock()
+        trace = Trace(f"preempt chunk of {len(cands)}", clock=self.clock)
         packed, guard = self._whatif(cands)
+        trace.step("what-if")
         if packed is None:
             return set()
         st = PreemptStats(packed)
         ok, victims_n = st.ok, st.victims
         psum, pmax = st.prio_sum, st.prio_max
         gviol = st.gang_viol
+        trace.step("fetched")
         pdbs = self._pdbs()
         handled: set = set()
         # `claimed` = capacity claimed by earlier pods in this batch (the
@@ -818,6 +1295,12 @@ class Scheduler:
                     # specific (PDB, affinity) — don't block other pods
                     exhausted[name] = len(claimed[name])
             chosen = pick_one_node(validated)
+            rec = tracing.active()
+            if rec is not None:
+                rec.event("preempt_whatif", pod=pod.uid,
+                          device_candidates=int(cand_nodes.size),
+                          validated=len(validated),
+                          chosen=chosen or "")
             if chosen is None:
                 continue
             victims, nviol = validated[chosen]
@@ -833,6 +1316,8 @@ class Scheduler:
             self._park_with_backoff(pod)
             self.pipeline_preemptions += 1
             handled.add(pod.uid)
+        trace.step("validated+performed")
+        trace.log_if_long(0.5)
         self.metrics.preemption_evaluation.observe(self.clock() - t0)
         return handled
 
@@ -851,17 +1336,38 @@ class Scheduler:
         # pods whose required pod-(anti)affinity spans more than one
         # topology key take the exact host path
         host_path = [p for p in pods if self.featurizer.needs_host_path(p)]
+        golden = self._golden_reasons(host_path)
         pods = [p for p in pods if not self.featurizer.needs_host_path(p)]
         placed_gang += self._schedule_host_batch(host_path, rest=pods)
         if not pods:
+            if golden:
+                tracing.event("golden_gap", **golden)
             return placed_gang
+        trace = Trace(f"wave of {len(pods)}", clock=self.clock)
         start = self.clock()
+        # ONE weight view a round (see _run_pipeline)
+        gating, wvec, wver = self._weights_kw()
+        rec = tracing.active()
+        rt = None
+        if rec is not None:
+            rt = rec.begin_round("wave", pending=len(pods),
+                                 weights_version=wver)
+            self._trace_queue_waits(rt, pods)
+            if golden:
+                rt.ledger["golden"] = golden
         pb = self.featurizer.featurize(pods)
         P = pb.req.shape[0]
         extra = self._host_plugin_mask(pods, P)
         extra_scores = self._host_score_matrix(pods, P)
+        trace.step("featurized")
+        if rt is not None:
+            rt.mark("featurize", pods=len(pods))
+            up0 = self.snapshot.upload_bytes_total
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
+        if rt is not None:
+            rt.mark("upload", cat="device",
+                    bytes=self.snapshot.upload_bytes_total - up0)
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
@@ -872,13 +1378,15 @@ class Scheduler:
         if extra_scores is not None:
             extra_scores = torch.from_numpy(extra_scores).to(dev)
         launches0 = taint_ports_masks.launches
+        # the decomposition rides along exactly when tracing
         res = schedule_wave(nt, pm, tt, pbt, extra, self._rr, extra_scores,
-                            weights=self.weights,
+                            weights=gating,
                             num_zones=self.snapshot.caps.Z,
                             num_label_values=self.snapshot.num_label_values,
                             has_ipa=has_ipa,
                             has_ts=bool(pb.ts_valid.any()),
-                            weight_vec=self._weight_vec())
+                            collect_scores=rt is not None,
+                            weight_vec=enc.weight_vec_to_torch(wvec, dev))
         chosen = res.chosen.cpu().numpy()
         fin = res.finite.cpu().numpy()
         self._note_path(launches0)
@@ -886,10 +1394,24 @@ class Scheduler:
         if bad:
             for p in pods:
                 self.queue.add_if_not_present(p)
+            if rt is not None:
+                rec.end_round(rt, outcome="input_fault", poison=len(bad))
             raise FloatingPointError(
                 f"numeric-integrity sentinel flagged pods {bad}")
         self._rr = res.rr_end
+        if rt is not None:
+            rt.mark("device_wave", cat="device", path=self.wave_path())
+        fetched = chosen.nbytes + fin.nbytes
+        deco = None
+        if res.deco is not None:
+            deco = tuple(a.cpu().numpy() for a in res.deco)
+            fetched += sum(a.nbytes for a in deco)
+        self.metrics.device_fetch_bytes.inc(fetched)
+        trace.step("device wave")
+        if rt is not None:
+            rt.mark("fetch", cat="device", bytes=int(fetched))
         placed = 0
+        committed: set = set()
         fail_counts = masks = None
         for i, pod in enumerate(pods):
             self.metrics.schedule_attempts.inc()
@@ -898,6 +1420,7 @@ class Scheduler:
                 node_name = self.snapshot.node_names[node_idx]
                 if self._commit(pod, node_name):
                     placed += 1
+                    committed.add(pod.uid)
                     continue
                 # exact recheck lost a race with device f32 arithmetic:
                 # retry next wave without counting it unschedulable
@@ -907,8 +1430,32 @@ class Scheduler:
                 fail_counts = res.fail_counts.cpu().numpy()
                 masks = res.masks.cpu().numpy()
             self._handle_failure(pod, i, fail_counts, masks)
+        trace.step("committed")
         self.metrics.e2e_scheduling_latency.observe(self.clock() - start)
         self.metrics.waves_total.labels(path="device").inc()
+        if rt is not None:
+            rt.mark("commit", placed=placed)
+            scores = shadow = None
+            if deco is not None:
+                scores, shadow = self._record_decisions(
+                    rec, pods, chosen, *deco, committed=committed,
+                    wvec=wvec, wver=wver)
+            if scores is None and committed:
+                # a summary over the placements that committed only
+                sc = res.score.cpu().numpy()
+                won = sc[[i for i, p in enumerate(pods)
+                          if p.uid in committed]]
+                scores = ({"min": round(float(won.min()), 4),
+                           "max": round(float(won.max()), 4),
+                           "mean": round(float(won.mean()), 4)}
+                          if won.size else None)
+            self._emit_telemetry(rt)
+            rec.end_round(
+                rt, outcome="ok", placed=placed,
+                failed=len(pods) - placed, path=self.wave_path(),
+                scores=scores, shadow=shadow,
+                snapshot=self._round_snapshot_shape(), breaker="closed")
+        trace.log_if_long(0.1)
         return placed + placed_gang
 
     # -- the exact host path (kubernetes_tpu/sched/scheduler.py:3334) -------------
@@ -950,9 +1497,21 @@ class Scheduler:
         its predicates and the profile's host filters on every node, host
         preemption when none fits, else the golden scores plus the
         profile's host scores and a commit on the first best node.
-        Returns 1 if it placed the pod."""
+        Returns 1 if it placed the pod. Traced as a `host_wave` span of
+        backend "golden"."""
         self.metrics.schedule_attempts.inc()
         self.metrics.waves_total.labels(path="host").inc()
+        rec = tracing.active()
+        if rec is None:
+            return self._host_path_inner(pod, view)
+        t0 = rec.now()
+        try:
+            return self._host_path_inner(pod, view)
+        finally:
+            rec.add_span("host_wave", t0, rec.now(), cat="host",
+                         pod=pod.uid, backend="golden")
+
+    def _host_path_inner(self, pod: api.Pod, view) -> int:
         feasible: List[str] = []
         reasons: Dict[str, int] = {}
         failed: Dict[str, List[str]] = {}
@@ -995,13 +1554,14 @@ class Scheduler:
             self.store.set_pod_condition(
                 pod, ("PodScheduled", "False:" + err.message()))
             return 0
-        # score: the golden interpod priority at the live interpod weight,
-        # plus least-requested and balanced allocation at weight 1 and the
+        # score: the golden interpod priority at the LIVE vector's interpod
+        # weight (a hot-swapped profile reaches these pods too), plus
+        # least-requested and balanced allocation at weight 1 and the
         # profile's weighted host scores; the first best node wins
-        w_interpod = float(stack_weights(self.weights)[W_INTERPOD])
+        w_interpod = float(self.weightbook.live_vector()[W_INTERPOD])
         ipa_scores = golden.interpod_affinity_priority(
             pod, [self.cache.node_infos[n] for n in feasible], view,
-            hard_weight=int(self.weights.hard_pod_affinity))
+            hard_weight=int(self.profile.weights().hard_pod_affinity))
         host_scores: Dict[str, float] = {}
         for fn, weight in self.profile.host_scores.values():
             for node, s in fn(pod, self.cache.node_infos).items():
@@ -1111,13 +1671,30 @@ class Scheduler:
             groups.setdefault(self.gangs.key(p), []).append(p)
         placed = 0
         for key, members in groups.items():
-            self.metrics.gang_schedule_attempts.inc()
-            self.metrics.schedule_attempts.inc(len(members))
-            placed += self._schedule_one_gang_inner(key, members)
+            placed += self._schedule_one_gang(key, members)
         return placed
 
-    def _schedule_one_gang_inner(self, key: str,
-                                 members: List[api.Pod]) -> int:
+    def _schedule_one_gang(self, key: str, members: List[api.Pod]) -> int:
+        """One gang's dispatch, traced as a round of kind "gang"
+        (kubernetes_tpu/sched/scheduler.py:3552-3570)."""
+        self.metrics.gang_schedule_attempts.inc()
+        self.metrics.schedule_attempts.inc(len(members))
+        rec = tracing.active()
+        rt = None
+        if rec is not None:
+            rt = rec.begin_round("gang", pending=len(members), gang=key,
+                                 weights_version=self.weightbook
+                                 .live_version())
+            self._trace_queue_waits(rt, members)
+        try:
+            return self._schedule_one_gang_inner(key, members, rt)
+        finally:
+            if rt is not None and rt.t1 is None:
+                rec.end_round(rt, snapshot=self._round_snapshot_shape(),
+                              breaker="closed")
+
+    def _schedule_one_gang_inner(self, key: str, members: List[api.Pod],
+                                 rt=None) -> int:
         min_member = self.gangs.min_member(members[0])
         bound = self.gangs.bound_count(self.cache, key,
                                        exclude={p.uid for p in members})
@@ -1137,12 +1714,17 @@ class Scheduler:
         P = pb.req.shape[0]
         extra = self._host_plugin_mask(members, P)
         extra_scores = self._host_score_matrix(members, P)
+        if rt is not None:
+            rt.mark("featurize", pods=len(members))
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
+        if rt is not None:
+            rt.mark("upload", cat="device")
         if self._rr is None:
             self._rr = torch.zeros((), dtype=torch.int32, device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
                        or pb.rn_has.any() or (pb.pa_w != 0).any())
+        gating, wvec, _wver = self._weights_kw()
         pbt = enc.to_torch(None, None, None, pb, dev)[3]
         # the host inputs go up in one copy each; a failed copy raises
         extra = torch.from_numpy(extra).to(dev)
@@ -1152,9 +1734,9 @@ class Scheduler:
         res = schedule_gang(
             nt, pm, tt, pbt, extra, self._rr, extra_scores,
             torch.tensor(need, dtype=torch.int32, device=dev),
-            weights=self.weights, num_zones=self.snapshot.caps.Z,
+            weights=gating, num_zones=self.snapshot.caps.Z,
             num_label_values=self.snapshot.num_label_values,
-            has_ipa=has_ipa, weight_vec=self._weight_vec(),
+            has_ipa=has_ipa, weight_vec=enc.weight_vec_to_torch(wvec, dev),
             ts_valid_host=pb.ts_valid)
         # the dispatch's one fetch: chosen, ok, placed and finite together
         head = torch.cat([res.chosen, res.ok.to(torch.int32).reshape(1),
@@ -1165,13 +1747,23 @@ class Scheduler:
         fin = head[G + 2:] != 0
         self._note_path(launches0)
         self.metrics.waves_total.labels(path="device").inc()
+        if rt is not None:
+            rt.mark("device_wave", cat="device", path=self.wave_path())
+        # counted as the JAX scheduler counts its fetch of chosen (i32)
+        # and finite (bool)
+        self.metrics.device_fetch_bytes.inc(G * (4 + 1))
         bad = [members[i].uid for i in range(len(members)) if not fin[i]]
         if bad:
             for p in members:
                 self.queue.add_if_not_present(p)
+            if rt is not None:
+                rt.ledger["outcome"] = "input_fault"
             raise FloatingPointError(
                 f"numeric-integrity sentinel flagged gang pods {bad}")
         if not ok:
+            if rt is not None:
+                rt.ledger.update(outcome="gang_unplaceable",
+                                 path=self.wave_path())
             self._fail_gang(key, members, need, res, n_placed)
             return placed
         self._rr = res.rr_end
@@ -1188,8 +1780,14 @@ class Scheduler:
             # arithmetic: retry the whole gang, not unschedulable
             for pod in members:
                 self.queue.add_if_not_present(pod)
+            if rt is not None:
+                rt.ledger["outcome"] = "recheck_race"
             return placed
         self.backoff.clear("gang:" + key)
+        if rt is not None:
+            rt.mark("commit", placed=len(pairs))
+            rt.ledger.update(outcome="ok", placed=len(pairs),
+                             path=self.wave_path())
         # surplus members beyond minMember that didn't fit park
         # individually with normal per-pod attribution
         if leftover:
@@ -1207,6 +1805,7 @@ class Scheduler:
         so a higher-priority gang can evict its way in."""
         n_nodes = int(np.sum(self.snapshot.valid))
         short = max(need - n_placed, 1)
+        tracing.event("gang_failed", gang=key, need=need, short=short)
         err = FitError(key, n_nodes, {REASONS["Gang"]: short})
         # park FIRST: the preemption below emits store events (nominated-
         # node writes, victim deletes) whose queue.update would re-add a
@@ -1408,6 +2007,9 @@ class Scheduler:
         its minMember, the gang's REMAINING members are evicted too
         (cluster-wide): a sub-minMember gang holds capacity while doing
         no useful work."""
+        tracing.event("preemption", pod=pod.uid, node=pr.node_name,
+                      victims=len(pr.victims),
+                      pdb_violations=pr.num_pdb_violations)
         pod.status.nominated_node_name = pr.node_name
         self.store.set_nominated_node(pod, pr.node_name)
         self.queue.update_nominated_pod(pod, pr.node_name)
@@ -1474,26 +2076,66 @@ class Scheduler:
 
     def _bind(self, pod: api.Pod, bound: api.Pod, node_name: str,
               vol_rollback=None) -> bool:
-        """The bind POST and the cache's confirmation. A bind the store
-        refuses rolls the assumption and the pod's claim bindings back
-        (kubernetes_tpu/sched/scheduler.py:4066-4088); the store's own
-        event then tells the cache the truth. If the store still holds
-        the pod unbound, the pod parks with backoff, as the JAX
-        reconciler's ORPHANED outcome does. A bind that lands observes
-        the pod's latency from its first enqueue (the queue's added_at,
-        consumed only here, so a failed bind's requeue keeps the
-        original time)."""
+        """The bind POST and its outcome (kubernetes_tpu/sched/
+        scheduler.py:4011-4103). A bind the store refuses (KeyError,
+        Conflict) is resolved against the store's copy of the pod, as the
+        JAX reconciler resolves it after its retries:
+
+          * CONFIRMED — the pod is bound there (another writer bound it
+            first): the cache adopts that truth, the snapshot row moves
+            to the node truth names, and the claims bound for our node
+            are released if they cannot serve it; no requeue, no park;
+          * ORPHANED — it is unbound: the assumption and the pod's claim
+            bindings roll back and the pod parks with backoff;
+          * GONE — it was deleted: the assumption rolls back.
+
+        A bind that lands (or is confirmed) observes the pod's latency
+        from its first enqueue (the queue's added_at, consumed only
+        here, so a failed bind's requeue keeps the original time).
+        Traced as a `bind` pod span, and a `bind_resolution` event for
+        every outcome but BOUND."""
         t0 = self.clock()
+        outcome, truth = BOUND, None
         try:
             self.store.bind(pod, node_name)
         except (KeyError, Conflict):
+            truth = self.store.get("pods", pod.namespace, pod.metadata.name)
+            outcome = (GONE if truth is None else
+                       CONFIRMED if truth.spec.node_name else ORPHANED)
+        rec = tracing.active()
+        if rec is not None:
+            rec.pod_span(pod.uid, "bind", self.clock() - t0,
+                         node=node_name, outcome=outcome)
+            if outcome != BOUND:
+                rec.event("bind_resolution", pod=pod.uid, outcome=outcome,
+                          node=node_name)
+        if outcome == CONFIRMED:
+            # adopt truth instead of rolling back: add_pod confirms the
+            # assumption (and moves it if truth names another node)
+            self.cache.add_pod(truth)
+            if truth.spec.node_name != node_name:
+                # the row written at assume time still charges our node
+                self.snapshot.remove_pod(bound)
+                ni = self.cache.node_infos.get(node_name)
+                if ni is not None:
+                    self.snapshot.refresh_node_resources(ni)
+                nb = self.cache.node_infos.get(truth.spec.node_name)
+                if nb is not None:
+                    self.snapshot.refresh_node_resources(nb)
+                    self.snapshot.add_pod(truth)
+                if vol_rollback is not None and \
+                        not self.volume_binder.volumes_admit_node(
+                            pod, nb.node if nb is not None else None):
+                    # the claims were bound for the node we assumed
+                    vol_rollback()
+        elif outcome in (ORPHANED, GONE):
             self.metrics.scheduling_errors.labels(stage="bind").inc()
-            if self.cache.is_assumed(bound):
-                self._forget(bound, node_name)
+            if not self.cache.is_assumed(bound):
+                return True  # confirmed by the informer: the bind landed
+            self._forget(bound, node_name)
             if vol_rollback is not None:
                 vol_rollback()
-            truth = self.store.get("pods", pod.namespace, pod.metadata.name)
-            if truth is not None and not truth.spec.node_name:
+            if outcome == ORPHANED:
                 self._park_with_backoff(truth)
             return False
         self.cache.finish_binding(bound)

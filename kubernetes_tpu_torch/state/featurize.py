@@ -382,6 +382,13 @@ class PodFeaturizer:
                 return True
         return False
 
+    def golden_reason(self, pod: api.Pod) -> str:
+        """Why a pod bypasses the batched round for the exact host path
+        (kubernetes_tpu/state/featurize.py:455): 'multi_tk' — required
+        (anti)affinity over several topology keys; 'affinity' for any
+        other pod a caller classifies."""
+        return "multi_tk" if self.needs_host_path(pod) else "affinity"
+
     def _ns_set(self, pod: api.Pod, terms) -> List[int]:
         """Intersection of the terms' namespace sets (each term: explicit
         list, or the pod's own namespace) as interned ids."""

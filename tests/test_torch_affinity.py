@@ -270,8 +270,9 @@ def test_rounds_over_the_ipa_wave_cap_split_identically(monkeypatch):
                              disable_preemption=True)
     rounds = []
     run = sched._run_pipeline
-    monkeypatch.setattr(sched, "_run_pipeline",
-                        lambda pods: (rounds.append(len(pods)), run(pods))[1])
+    monkeypatch.setattr(
+        sched, "_run_pipeline",
+        lambda pods, **kw: (rounds.append(len(pods)), run(pods, **kw))[1])
     sched.schedule_pending()
     assert bindings(store) == want
     assert len(rounds) > 1 and rounds[0] == 300

@@ -2,10 +2,12 @@
 kernel against its plain PyTorch version, the what-if kernel against its
 plain version run on a CPU copy of the same inputs (on the card the
 plain version's index_add_ sums by atomics, in no fixed order), the gang
-dispatch on the card against the CPU, and the scheduler on the card
-against the same scheduler on the CPU (with inter-pod affinity, topology
-spread, gangs and preemption too). Every test is marked `cuda` and
-skips without a card (the kernels have no CPU mode).
+dispatch on the card against the CPU, the score decomposition and the
+cluster telemetry on the card against the CPU, and the scheduler on the
+card against the same scheduler on the CPU (with inter-pod affinity,
+topology spread, gangs and preemption too; traced, its ledger rows and
+decisions too). Every test is marked `cuda` and skips without a card
+(the kernels have no CPU mode).
 
 This file imports neither JAX nor kubernetes_tpu, so it also runs where
 only the port's dependencies are installed:
@@ -21,12 +23,14 @@ from kubernetes_tpu_torch.ops import gang as tgang
 from kubernetes_tpu_torch.ops import kernel as tk
 from kubernetes_tpu_torch.ops import preempt as tpre
 from kubernetes_tpu_torch.ops import taint_ports as ttp
+from kubernetes_tpu_torch.ops import telemetry as ttele
 from kubernetes_tpu_torch.runtime.store import ObjectStore
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
+from kubernetes_tpu_torch.utils import tracing
 
-from torch_worlds import (FakeClock, bindings, ipa_store_world, op_world,
-                          plain_node, plain_pod, spread_store_world,
-                          store_world)
+from torch_worlds import (FakeClock, bindings, ipa_store_world, ipa_world,
+                          op_world, plain_node, plain_pod,
+                          spread_store_world, store_world)
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +220,79 @@ def test_gang_and_preemption_drain_on_card_matches_cpu(cuda):
                        sched.metrics.pod_preemption_victims.value)
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][1] > 0 and got["cuda"][1] % 4 == 0
+
+
+def _planes(x):
+    """A tuple of tensors (or one) on the CPU, f32 as int32 bit patterns."""
+    ts = x if isinstance(x, tuple) else (x,)
+    return [t.cpu().view(torch.int32) if t.dtype == torch.float32
+            else t.cpu() for t in ts]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_score_decomposition_on_card_matches_cpu(cuda, seed):
+    """The wave's and the round's ScoreDeco on the card equal the CPU's,
+    bit for bit, with inter-pod affinity and spread in play."""
+    snap, pb, _ = ipa_world("kubernetes_tpu_torch", seed)
+    nt, pm, tt = snap.host_tensors()
+    P, N = pb.req.shape[0], nt.valid.shape[0]
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ntt, pmt, ttt, pbt = tenc.to_torch(nt, pm, tt, pb, dev)
+        res = tk.schedule_wave(
+            ntt, pmt, ttt, pbt, torch.ones((P, N), dtype=torch.bool,
+                                           device=dev),
+            torch.tensor(3, dtype=torch.int32, device=dev),
+            weights=tk.Weights(), num_zones=snap.caps.Z,
+            num_label_values=snap.num_label_values, has_ipa=True,
+            collect_scores=True)
+        got[dev.type] = (_planes((res.chosen, res.score, res.finite))
+                         + _planes(tuple(res.deco)))
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_telemetry_on_card_matches_cpu(cuda, seed):
+    snap, _, _ = ipa_world("kubernetes_tpu_torch", seed, featurize=False)
+    nt = snap.node_tensors()
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        ntt = tenc.to_torch(nt, None, None, None, dev)[0]
+        got[dev.type] = ttele.cluster_telemetry(
+            ntt, num_zones=snap.caps.Z).cpu().view(torch.int32)
+    assert torch.equal(got["cuda"], got["cpu"])
+
+
+def test_traced_scheduler_on_card_matches_cpu(cuda, tmp_path):
+    """A traced drain with a candidate profile and the exact shadow
+    sample: the ledger rows (less timings and path), the decisions, the
+    shadow report and the telemetry gauges on the card equal the CPU's."""
+    from kubernetes_tpu_torch.api import types as api
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        tracing.disable()
+        rec = tracing.enable()
+        try:
+            store, _ = store_world("kubernetes_tpu_torch", 0, 64, 600)
+            store.create("weightprofiles", api.WeightProfile(
+                metadata=api.ObjectMeta(name="packer"),
+                spec=api.WeightProfileSpec(
+                    weights={"MostRequested": 1.0})))
+            clock = FakeClock()
+            sched = Scheduler(store, device=device, clock=clock,
+                              shadow_exact_interval=1)
+            sched.schedule_pending()
+            rows = [{k: v for k, v in r.items()
+                     if k not in ("ts", "wall_s", "spans", "path")}
+                    for r in rec.ledger_rows()]
+            got[device] = (bindings(store), rows, dict(rec.decisions),
+                           sched.weightbook.report("packer"),
+                           sched.metrics.scheduling_errors.value(
+                               stage="telemetry"))
+        finally:
+            tracing.disable()
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][4] == 0
+    assert any("telemetry" in r for r in got["cuda"][1])

@@ -117,23 +117,33 @@ def test_stage_placements_drops_pad_entries():
 
 @pytest.mark.parametrize("flag", ["collect_scores"])
 def test_later_slice_flags_raise(flag):
+    """collect_scores, which raised NotImplementedError until the score
+    decomposition was ported, now raises nothing: on the op_world round
+    and its first wave it returns the ScoreDeco planes the JAX package
+    returns, bit-equal (tests/test_torch_deco.py covers the worlds)."""
     snap, (nt, pm, tt, pbs, rows, trows) = round_inputs(
         0, (4,), world=op_world, caps=None)
     ntt, pmt, ttt, pbst = tenc.to_torch(nt, pm, tt, pbs, "cpu")
     zl = dict(num_zones=snap.caps.Z, num_label_values=snap.num_label_values)
-    with pytest.raises(NotImplementedError, match=flag):
-        tk.schedule_round(ntt, pmt, ttt, pbst,
-                          (ntt.requested, ntt.nonzero, ntt.pod_count),
-                          torch.tensor(0, dtype=torch.int32),
-                          torch.from_numpy(rows), torch.from_numpy(trows),
-                          weights=tk.Weights(), **{flag: True}, **zl)
+    got = tk.schedule_round(ntt, pmt, ttt, pbst,
+                            (ntt.requested, ntt.nonzero, ntt.pod_count),
+                            torch.tensor(0, dtype=torch.int32),
+                            torch.from_numpy(rows), torch.from_numpy(trows),
+                            weights=tk.Weights(), **{flag: True}, **zl)
+    want = jk.schedule_round(nt, pm, tt, pbs,
+                             (nt.requested, nt.nonzero, nt.pod_count),
+                             np.int32(0), rows, trows, weights=jk.Weights(),
+                             **{flag: True}, **zl)
+    for name, a, b in zip(want[4]._fields, want[4], got[4]):
+        eq(a, b, f"round {name}")
     pb0 = tenc.PodBatch(*[a[0] for a in pbst])
     P, N = pb0.req.shape[0], ntt.valid.shape[0]
-    with pytest.raises(NotImplementedError, match=flag):
-        tk.schedule_wave(ntt, pmt, ttt, pb0,
-                         torch.ones((P, N), dtype=torch.bool),
-                         torch.tensor(0, dtype=torch.int32),
-                         weights=tk.Weights(), **{flag: True}, **zl)
+    wave = tk.schedule_wave(ntt, pmt, ttt, pb0,
+                            torch.ones((P, N), dtype=torch.bool),
+                            torch.tensor(0, dtype=torch.int32),
+                            weights=tk.Weights(), **{flag: True}, **zl)
+    for name, a, b in zip(want[4]._fields, want[4], wave.deco):
+        eq(np.asarray(a)[0], b, f"wave {name}")
 
 
 def test_round_helpers_match_the_reference():

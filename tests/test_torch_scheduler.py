@@ -73,8 +73,9 @@ def test_rounds_split_long_backlogs_identically(monkeypatch):
                       disable_preemption=True)
     rounds = []
     run = sched._run_pipeline
-    monkeypatch.setattr(sched, "_run_pipeline",
-                        lambda pods: (rounds.append(len(pods)), run(pods))[1])
+    monkeypatch.setattr(
+        sched, "_run_pipeline",
+        lambda pods, **kw: (rounds.append(len(pods)), run(pods, **kw))[1])
     sched.schedule_pending()
     assert bindings(store_t) == want
     assert len(rounds) > 3 and rounds[0] == 300
@@ -207,7 +208,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "kubernetes_tpu_torch.plugins.volumes",
                 "kubernetes_tpu_torch.plugins.registry",
                 "kubernetes_tpu_torch.sched.equivalence",
-                "kubernetes_tpu_torch.sched.volume_binder"} <= set(sys.modules)
+                "kubernetes_tpu_torch.sched.volume_binder",
+                "kubernetes_tpu_torch.sched.weights",
+                "kubernetes_tpu_torch.ops.telemetry",
+                "kubernetes_tpu_torch.utils.tracing",
+                "kubernetes_tpu_torch.utils.trace",
+                "kubernetes_tpu_torch.utils.profiling"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -281,20 +281,22 @@ def test_policy_drains_as_jax(name):
 
 @pytest.mark.parametrize("name", POLICIES)
 def test_policy_weights_equal_jax(name):
-    """The port's weights for a Policy profile equal the JAX Scheduler's
-    dispatch view (`_weights_kw()[:2]`: the gating Weights and their
-    stacked f32 vector), with no weightprofiles object."""
+    """The port's weight view for a Policy profile equals the JAX
+    Scheduler's (`_weights_kw()`: the gating Weights, their stacked f32
+    vector and the version), with no weightprofiles object."""
     jstore, tstore = JaxStore(), ObjectStore()
     jsched = JaxScheduler(jstore, profile=JaxRegistry().profile_from_policy(
         POLICIES[name], store=jstore))
     tsched = Scheduler(tstore, device="cpu",
                        profile=Registry().profile_from_policy(
                            POLICIES[name], store=tstore))
-    gating, vec = jsched._weights_kw()[:2]
-    assert tuple(tsched.weights) == tuple(gating)
-    got = stack_weights(tsched.weights)
+    gating, vec, version = jsched._weights_kw()
+    t_gating, got, t_version = tsched._weights_kw()
+    assert tuple(t_gating) == tuple(gating)
+    assert t_version == version == "static"
     assert got.dtype == np.asarray(vec).dtype
     np.testing.assert_array_equal(got, np.asarray(vec))
+    np.testing.assert_array_equal(stack_weights(t_gating), got)
     assert list(tsched.profile.host_filters) == list(
         jsched.profile.host_filters)
     assert list(tsched.profile.host_scores) == list(
