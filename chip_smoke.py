@@ -152,6 +152,45 @@ Phases (any failure exits non-zero and prints no result line):
                candidate) on the card and on the CPU: identical ledger
                rows (less timings, path and pod UIDs), decisions, shadow
                report, telemetry vector and scheduler metrics.
+  15. autoscale — the cluster autoscaler (controllers/clusterautoscaler.py)
+               on the scheduler's card: 5 000 nodes (no instance-type
+               label) each with four bound replicated pods of 3.5 cores,
+               a FakeCloud with std-16, std-32 and a tainted himem-64
+               group, and 128 pending pods of 20 cores, half tolerating
+               himem's taint; preemption off, as bench.py
+               run_autoscale_config runs it. Scale-up passes (run_once, the virtual
+               clock past the cooldown, a drain) until nothing is
+               pending; then each himem node keeps one pod and 8
+               scale-down passes run, the drained residents re-created
+               and drained after each. Every pod bound, none without the
+               toleration on himem, a node removed after a refit
+               what-if, no pod pending or on a removed node, no
+               autoscaler error, the taint/port kernel launched in every
+               pass that ran a what-if. Printed: each pass's direction,
+               P, N, shadow build, featurize and what-if seconds, and
+               its pick or removal; the phase's launches; the implicit
+               host syncs of one scale-up what-if. Then card == CPU on
+               500 nodes and 32 pods: every verdict (chosen, feasible),
+               the groups picked and their sizes, the nodes removed,
+               the events and the bindings.
+  16. zone_outage — the node-lifecycle controller (controllers/
+               nodelifecycle.py, its zone tally on the card) on the
+               scheduler's store: 5 000 nodes with heartbeats, four pods
+               each with the 300 s default tolerations; zone A stops
+               every heartbeat, 60% of zone B and 20 nodes of zone C
+               stop; monitor passes at 0, 41, 342, 442 and 542 s (past
+               the 40 s grace, then the 300 s tolerations).
+               Zone A FullDisruption with no eviction, B
+               PartialDisruption, C Normal, the unreachable taint on
+               exactly the stopped nodes, each zone's evictions equal to
+               its token bucket's allowance; 512 density pods placed,
+               none on a tainted node; after the heartbeats resume every
+               zone Normal and no taint left; the card's tally equal to
+               np.bincount on every pass, no tally off the device.
+               Printed: host seconds a monitor pass by step, the tally's
+               ms a call at N = 8 192 against its byte bound. Then card
+               == CPU on 500 nodes: zone states, taint sets, evicted
+               pods and bindings.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -165,6 +204,7 @@ It needs the kubernetes_tpu_torch package beside it, and a CUDA card.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import statistics
@@ -216,6 +256,33 @@ SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 150.0, 8
 # waves, one round), then twice more traced after a promotion and after
 # the rollback
 TRACED_PODS, TRACED_EXTRA = 4096, 512
+# phase 15 (the cluster autoscaler): AUTOSCALE_RESIDENTS replicated pods
+# of AUTOSCALE_RESIDENT_CPU bound on each real node (88% of its CPU), a
+# backlog of AUTOSCALE_BACKLOG pods of AUTOSCALE_POD_CPU cores (half
+# tolerating himem's taint) that no real node can host, and three node
+# groups (name, cores, price, tainted, max size) under the autoscaler's
+# defaults; at most AUTOSCALE_UP_PASSES scale-up passes, then
+# AUTOSCALE_DOWN_PASSES scale-down passes; card == CPU on a reduced copy
+AUTOSCALE_RESIDENTS, AUTOSCALE_RESIDENT_CPU = 4, "3500m"
+AUTOSCALE_BACKLOG, AUTOSCALE_POD_CPU = 128, 20
+AUTOSCALE_GROUPS = (("std-16", 16, 1.0, False, 16),
+                    ("std-32", 32, 2.0, False, 96),
+                    ("himem-64", 64, 4.5, True, 32))
+AUTOSCALE_UP_PASSES, AUTOSCALE_DOWN_PASSES = 16, 8
+AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG = 500, 32
+# phase 16 (the node-lifecycle controller at its defaults: grace 40 s,
+# the pods' 300 s default tolerations): zone A stops every heartbeat,
+# OUTAGE_B_FRACTION of zone B and OUTAGE_C_NODES nodes of zone C stop;
+# monitor passes at OUTAGE_PASSES seconds (the first past the grace at
+# OUTAGE_GRACE, evictions due from OUTAGE_GRACE + 300 s), then
+# OUTAGE_DENSITY density pods drained and the heartbeats resumed. Cut
+# for the script's time from 13 passes (every 100 s to the due time,
+# then every 25 s): a pass walks 5.3 s of host time at 5 000 nodes once
+# evictions are queued (PERF.md section 5), so the passes between the
+# taint and the due time, which change nothing, are left out
+OUTAGE_B_FRACTION, OUTAGE_C_NODES, OUTAGE_DENSITY = 0.6, 20, 512
+OUTAGE_GRACE = 41.0
+OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0, 542.0)
 # the scheduler series phase 14 holds card == CPU: those every drain
 # observes and those the recorder, the decomposition, the shadow pass and
 # the telemetry feed
@@ -354,10 +421,11 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
 
 
 def add_plain_nodes(api, store, n_nodes: int, affinity_labels: int = 0,
-                    extra_labels=None):
+                    extra_labels=None, annotations=None):
     """bench.py build_cluster: 3 zones, 16 CPU, 32Gi, 110 pods a node, and
     with affinity_labels one of K `aff-{i % K}=yes` labels a node;
-    extra_labels(i) adds labels to node i."""
+    extra_labels(i) adds labels to node i; annotations are copied onto
+    every node."""
     for i in range(n_nodes):
         labels = {ZONE: f"zone-{i % 3}", HOSTNAME: f"node-{i}"}
         if affinity_labels:
@@ -365,7 +433,8 @@ def add_plain_nodes(api, store, n_nodes: int, affinity_labels: int = 0,
         if extra_labels is not None:
             labels.update(extra_labels(i))
         store.create("nodes", api.Node(
-            metadata=api.ObjectMeta(name=f"node-{i}", labels=labels),
+            metadata=api.ObjectMeta(name=f"node-{i}", labels=labels,
+                                    annotations=dict(annotations or {})),
             status=api.NodeStatus(
                 allocatable=api.resource_list(cpu="16", memory="32Gi",
                                               pods=110,
@@ -2546,6 +2615,611 @@ def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
 # --- main ----------------------------------------------------------------------
 
 
+# --- phases 15 and 16: the cluster-lifecycle controllers ------------------------
+
+
+def resident_pods(api, store, n_nodes, prefix="res", wait=None,
+                  taint_keys=()):
+    """AUTOSCALE_RESIDENTS replicated pods of AUTOSCALE_RESIDENT_CPU bound
+    on each of the first n_nodes nodes (created bound, as phase 13
+    creates its bound pods); wait=S adds the NoExecute not-ready and
+    unreachable tolerations (taint_keys) of S seconds that the
+    DefaultTolerationSeconds admission plugin stamps on every pod."""
+    tolerations = []
+    if wait is not None:
+        tolerations = [api.Toleration(
+            key=k, operator=api.TOLERATION_OP_EXISTS, effect=api.NO_EXECUTE,
+            toleration_seconds=wait) for k in taint_keys]
+    for i in range(n_nodes):
+        for j in range(AUTOSCALE_RESIDENTS):
+            p = batch_pod(api, f"{prefix}-{i}-{j}", "resident",
+                          AUTOSCALE_RESIDENT_CPU, None)
+            p.spec.node_name = f"node-{i}"
+            p.spec.tolerations = list(tolerations)
+            store.create("pods", p)
+
+
+def backlog_pod(api, name, tolerate):
+    """A batch-job pod of AUTOSCALE_POD_CPU, replicated; tolerate: it
+    tolerates the himem group's dedicated=batch:NoSchedule taint."""
+    p = batch_pod(api, name, "batch-job" if tolerate else "web",
+                  AUTOSCALE_POD_CPU, None)
+    if tolerate:
+        p.spec.tolerations = [api.Toleration(
+            key="dedicated", operator=api.TOLERATION_OP_EQUAL, value="batch",
+            effect=api.NO_SCHEDULE)]
+    return p
+
+
+def group_template(api, name, cpu, tainted):
+    """A node group's template: `cpu` cores, 8 GiB a core, 110 pods, no
+    zone; himem's carries dedicated=batch:NoSchedule."""
+    taints = ([api.Taint(key="dedicated", value="batch",
+                         effect=api.NO_SCHEDULE)] if tainted else [])
+    return api.Node(
+        metadata=api.ObjectMeta(name=f"template-{name}"),
+        spec=api.NodeSpec(taints=taints),
+        status=api.NodeStatus(
+            allocatable=api.resource_list(cpu=str(cpu), memory=f"{8 * cpu}Gi",
+                                          pods=110,
+                                          ephemeral_storage="200Gi"),
+            conditions=[api.NodeCondition(api.NODE_READY, api.COND_TRUE)]))
+
+
+def drain_placing(sched, clock):
+    """schedule_pending while it places pods, stepping the virtual clock
+    a second between passes (past PodBackoff(initial=0.001)). Returns
+    pods placed."""
+    placed = 0
+    while True:
+        n = sched.schedule_pending()
+        placed += n
+        if n == 0 or not sched.pending_count():
+            return placed
+        clock.t += 1.0
+
+
+class Timed:
+    """Seconds of the what-if steps of one autoscaler pass, taken by
+    wrapping the port's simulate module and the scheduler's featurizer
+    hook: shadow build, featurize, and the what-if with its device sync;
+    `args` keeps the last what-if's arguments."""
+
+    def __init__(self, simulate, sched, sync):
+        self.simulate, self.sched, self.sync = simulate, sched, sync
+        self.saved = {n: getattr(simulate, n) for n in (
+            "shadow_snapshot", "simulate_placements", "simulate_refit")}
+        self.reset()
+        self.args = {}
+
+    def reset(self):
+        self.s = {"shadow": 0.0, "featurize": 0.0, "whatif": 0.0}
+        self.shape = None
+        self.calls = 0
+
+    def _timed(self, key, fn, sync=False):
+        def run(*a, **kw):
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            if sync:
+                self.sync()
+            self.s[key] += time.monotonic() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        sim, saved = self.simulate, self.saved
+        sim.shadow_snapshot = self._timed("shadow", saved["shadow_snapshot"])
+        for name in ("simulate_placements", "simulate_refit"):
+            def whatif(*a, _fn=self._timed("whatif", saved[name], True),
+                       _name=name, **kw):
+                self.calls += 1
+                self.shape = (a[1].req.shape[0], a[0].caps.N)
+                self.args[_name] = (a, kw)
+                return _fn(*a, **kw)
+            setattr(sim, name, whatif)
+        hook = self.sched.shadow_featurizer
+
+        def featurizer(snapshot):
+            feat = hook(snapshot)
+            feat.featurize = self._timed("featurize", feat.featurize)
+            return feat
+
+        self.sched.shadow_featurizer = featurizer
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.simulate, name, fn)
+        del self.sched.shadow_featurizer
+
+
+def autoscale_world(torch, mods, enc, bucket_size, ctl, device, n_nodes,
+                    n_backlog, report=False):
+    """Phase 15's world on `device`: n_nodes real nodes (no instance-type
+    label: not autoscaled) each holding AUTOSCALE_RESIDENTS replicated pods
+    of AUTOSCALE_RESIDENT_CPU, a FakeCloud with AUTOSCALE_GROUPS at the
+    autoscaler's defaults, and n_backlog pending pods of AUTOSCALE_POD_CPU,
+    half of them tolerating the himem taint. Scale-up passes (run_once,
+    the clock past the cooldown, a drain) until nothing is pending or
+    AUTOSCALE_UP_PASSES; then the batch job's tail ends (each himem node
+    keeps one pod), and AUTOSCALE_DOWN_PASSES scale-down passes, each
+    followed by re-creating the drained residents, as their controller
+    would, and a drain. Checks every pod bound, no untolerating pod on
+    himem, a node removed after a refit what-if, no pod pending and none
+    on a removed node, no autoscaler error, and a launch of the
+    taint/port kernel in every pass that ran a what-if on the card.
+    Returns what the card == CPU comparison holds and what it saw."""
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    ClusterAutoscaler, FakeCloud, node_from_template, simulate = ctl
+    tag = "[autoscale]" if report else f"[parity] autoscale {device}:"
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_world = time.monotonic()
+    clock = VirtualClock()
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(
+        M=bucket_size(AUTOSCALE_RESIDENTS * n_nodes + 2 * n_backlog + 64),
+        P=WAVE, LV=bucket_size(n_nodes + 256, 64))
+    # preemption off, as bench.py run_autoscale_config runs it: elasticity,
+    # not eviction, is the remedy; with one priority class no preemption
+    # can place a pod, yet each failed pod's host attempt walks every node
+    # (about 25 s a drain of the backlog at 5 000 nodes, PERF.md)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock, backoff=PodBackoff(initial=0.001,
+                                                      clock=clock),
+                      disable_preemption=True)
+    add_plain_nodes(api, store, n_nodes)
+    resident_pods(api, store, n_nodes)
+    cloud = FakeCloud()
+    cloud.joiner = lambda g, name: store.create(
+        "nodes", node_from_template(g, name))
+    for name, cpu, price, tainted, max_size in AUTOSCALE_GROUPS:
+        cloud.add_node_group(name, group_template(api, name, cpu, tainted),
+                             max_size=max_size, price=price)
+    ca = ClusterAutoscaler(store, cloud, sched, clock=clock)
+    half = n_backlog // 2
+    for i in range(n_backlog):
+        store.create("pods", backlog_pod(api, f"job-{i}", i < half))
+    t_world = time.monotonic() - t_world
+    if drain_placing(sched, clock):
+        fail(f"{tag} a backlog pod placed before any scale-up")
+    if len(sched.pending_unschedulable()) != n_backlog:
+        fail(f"{tag} {len(sched.pending_unschedulable())} of {n_backlog} "
+             "backlog pods in the unschedulable map")
+    passes, verdicts = [], []
+    tp.taint_ports_masks.launches = 0
+    t0 = time.monotonic()
+    with Timed(simulate, sched, sync) as timed:
+        for k in range(AUTOSCALE_UP_PASSES):
+            if not sched.pending_count():
+                break
+            timed.reset()
+            before = tp.taint_ports_masks.launches
+            t = time.monotonic()
+            r = ca.run_once()
+            sync()
+            wall = time.monotonic() - t
+            launched = tp.taint_ports_masks.launches - before
+            if timed.calls and cuda and not launched:
+                fail(f"{tag} scale-up pass {k}: the what-if launched no "
+                     "kernel")
+            v = ca.last_verdict
+            verdicts.append((v.chosen.copy(), v.feasible.copy(), v.n_real))
+            up = ca.last_scale_up if r["scaled_up"] else None
+            passes.append(("up", timed.shape, dict(timed.s), wall, up,
+                           launched))
+            clock.t += ca.scale_up_cooldown + 1.0
+            drain_placing(sched, clock)
+        n_up = len(passes)
+        pending = [p.metadata.name for p in store.list("pods")
+                   if not p.spec.node_name]
+        if pending:
+            fail(f"{tag} {len(pending)} pods still pending after {n_up} "
+                 f"scale-up passes, e.g. {pending[:5]}")
+        check_bindings(api, store)
+        for p in store.list("pods"):
+            if (p.metadata.name.startswith("job-")
+                    and int(p.metadata.name[4:]) >= half
+                    and not p.spec.node_name.startswith("std-32-")):
+                fail(f"{tag} {p.metadata.name} (no toleration) on "
+                     f"{p.spec.node_name}")
+        # the batch job's tail ends: each himem node keeps one pod
+        kept = set()
+        for p in sorted(store.list("pods"), key=lambda p: p.metadata.name):
+            node = p.spec.node_name
+            if node.startswith("himem-64-"):
+                if node in kept:
+                    store.delete("pods", "default", p.metadata.name)
+                kept.add(node)
+        removed, refits = [], 0
+        for k in range(AUTOSCALE_DOWN_PASSES):
+            clock.t += ca.scale_down_cooldown + 1.0
+            timed.reset()
+            alive = {p.metadata.name: p for p in store.list("pods")}
+            before = tp.taint_ports_masks.launches
+            t = time.monotonic()
+            r = ca.run_once()
+            sync()
+            wall = time.monotonic() - t
+            launched = tp.taint_ports_masks.launches - before
+            if timed.calls and cuda and not launched:
+                fail(f"{tag} scale-down pass {k}: the what-if launched no "
+                     "kernel")
+            down = ca.last_scale_down if r["scaled_down"] else None
+            if down is not None:
+                removed.append(down)
+                refits += bool(timed.calls)
+            passes.append(("down", timed.shape, dict(timed.s), wall, down,
+                           launched))
+            # the drained residents' controller re-creates them
+            gone = sorted(set(alive) - {p.metadata.name
+                                        for p in store.list("pods")})
+            for name in gone:
+                p = copy.deepcopy(alive[name])
+                p.metadata = api.ObjectMeta(
+                    name=f"{name}-r{k}", labels=dict(p.metadata.labels),
+                    owner_references=list(p.metadata.owner_references))
+                p.spec.node_name = ""
+                p.status = api.PodStatus()
+                store.create("pods", p)
+            clock.t += 1.0
+            drain_placing(sched, clock)
+            pending = [p.metadata.name for p in store.list("pods")
+                       if not p.spec.node_name]
+            if pending:
+                fail(f"{tag} {pending[:5]} pending after scale-down pass {k}")
+        on_removed = [p.metadata.name for p in store.list("pods")
+                      if p.spec.node_name in removed]
+    wall = time.monotonic() - t0
+    launches = tp.taint_ports_masks.launches
+    if refits == 0:
+        fail(f"{tag} no node was removed after a refit what-if")
+    if on_removed:
+        fail(f"{tag} pods on removed nodes: {on_removed[:5]}")
+    errors = sched.metrics.scheduling_errors.value(stage="autoscaler")
+    if errors:
+        fail(f"{tag} {errors} autoscaler errors")
+    check_bindings(api, store)
+    if report:
+        for i, (d, shape, s, w, what, launched) in enumerate(passes):
+            P, N = shape or (0, 0)
+            log(f"{tag} pass {i} {d}: P={P} N={N} shadow "
+                f"{s['shadow']:.3f} s, featurize {s['featurize']:.3f} s, "
+                f"what-if {s['whatif']:.3f} s (with device sync), run_once "
+                f"{w:.3f} s, kernel launches {launched}; "
+                + (f"picked {what[0]} x{what[1]}" if d == "up" and what
+                   else f"removed {what}" if what else "no change"))
+    sizes = {g.name: g.target_size for g in cloud.groups()}
+    out = {
+        "verdicts": verdicts,
+        "picked": [p[4] for p in passes],
+        "sizes": sizes,
+        "removed": removed,
+        "events": [(e.metadata.name, e.involved_kind, e.involved_name,
+                    e.reason, e.message, e.count)
+                   for e in store.list("events")],
+        "bindings": bindings(store),
+    }
+    seen = {"passes": passes, "n_up": n_up, "refits": refits, "wall": wall,
+            "world": t_world, "launches": launches, "timed": timed,
+            "errors": errors}
+    return out, seen
+
+
+def autoscale_phase(torch, mods, enc, bucket_size, ctl):
+    """Phase 15: the autoscale world at FULL_NODES nodes and
+    AUTOSCALE_BACKLOG pods on the card, then card == CPU on
+    AUTOSCALE_SMALL_NODES nodes and AUTOSCALE_SMALL_BACKLOG pods."""
+    t_phase = time.monotonic()
+    _, seen = autoscale_world(torch, mods, enc, bucket_size, ctl, "cuda",
+                              FULL_NODES, AUTOSCALE_BACKLOG, report=True)
+    launches = seen["launches"]
+    passes = seen["passes"]
+    tot = {k: sum(p[2][k] for p in passes)
+           for k in ("shadow", "featurize", "whatif")}
+    ups = [p for p in passes if p[0] == "up" and p[1]]
+    # the implicit host syncs of one scale-up what-if, on the last pass's
+    # shadow and batch
+    a, kw = seen["timed"].args["simulate_placements"]
+    simulate = ctl[3]
+    simulate.simulate_placements(*a, **kw)  # warm
+    _, syncs = count_syncs(torch, lambda: simulate.simulate_placements(
+        *a, **kw))
+    up_whatif = [p[2]["whatif"] for p in ups]
+    log(f"[autoscale] {FULL_NODES} nodes, {AUTOSCALE_BACKLOG} backlog pods: "
+        f"world {seen['world']:.1f} s; {seen['n_up']} scale-up passes, "
+        f"{len(passes) - seen['n_up']} scale-down passes, "
+        f"{len([p for p in passes if p[0] == 'down' and p[4]])} nodes "
+        f"removed ({seen['refits']} after a refit what-if) in "
+        f"{seen['wall']:.1f} s; every backlog pod bound, none without the "
+        "toleration on himem-64, no pod pending or on a removed node")
+    log(f"[autoscale] seconds over all passes: shadow {tot['shadow']:.3f}, "
+        f"featurize {tot['featurize']:.3f}, what-if {tot['whatif']:.3f}; a "
+        f"scale-up what-if {statistics.median(up_whatif):.3f} s (median "
+        f"of {len(up_whatif)}), P={ups[0][1][0]} N={ups[0][1][1]}")
+    log(f"[autoscale] taint/port kernel launches in the phase: {launches}; "
+        f"every pass with a what-if launched it; implicit host syncs of "
+        f"one scale-up what-if: {sum(syncs.values())} (" + ", ".join(
+            f"{k} x{v}" for k, v in sorted(syncs.items()))
+        + f"); scheduling_errors{{stage=\"autoscaler\"}} {seen['errors']}")
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        got[device], s = autoscale_world(
+            torch, mods, enc, bucket_size, ctl, device,
+            AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG)
+        log(f"[parity] autoscale {device}: {s['n_up']} scale-up passes, "
+            f"removed {got[device]['removed']}, groups "
+            f"{got[device]['sizes']}; world {time.monotonic() - t0:.1f} s")
+    a, b = got["cuda"], got["cpu"]
+    if len(a["verdicts"]) != len(b["verdicts"]):
+        fail("autoscale: card and CPU ran different numbers of what-ifs")
+    for i, (va, vb) in enumerate(zip(a["verdicts"], b["verdicts"])):
+        if not ((va[0] == vb[0]).all() and (va[1] == vb[1]).all()
+                and va[2] == vb[2] and va[1].shape == vb[1].shape):
+            fail(f"autoscale: the scale-up verdict of pass {i} differs "
+                 "between card and CPU")
+    for key in ("picked", "sizes", "removed", "events", "bindings"):
+        if a[key] != b[key]:
+            fail(f"autoscale: card and CPU {key} differ")
+    log(f"[parity] autoscale, {AUTOSCALE_SMALL_NODES} nodes, "
+        f"{AUTOSCALE_SMALL_BACKLOG} backlog pods: card == CPU verdicts "
+        "(chosen and feasible), groups picked and sizes, nodes removed, "
+        f"events and bindings; phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "whatif_launches": 0}
+
+
+def bucket_allowance(burst, qps_of, times, due):
+    """Evictions a zone's token bucket admits over monitor passes at
+    `times` (seconds), with `due` pods due from the first pass on and
+    qps_of(t) its rate: the bucket starts full, refills by elapsed *
+    qps up to burst, and each eviction takes one token (utils/
+    ratelimit.py's arithmetic, replayed independently)."""
+    tokens, last, taken = float(burst), times[0], 0
+    for t in times:
+        qps = qps_of(t)
+        if t > last and qps > 0:
+            tokens = min(float(burst), tokens + (t - last) * qps)
+        last = max(last, t)
+        while qps > 0 and tokens >= 1.0 and taken < due:
+            tokens -= 1.0
+            taken += 1
+    return taken
+
+
+def zone_outage_world(torch, mods, enc, bucket_size, ctl, device, n_nodes,
+                      report=False):
+    """Phase 16's world on `device`: n_nodes nodes in 3 zones with
+    heartbeats and AUTOSCALE_RESIDENTS pods each (with the 300 s default
+    NoExecute tolerations), a NodeLifecycleController at its defaults
+    on the scheduler's store (zone ids interned with the scheduler's
+    vocabularies). Zone A stops every heartbeat, OUTAGE_B_FRACTION of
+    zone B and OUTAGE_C_NODES nodes of zone C stop; monitor passes at
+    OUTAGE_PASSES seconds; then OUTAGE_DENSITY density pods drained,
+    then the heartbeats resume. Checks the zone states, the NoExecute
+    taints, the evictions of each zone against its token bucket (none
+    in zone A), no density pod on a tainted node, and all clear after
+    recovery; the card's tally equals np.bincount on every pass.
+    Returns what the card == CPU comparison holds and what it saw."""
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    nl, zonehealth = ctl
+    tag = "[zone_outage]" if report else f"[parity] zone_outage {device}:"
+    t_world = time.monotonic()
+    clock = VirtualClock()
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(
+        M=bucket_size(AUTOSCALE_RESIDENTS * n_nodes + OUTAGE_DENSITY + 64),
+        P=WAVE, LV=bucket_size(n_nodes + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock, backoff=PodBackoff(initial=0.001,
+                                                      clock=clock))
+    add_plain_nodes(api, store, n_nodes, annotations={
+        nl.HEARTBEAT_ANNOTATION: str(clock.t)})
+    resident_pods(api, store, n_nodes, prefix="app", wait=300,
+                  taint_keys=(nl.TAINT_NOT_READY, nl.TAINT_UNREACHABLE))
+    ctrl = nl.NodeLifecycleController(store, clock=clock, device=device,
+                                      vocabs=sched.snapshot.vocabs)
+    zones = {z: [f"node-{i}" for i in range(n_nodes) if i % 3 == z]
+             for z in range(3)}
+    stopped = set(zones[0])
+    stopped |= set(zones[1][:int(OUTAGE_B_FRACTION * len(zones[1]))])
+    stopped |= set(zones[2][:OUTAGE_C_NODES])
+    healthy = [n for z in range(3) for n in zones[z] if n not in stopped]
+    t_world = time.monotonic() - t_world
+
+    def heartbeat(names):
+        for name in names:
+            n = store.get("nodes", "default", name)
+            n.metadata.annotations = dict(n.metadata.annotations)
+            n.metadata.annotations[nl.HEARTBEAT_ANNOTATION] = str(clock.t)
+            n.status.conditions = [
+                c for c in n.status.conditions if c.type != api.NODE_READY
+            ] + [api.NodeCondition(api.NODE_READY, api.COND_TRUE)]
+            store.update("nodes", n)
+
+    steps = PhaseClock()
+    tally_check = {"calls": 0}
+    tally = zonehealth.zone_tally
+
+    def checked_tally(zone_id, bad, valid, num_zones, **kw):
+        t = time.monotonic()
+        out = tally(zone_id, bad, valid, num_zones, **kw)
+        steps.seconds["tally"] = (steps.seconds.get("tally", 0.0)
+                                  + time.monotonic() - t)
+        want = zonehealth.zone_tally_host(zone_id, bad, valid, num_zones)
+        if not all((a == b).all() for a, b in zip(out, want)):
+            fail(f"{tag} the zone tally differs from np.bincount")
+        tally_check["calls"] += 1
+        tally_check["shape"] = (zone_id.shape[0], num_zones)
+        return out
+
+    ctrl._update_zone_states = steps.wrap("zone_states",
+                                          ctrl._update_zone_states)
+    ctrl._process_evictions = steps.wrap("evictions",
+                                         ctrl._process_evictions)
+    zonehealth.zone_tally = checked_tally
+    zonehealth.reset_counts()
+    states, alive0 = [], {p.metadata.name for p in store.list("pods")}
+    t_start = clock.t
+    monitor_s = []
+    try:
+        for at in OUTAGE_PASSES:
+            clock.t = t_start + at
+            heartbeat(healthy if at else ())
+            t = time.monotonic()
+            ctrl.monitor()
+            monitor_s.append(time.monotonic() - t)
+            states.append(dict(ctrl.zone_states))
+        taints = {n.metadata.name: sorted((t.key, t.effect)
+                                          for t in n.spec.taints)
+                  for n in store.list("nodes")}
+        evicted = sorted(alive0 - {p.metadata.name
+                                   for p in store.list("pods")})
+        for i in range(OUTAGE_DENSITY):
+            store.create("pods", batch_pod(api, f"density-{i}", "density",
+                                           "100m", None))
+        tp.taint_ports_masks.launches = 0
+        t = time.monotonic()
+        placed = drain_placing(sched, clock)
+        drain_s = time.monotonic() - t
+        launches = tp.taint_ports_masks.launches
+        bound = bindings(store)
+        clock.t += 5.0
+        heartbeat([n for z in range(3) for n in zones[z]])
+        ctrl.monitor()
+        recovered = dict(ctrl.zone_states)
+    finally:
+        zonehealth.zone_tally = tally
+    counts = dict(zonehealth.TALLY_COUNTS)
+    # the checks
+    zkey = {z: api.get_zone_key(store.get("nodes", "default", zones[z][0]))
+            for z in range(3)}
+    want_state = {0: nl.ZONE_FULL, 1: nl.ZONE_PARTIAL, 2: nl.ZONE_NORMAL}
+    for z, s in want_state.items():
+        if states[-1].get(zkey[z]) != s:
+            fail(f"{tag} zone-{z} is {states[-1].get(zkey[z])}, not {s}")
+    for name, ts in taints.items():
+        has = (nl.TAINT_UNREACHABLE, api.NO_EXECUTE) in ts
+        if has != (name in stopped):
+            fail(f"{tag} {name}: NoExecute unreachable taint {has}, "
+                 f"stopped {name in stopped}")
+    node_of = {f"app-{i}-{j}": f"node-{i}" for i in range(n_nodes)
+               for j in range(AUTOSCALE_RESIDENTS)}
+    by_zone = {z: sum(1 for p in evicted if node_of[p] in zones[z])
+               for z in range(3)}
+    due_at = [at for at in OUTAGE_PASSES if at >= OUTAGE_GRACE + 300.0]
+    want_evicted = {
+        0: 0,
+        # a partially disrupted zone drains at the secondary rate when
+        # it is large, and not at all when it is small
+        1: bucket_allowance(ctrl.eviction_burst,
+                            lambda t: ctrl.secondary_eviction_rate_qps
+                            if len(zones[1]) > ctrl.large_cluster_threshold
+                            else 0.0,
+                            due_at, AUTOSCALE_RESIDENTS * len(
+                                [n for n in zones[1] if n in stopped])),
+        2: bucket_allowance(ctrl.eviction_burst,
+                            lambda t: ctrl.eviction_rate_qps, due_at,
+                            AUTOSCALE_RESIDENTS * OUTAGE_C_NODES),
+    }
+    if by_zone != want_evicted:
+        fail(f"{tag} evictions by zone {by_zone}, the token buckets allow "
+             f"{want_evicted}")
+    if placed != OUTAGE_DENSITY:
+        fail(f"{tag} placed {placed} of {OUTAGE_DENSITY} density pods")
+    on_tainted = [p for p, n in bound.items()
+                  if p.startswith("density-") and n in stopped]
+    if on_tainted:
+        fail(f"{tag} density pods on tainted nodes: {on_tainted[:5]}")
+    check_bindings(api, store)
+    if any(s != nl.ZONE_NORMAL for s in recovered.values()):
+        fail(f"{tag} zones after recovery: {recovered}")
+    left = [n.metadata.name for n in store.list("nodes")
+            if any(t.effect == api.NO_EXECUTE for t in n.spec.taints)]
+    if left:
+        fail(f"{tag} NoExecute taints left after recovery: {left[:5]}")
+    if counts["device_failures"] or counts["host"]:
+        fail(f"{tag} tally paths {counts}: a tally left the device")
+    if report:
+        n_pass = len(OUTAGE_PASSES)
+        zs = steps.seconds.get("zone_states", 0.0)
+        tl = steps.seconds.get("tally", 0.0)
+        ev = steps.seconds.get("evictions", 0.0)
+        walk = sum(monitor_s) - zs - ev
+        log(f"{tag} {n_nodes} nodes, {len(stopped)} stopped (zone A all, "
+            f"{OUTAGE_B_FRACTION:.0%} of B, {OUTAGE_C_NODES} of C): world "
+            f"{t_world:.1f} s; {n_pass} monitor passes at "
+            f"{list(OUTAGE_PASSES)} s; zone states {want_state}; "
+            f"evictions by zone {by_zone} = the buckets' allowance")
+        log(f"{tag} host seconds a monitor pass: node walk "
+            f"{walk / n_pass:.4f}, zone columns and states "
+            f"{(zs - tl) / n_pass:.4f}, tally {tl / n_pass:.4f}, eviction "
+            f"sweep {ev / n_pass:.4f}; whole pass {sum(monitor_s) / n_pass:.4f}"
+            f" (slowest {max(monitor_s):.4f})")
+        log(f"{tag} tally paths {counts}; the card's tally == np.bincount "
+            f"on all {tally_check['calls']} passes (columns "
+            f"{tally_check['shape'][0]}, zones {tally_check['shape'][1]})")
+        log(f"{tag} {OUTAGE_DENSITY} density pods placed in {drain_s:.3f} s, "
+            f"none on a tainted node; taint/port kernel launches {launches};"
+            " after the heartbeats resume every zone is Normal and no "
+            "NoExecute taint is left")
+    out = {"states": states, "taints": taints, "evicted": evicted,
+           "bindings": bound, "recovered": recovered}
+    return out, {"launches": launches, "tally": tally_check,
+                 "counts": counts}
+
+
+def tally_bound(cap, num_zones):
+    """(least ms, bound_by, bytes): the zone tally's three i32 columns
+    read once and two i32 [Z] counts written once, over HBM bandwidth;
+    its 2 * cap integer adds over the integer rate are far smaller."""
+    nbytes = 3 * 4 * cap + 2 * 4 * num_zones
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def zone_outage_phase(torch, mods, enc, bucket_size, ctl):
+    """Phase 16: the zone outage at FULL_NODES nodes on the card, the
+    tally timed at the 8 192-row bucket, then card == CPU at
+    SMALL_NODES nodes."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    _, seen = zone_outage_world(torch, mods, enc, bucket_size, ctl, "cuda",
+                                FULL_NODES, report=True)
+    zonehealth = ctl[1]
+    cap, nz = seen["tally"]["shape"]
+    rng = np.random.RandomState(SEED)
+    zone_id = rng.randint(0, 3, size=cap).astype(np.int32)
+    bad = rng.rand(cap) < 0.5
+    valid = np.arange(cap) < FULL_NODES
+    dev = torch.device("cuda")
+    ms = cuda_ms(torch, lambda: zonehealth._tally_device(
+        zone_id, bad, valid, nz, dev), reps=50)
+    b_ms, b_by, nbytes = tally_bound(cap, nz)
+    log(f"[zone_outage] tally a call (upload, two index_add_, fetch) N="
+        f"{cap} Z={nz}: {ms:.4f} ms, byte bound {b_ms:.6f} ms ({nbytes} B)")
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.monotonic()
+        got[device], _ = zone_outage_world(torch, mods, enc, bucket_size,
+                                           ctl, device, SMALL_NODES)
+        log(f"[parity] zone_outage {device}: {len(got[device]['evicted'])} "
+            f"evicted; world {time.monotonic() - t0:.1f} s")
+    for key in ("states", "taints", "evicted", "bindings", "recovered"):
+        if got["cuda"][key] != got["cpu"][key]:
+            fail(f"zone_outage: card and CPU {key} differ")
+    log(f"[parity] zone_outage, {SMALL_NODES} nodes: card == CPU zone "
+        "states, taint sets, evicted pods and bindings; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"launches": seen["launches"], "whatif_launches": 0,
+            "tally_ms": ms, "tally_bound_ms": b_ms}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -2557,14 +3231,20 @@ def main() -> None:
     sys.path.insert(0, str(REPO))
     from kubernetes_tpu_torch.api import labels as lbl
     from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.cloud.provider import (FakeCloud,
+                                                     node_from_template)
+    from kubernetes_tpu_torch.controllers import ClusterAutoscaler
+    from kubernetes_tpu_torch.controllers import nodelifecycle as nl_mod
     from kubernetes_tpu_torch.ops import affinity
     from kubernetes_tpu_torch.ops import encoding as enc
     from kubernetes_tpu_torch.ops import filters
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
     from kubernetes_tpu_torch.ops import preempt as pre
+    from kubernetes_tpu_torch.ops import simulate
     from kubernetes_tpu_torch.ops import taint_ports as tp
     from kubernetes_tpu_torch.ops import telemetry as tele
     from kubernetes_tpu_torch.ops import topology
+    from kubernetes_tpu_torch.ops import zonehealth
     from kubernetes_tpu_torch.ops.scores import SCORE_STACK
     from kubernetes_tpu_torch.plugins.registry import Registry
     from kubernetes_tpu_torch.runtime import store as store_mod
@@ -2944,10 +3624,18 @@ def main() -> None:
                           tracing, weights_mod, SCORE_STACK)
     max_err = max(max_err, traced.pop("max_err"))
     t_traced = time.monotonic() - t0
+
+    # 15-16. the cluster-lifecycle controllers
+    t0 = time.monotonic()
+    auto = autoscale_phase(torch, phase_mods, enc, bucket_size, (
+        ClusterAutoscaler, FakeCloud, node_from_template, simulate))
+    outage = zone_outage_phase(torch, phase_mods, enc, bucket_size,
+                               (nl_mod, zonehealth))
+    t_ctl = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
-              "traced": traced}
+              "traced": traced, "autoscale": auto, "zone_outage": outage}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -2956,7 +3644,8 @@ def main() -> None:
         f"{k} {d['whatif_launches']}" for k, d in drains.items())
         + f"; phases multikey, trickle, paced and preempt_host "
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
-        f"traced {t_traced:.1f} s; total {time.monotonic() - t_start:.1f} s")
+        f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
+        f"total {time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

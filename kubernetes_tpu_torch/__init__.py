@@ -7,19 +7,27 @@ imports nothing of it, and never JAX.
 
 Layout (each module sits under the same path as its counterpart):
   api/      -- object model: Pod, Node, labels/selectors, quantities
-  runtime/  -- in-process object store with watch fan-out
+  runtime/  -- in-process object store with watch fan-out, informers
   state/    -- scheduler cache, NodeInfo, vocab interning, featurizer,
                the tensor snapshot and its device upload
   ops/      -- the device path: selector programs, filters, scores, the
-               wave/round, the gang dispatch, the preemption what-if, and
-               the build of the CUDA kernels
+               wave/round, the gang dispatch, the preemption what-if, the
+               telemetry, the zone tally, the autoscaler's simulation,
+               and the build of the CUDA kernels
   csrc/     -- CUDA C++ sources (taint/host-port, preemption what-if),
                built at first use into _build/
   plugins/  -- the golden host predicates and priorities, the volume
                predicates, and the profiles and Policy-file registry
-  utils/    -- per-pod exponential backoff, metrics, feature gates
+  utils/    -- per-pod exponential backoff, metrics, feature gates,
+               tracing, the token bucket
   sched/    -- the scheduler: queue, rounds, gangs, preemption, host
-               plugins, the equivalence cache, claim binding, commit
+               plugins, the equivalence cache, claim binding, commit;
+               the device-path breaker
+  client/   -- work queues and event recording for the controllers
+  cloud/    -- node groups and the fake cloud the autoscaler sizes
+  controllers/ -- the node-lifecycle controller (zone tally on the
+               device) and the cluster autoscaler (what-ifs through the
+               wave and the gang on a shadow snapshot)
 
 Entry points run on the CUDA card unless asked for the CPU
 (device="cpu"); without a card they raise.

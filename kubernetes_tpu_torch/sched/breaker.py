@@ -1,0 +1,148 @@
+"""Device-path circuit breaker.
+
+A copy of kubernetes_tpu/sched/breaker.py's DevicePathBreaker, its
+states and STATE_CODES, ResourceExhausted and is_capacity_error.
+MeshFaultManager and the per-device attribution it rests on are left
+out: the port has no mesh yet. The port's Scheduler carries no breaker
+yet; the node-lifecycle controller's zone tally takes one
+(ops/zonehealth.py).
+
+The wave pipeline's device step can fail persistently, not just
+transiently: a wedged XLA runtime, a kernel OOM at this cluster's
+shapes, a tunneled TPU backend that dropped. The per-call fallbacks in
+the scheduler (pallas -> XLA retry, round -> per-wave) handle one
+failure; a PERSISTENT fault would otherwise pay a doomed device attempt
+— compile time, dispatch, the exception unwind — on every single wave,
+forever. The breaker is the standard remedy (the same shape as
+client-go's backoff-on-connection-storms, applied to an accelerator):
+
+  closed     normal operation; consecutive-failure count resets on any
+             device success.
+  open       `threshold` consecutive device failures trip it; every
+             wave routes through the exact host path
+             (`_schedule_host_path`) — scheduling NEVER stops, it
+             degrades — until `cooldown` elapses.
+  half-open  after the cooldown one probe wave is re-admitted to the
+             device path. Success closes the breaker (firing
+             `on_recover`, which the scheduler uses to force a full
+             snapshot rebuild — nothing incremental is trusted across a
+             device fault); failure re-opens with a fresh cooldown.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half-open"
+
+# gauge encoding for device_path_breaker_state (utils/metrics.py):
+# operators alert on >0 (scheduling currently degraded)
+STATE_CODES = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+
+class DevicePathBreaker:
+    def __init__(self, threshold: int = 3, cooldown: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 on_recover: Optional[Callable[[], None]] = None,
+                 on_trip: Optional[Callable[[], None]] = None,
+                 on_state: Optional[Callable[[str], None]] = None):
+        self.threshold = max(int(threshold), 1)
+        self.cooldown = cooldown
+        self.clock = clock
+        self.on_recover = on_recover
+        self.on_trip = on_trip
+        # fired on EVERY transition (trip, half-open probe admission,
+        # recovery) with the new state — feeds the breaker-state gauge
+        # and the flight recorder's span events
+        self.on_state = on_state
+        self.state = CLOSED
+        self.failures = 0  # consecutive, since the last success
+        self.trips = 0
+        self.opened_at = 0.0
+
+    def _transition(self, state: str) -> None:
+        self.state = state
+        if self.on_state is not None:
+            self.on_state(state)
+
+    def allow(self) -> bool:
+        """May this wave take the device path? Open + cooldown elapsed
+        transitions to half-open and admits the probe."""
+        if self.state == OPEN:
+            if self.clock() - self.opened_at >= self.cooldown:
+                self._transition(HALF_OPEN)
+                return True
+            return False
+        return True  # closed, or half-open (the probe itself)
+
+    def record_failure(self) -> None:
+        self.failures += 1
+        if self.state == HALF_OPEN or (
+                self.state == CLOSED and self.failures >= self.threshold):
+            self._trip()
+
+    def record_hang(self) -> None:
+        """A dispatch the watchdog ABANDONED (utils/watchdog.py): trip
+        immediately, ignoring the consecutive-failure threshold. The
+        threshold exists to tolerate transient exceptions that cost
+        milliseconds each; a hang costs a full wave_deadline_s per
+        retry and signals a wedged runtime that won't heal by retrying
+        — the cooldown probe is the right (and only) way back."""
+        self.failures += 1
+        if self.state != OPEN:
+            self._trip()
+
+    def record_success(self) -> None:
+        self.failures = 0
+        if self.state != CLOSED:
+            self._transition(CLOSED)
+            if self.on_recover is not None:
+                self.on_recover()
+
+    def _trip(self) -> None:
+        self._transition(OPEN)
+        self.opened_at = self.clock()
+        self.trips += 1
+        if self.on_trip is not None:
+            self.on_trip()
+
+
+class ResourceExhausted(RuntimeError):
+    """Device allocation failure — the capacity-fault class, and the
+    shape a real allocation failure (an XLA RESOURCE_EXHAUSTED, a CUDA
+    out-of-memory error, an allocation-site MemoryError) is classified
+    into by is_capacity_error. NOT a device fault: no device is sick,
+    the working set is too big — the remedy is compaction, a smaller
+    wave, or the host twin, never quarantine or a mesh reform."""
+
+
+# markers an allocation failure embeds in its message: the gRPC status
+# name XLA runtimes surface, and "out of memory", which also covers
+# torch.cuda.OutOfMemoryError ("CUDA out of memory. Tried to allocate
+# ..."). "device.oom" is the reference's injected capacity fault; the
+# list is the reference's, so both packages classify alike.
+_CAPACITY_MARKERS = ("RESOURCE_EXHAUSTED", "resource exhausted",
+                     "out of memory", "OOM when allocating",
+                     "device.oom")
+
+
+def is_capacity_error(exc: BaseException) -> bool:
+    """True when the exception chain is a capacity miss — an
+    allocation-site MemoryError, a ResourceExhausted, or an error whose
+    text carries an allocation-failure marker. Walks __cause__/
+    __context__: a runtime wraps backend errors, and the classification
+    must see through the wrapping."""
+    seen = set()
+    e: Optional[BaseException] = exc
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, (MemoryError, ResourceExhausted)):
+            return True
+        text = str(e)
+        if any(m in text for m in _CAPACITY_MARKERS):
+            return True
+        e = e.__cause__ or e.__context__
+    return False

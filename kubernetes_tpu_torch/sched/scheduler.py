@@ -102,12 +102,18 @@ pod, as the JAX reconciler resolves it: bound there (by another writer:
 CONFIRMED) adopts that binding; unbound (ORPHANED) forgets the
 assumption and parks the pod with backoff; gone (GONE) forgets it.
 
-Left out with no stand-in: the circuit breakers, the bind journal and
-the reconciler's retries, extenders (a profile with extenders raises
-NotImplementedError), the mesh, the memory governor, poison quarantine
-and load shedding; the series of that machinery (breaker, store, mesh,
-HBM, shedding, poison, spool) stay at zero in `metrics`. The ledger
-writes `breaker="closed"`, the JAX value while its breaker is closed.
+The cluster autoscaler (controllers/clusterautoscaler.py) reads the
+unschedulable map through `pending_unschedulable` and featurizes its
+what-ifs through `shadow_featurizer`; neither touches a round.
+
+Left out with no stand-in: the circuit breakers (sched/breaker.py holds
+the breaker the zone tally takes; no scheduler path takes one), the
+bind journal and the reconciler's retries, extenders (a profile with
+extenders raises NotImplementedError), the mesh, the memory governor,
+poison quarantine and load shedding; the series of that machinery
+(breaker, store, mesh, HBM, shedding, poison, spool) stay at zero in
+`metrics`. The ledger writes `breaker="closed"`, the JAX value while its
+breaker is closed.
 """
 
 from __future__ import annotations
@@ -499,6 +505,24 @@ class Scheduler:
 
     def unschedulable_pods(self) -> List[api.Pod]:
         return self.queue.unschedulable_pods()
+
+    # -- cluster-autoscaler hooks (kubernetes_tpu/sched/scheduler.py:
+    # 4318-4331) ----------------------------------------------------------------
+
+    def pending_unschedulable(self) -> List[api.Pod]:
+        """Snapshot of the unschedulable map — the cluster autoscaler's
+        demand feed: pods that failed on every node and wait for the
+        cluster to change."""
+        return self.queue.unschedulable_pods()
+
+    def shadow_featurizer(self, snapshot: Snapshot) -> PodFeaturizer:
+        """Pending-pod featurization over a scratch snapshot (the
+        autoscaler's what-if hook, ops/simulate.py): shares the live
+        GroupLister so spreading selectors encode exactly as they would
+        on the live path. The scratch snapshot must share the live
+        vocabularies (shadow_snapshot guarantees it) so interned ids
+        line up."""
+        return PodFeaturizer(snapshot, self.featurizer.group_selectors)
 
     def wave_path(self) -> str:
         """What the most recent device program ran: 'cuda' when the

@@ -6,8 +6,10 @@ dispatch on the card against the CPU, the score decomposition and the
 cluster telemetry on the card against the CPU, and the scheduler on the
 card against the same scheduler on the CPU (with inter-pod affinity,
 topology spread, gangs and preemption too; traced, its ledger rows and
-decisions too). Every test is marked `cuda` and skips without a card
-(the kernels have no CPU mode).
+decisions too), the node-lifecycle zone tally on the card against
+np.bincount, and one cluster-autoscaler scale-up what-if on the card
+against the same pass on the CPU. Every test is marked `cuda` and skips
+without a card (the kernels have no CPU mode).
 
 This file imports neither JAX nor kubernetes_tpu, so it also runs where
 only the port's dependencies are installed:
@@ -296,3 +298,76 @@ def test_traced_scheduler_on_card_matches_cpu(cuda, tmp_path):
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][4] == 0
     assert any("telemetry" in r for r in got["cuda"][1])
+
+
+@pytest.mark.parametrize("cap,n,z,nz", [(8192, 5000, 3, 8), (64, 40, 7, 8)])
+def test_zone_tally_on_card_matches_host(cuda, cap, n, z, nz):
+    """The node-lifecycle tally's two int32 segment sums on the card
+    equal np.bincount, and the call took the device path."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import zonehealth as tzh
+
+    rng = np.random.RandomState(cap + n)
+    zone_id = np.zeros((cap,), np.int32)
+    zone_id[:n] = rng.randint(0, z, size=n)
+    bad = np.zeros((cap,), bool)
+    bad[:n] = rng.rand(n) < 0.6
+    valid = np.zeros((cap,), bool)
+    valid[:n] = True
+    tzh.reset_counts()
+    got = tzh.zone_tally(zone_id, bad, valid, nz, device=cuda)
+    assert tzh.TALLY_COUNTS == {"device": 1, "host": 0, "device_failures": 0}
+    for g, w in zip(got, tzh.zone_tally_host(zone_id, bad, valid, nz)):
+        assert g.dtype == np.int32 and (g == w).all()
+
+
+def test_scale_up_what_if_on_card_matches_cpu(cuda):
+    """One autoscaler pass over pods no real node can host: the verdict
+    (chosen rows and the feasibility plane), the group picked and its
+    size on the card equal the CPU's, and the what-if launched the
+    taint/port kernel."""
+    from kubernetes_tpu_torch.api import types as api
+    from kubernetes_tpu_torch.cloud.provider import (FakeCloud,
+                                                     node_from_template)
+    from kubernetes_tpu_torch.controllers import ClusterAutoscaler
+
+    taint = api.Taint(key="dedicated", value="batch",
+                      effect=api.NO_SCHEDULE)
+    tol = api.Toleration(key="dedicated", operator="Equal", value="batch",
+                         effect=api.NO_SCHEDULE)
+    got = {}
+    for device in ("cuda", "cpu"):
+        store = ObjectStore()
+        clock = FakeClock()
+        sched = Scheduler(store, wave_size=16, device=device, clock=clock)
+        for i in range(6):
+            store.create("nodes", plain_node("kubernetes_tpu_torch",
+                                             f"n{i}", cpu="2"))
+        cloud = FakeCloud()
+        cloud.joiner = lambda g, name, store=store: store.create(
+            "nodes", node_from_template(g, name))
+        cloud.add_node_group("std", plain_node("kubernetes_tpu_torch", "t1",
+                                               cpu="4"), max_size=8)
+        cloud.add_node_group("batch", plain_node(
+            "kubernetes_tpu_torch", "t2", cpu="16", taints=[taint]),
+            max_size=8, price=2.0)
+        ca = ClusterAutoscaler(store, cloud, sched, clock=clock)
+        for i in range(12):
+            pod = plain_pod("kubernetes_tpu_torch", f"p{i}", cpu="3")
+            if i % 2:
+                pod.spec.tolerations = [tol]
+            store.create("pods", pod)
+        assert sched.schedule_pending() == 0
+        before = ttp.taint_ports_masks.launches
+        r = ca.run_once()
+        launched = ttp.taint_ports_masks.launches - before
+        v = ca.last_verdict
+        got[device] = (r, v.chosen.tolist(), v.feasible.tolist(), v.n_real,
+                       ca.last_scale_up,
+                       sched.metrics.scheduling_errors.value(
+                           stage="autoscaler"))
+        if device == "cuda":
+            assert launched >= 1
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0]["scaled_up"] >= 1 and got["cuda"][5] == 0
