@@ -191,6 +191,45 @@ Phases (any failure exits non-zero and prints no result line):
                ms a call at N = 8 192 against its byte bound. Then card
                == CPU on 500 nodes: zone states, taint sets, evicted
                pods and bindings.
+  17. faults — the device-fault ladder (sched/scheduler.py, ops/
+               hostwave.py, utils/watchdog.py, utils/faultpoints.py) at
+               5 000 nodes: (a) the numpy twin's wave against the card's
+               on seeded density, mixed (inter-pod affinity) and spread
+               worlds, one wave of 128 pods at N = 8 192, and its gang
+               against the card's on 16 members (need met and not):
+               every plane equal; the ms of a wave on each; (b) the
+               density world of 2 048 pods with kernel.round raising
+               once and kernel.wave twice: the round hands the backlog
+               to the per-wave path, the breaker OPEN, the backlog
+               drained through the twin a wave at a time (pods/s
+               printed, wave_path 'host'); past the cooldown on a
+               virtual clock 512 more pods: the half-open probe on the
+               card closes the breaker and the kernel launches; the
+               bindings equal a fault-free run of the same world
+               through the per-wave path on the card (a round checks
+               host ports against its start state, so a round and the
+               per-wave path may place a port pod apart); (c) the
+               watchdog armed at three times a measured healthy round
+               dispatch and a kernel.hang of two deadlines:
+               DispatchTimeout, the breaker OPEN at once, the round
+               salvaged through the twin a wave at a time, equal to a
+               healthy per-wave run, the wedge drained, the probe
+               closing the breaker; (d) 2 048 pods with 4 NaN-spec pods
+               and one wave.poison crash-kind pod: 2 043 placed, 5
+               quarantined, the breaker CLOSED, no trip, the innocents
+               equal to a clean run without the five but for pods
+               asking a host port (the bisection's smaller rounds check
+               ports against other start states), which pass
+               check_bindings; (e) phase 15's world at 500
+               nodes with the breaker forced OPEN: the autoscaler's
+               what-if on backend="host" (no kernel launch) equal to the
+               device branch's (chosen, feasible; refit too). (b) and
+               (d) halve their pods (to no fewer than 512) when they
+               project past 45 s.
+After each of phases 4-16 every Scheduler the phase built is checked:
+breaker CLOSED, no trip, no device failure (so no twin wave), no
+watchdog abandonment, no quarantined pod (a healthy phase that leaned on
+the ladder fails).
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -283,6 +322,22 @@ AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG = 500, 32
 OUTAGE_B_FRACTION, OUTAGE_C_NODES, OUTAGE_DENSITY = 0.6, 20, 512
 OUTAGE_GRACE = 41.0
 OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0, 542.0)
+# phase 17 (the device-fault ladder): (b) and (d) drain FAULT_PODS density
+# pods (halved, to no fewer than FAULT_MIN_PODS, when the phase projects
+# past FAULT_BUDGET_S), (b) then FAULT_LATE more after the breaker's
+# cooldown; (a)'s gang has FAULT_GANG members; (c) drains FAULT_WATCH
+# pods under a deadline of FAULT_DEADLINE_X healthy dispatches; (d)'s
+# NaN-spec pods (at these places of 2 048 pods, scaled to the pod count)
+# and its crash-kind pod (inside the first wave, where the attribution
+# replay reproduces the crash at once)
+FAULT_PODS, FAULT_LATE, FAULT_MIN_PODS, FAULT_BUDGET_S = 2048, 512, 512, 45.0
+FAULT_GANG, FAULT_WATCH, FAULT_DEADLINE_X = 16, 256, 3.0
+FAULT_NAN, FAULT_CRASH = (100, 700, 1300, 1900), 40
+
+
+def nan_pods(n_pods):
+    """The names of phase 17 (d)'s NaN-spec pods among n_pods."""
+    return [f"pod-{i * n_pods // 2048}" for i in FAULT_NAN]
 # the scheduler series phase 14 holds card == CPU: those every drain
 # observes and those the recorder, the decomposition, the shadow pass and
 # the telemetry feed
@@ -355,7 +410,8 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
     and 1/20 maintenance:NoExecute, bound pods holding hostPort 8080 on
     1/10 of the nodes, and a backlog of bench.py's density pods
     (100m / 128Mi) of which 1/4 tolerate `dedicated`, 1/10 ask for
-    hostPort 8080 and 1/10 carry a zone nodeSelector."""
+    hostPort 8080
+    and 1/10 carry a zone nodeSelector."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -415,7 +471,8 @@ def build_store(api, store_mod, n_nodes: int, n_pods: int, seed: int):
                                  port=True, tolerate="all"))
     for j in range(n_pods):
         store.create("pods", pod(
-            f"pod-{j}", port=rng.rand() < 0.10, tolerate=rng.rand() < 0.25,
+            f"pod-{j}", port=rng.rand() < 0.10,
+            tolerate=rng.rand() < 0.25,
             zone=f"zone-{rng.randint(3)}" if rng.rand() < 0.10 else None))
     return store, len(port_nodes)
 
@@ -3220,6 +3277,657 @@ def zone_outage_phase(torch, mods, enc, bucket_size, ctl):
             "tally_ms": ms, "tally_bound_ms": b_ms}
 
 
+# --- phase 17: the device-fault ladder -----------------------------------------
+
+
+class Ladder:
+    """Every Scheduler a phase builds (it stands in for the class in the
+    phases' `mods`), so that each healthy phase can be held to no use of
+    the device-fault ladder, read from each scheduler's own state and
+    metrics: breaker CLOSED, no trip, no device failure
+    (scheduling_errors{stage="wave"}: every twin wave of a CLOSED breaker
+    follows one), no watchdog abandonment, no quarantined pod, no
+    conviction. waves_total{path="host"} is not read: it also counts the
+    exact host path's one-pod passes, which healthy phases take for
+    multi-key pods. check() drops the schedulers it held, so a phase's
+    device memory is freed after it."""
+
+    def __init__(self, Scheduler):
+        self.cls = Scheduler
+        self.made = []
+
+    def __call__(self, *a, **kw):
+        s = self.cls(*a, **kw)
+        self.made.append(s)
+        return s
+
+    def check(self, phase: str) -> None:
+        for s in self.made:
+            wd = s.watchdog
+            used = {"breaker": s.breaker.state, "trips": s.breaker.trips,
+                    "device_path_trips": int(s.metrics.device_path_trips.value),
+                    "abandoned": wd.abandoned_total if wd is not None else 0,
+                    "quarantined": s.queue.quarantine_count(),
+                    "convictions": s.poison_convictions,
+                    "device_failures": int(
+                        s.metrics.scheduling_errors.value(stage="wave"))}
+            if used != {"breaker": "closed", "trips": 0,
+                        "device_path_trips": 0, "abandoned": 0,
+                        "quarantined": 0, "convictions": 0,
+                        "device_failures": 0}:
+                fail(f"{phase}: a healthy phase used the device-fault "
+                     f"ladder: {used}")
+        log(f"[ladder] {phase}: {len(self.made)} schedulers, breaker "
+            "CLOSED, no trip, no device failure, no watchdog abandonment, "
+            "no quarantined pod")
+        self.made = []
+
+
+def same_planes(name, host, card, fields):
+    """The twin's result and the card's, field by field: the same shape
+    and every element equal (f32 planes compared bit for bit)."""
+    import numpy as np
+
+    for f in fields:
+        a = np.asarray(getattr(host, f))
+        b = getattr(card, f).cpu().numpy()
+        if a.shape != b.shape:
+            fail(f"faults: {name} {f}: twin shape {a.shape}, card {b.shape}")
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        if not np.array_equal(a, b):
+            bad = np.argwhere(a != b)
+            fail(f"faults: {name} {f}: twin and card differ at "
+                 f"{len(bad)} entries, e.g. {bad[:3].tolist()}")
+
+
+def twin_card(torch, mods, enc, bucket_size, lbl, hostwave):
+    """Phase 17 (a): the port's twin (ops/hostwave.py) against the card's
+    wave on seeded density, mixed (inter-pod affinity) and spread worlds
+    at FULL_NODES nodes, one wave of WAVE pods; then the gang on
+    FAULT_GANG density pods. Returns the ms a wave on each, by world."""
+    import numpy as np
+
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = \
+        mods
+    planes = ("masks", "chosen", "score", "fail_counts", "feasible_count",
+              "rr_end", "finite")
+    worlds = {
+        "density": lambda: build_store(api, store_mod, FULL_NODES, WAVE,
+                                       SEED + 17),
+        "mixed": lambda: build_mixed(api, lbl, store_mod, FULL_NODES,
+                                     4 * WAVE),
+        "spread": lambda: build_spread(api, lbl, store_mod, FULL_NODES,
+                                       WAVE, 8),
+    }
+    out = {}
+    for name, build in worlds.items():
+        t_world = time.monotonic()
+        store, n_bound = build()
+        pending = [p for p in store.list("pods") if not p.spec.node_name]
+        if name == "mixed":
+            # a quarter of the wave from each of the four workloads
+            q = len(pending) // 4
+            pods = [p for k in range(4)
+                    for p in pending[k * q:k * q + WAVE // 4]]
+        else:
+            pods = pending[:WAVE]
+        caps = scheduler_caps(enc, bucket_size, FULL_NODES, len(pending),
+                              n_bound, len(pending) if name == "mixed"
+                              else 0)
+        sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda")
+        world_s = time.monotonic() - t_world
+        pb = sched.featurizer.featurize(pods)
+        P, N = pb.req.shape[0], sched.snapshot.caps.N
+        has_ipa = bool(sched.snapshot.has_affinity_terms or pb.ra_has.any()
+                       or pb.rn_has.any() or (pb.pa_w != 0).any())
+        gating, wvec, _ = sched._weights_kw()
+        zl = dict(num_zones=sched.snapshot.caps.Z,
+                  num_label_values=sched.snapshot.num_label_values)
+        nt_h, pm_h, tt_h = sched.snapshot.host_tensors()
+        t0 = time.monotonic()
+        host, _ = hostwave.schedule_wave_host(
+            nt_h, pm_h, tt_h, pb, np.ones((P, N), bool), 7, None,
+            weights=gating, has_ipa=has_ipa, weight_vec=wvec, **zl)
+        host_s = time.monotonic() - t0
+        nt, pm, tt = sched.snapshot.to_device("cuda")
+        pbt = enc.to_torch(None, None, None, pb, "cuda")[3]
+        ext = torch.ones((P, N), dtype=torch.bool, device="cuda")
+        wv = enc.weight_vec_to_torch(wvec, "cuda")
+        rr = torch.tensor(7, dtype=torch.int32, device="cuda")
+
+        def card():
+            return kernel_mod.schedule_wave(nt, pm, tt, pbt, ext, rr, None,
+                                            weights=gating, has_ipa=has_ipa,
+                                            weight_vec=wv, **zl)
+
+        res = card()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(3):
+            res = card()
+        torch.cuda.synchronize()
+        card_s = (time.monotonic() - t0) / 3
+        same_planes(f"{name} wave", host, res, planes)
+        placed = int((np.asarray(host.chosen) >= 0).sum())
+        if placed < len(pods) // 2:
+            fail(f"faults: {name} wave placed only {placed} of {len(pods)}")
+        log(f"[faults] (a) {name}: twin == card on every plane (masks, "
+            f"chosen, score, fail_counts, feasible_count, rr_end, finite), "
+            f"P={P} N={N} has_ipa {has_ipa} has_ts "
+            f"{bool(pb.ts_valid.any())}, {placed} placed; a wave: twin "
+            f"{1e3 * host_s:.1f} ms, card {1e3 * card_s:.1f} ms")
+        out[name] = (host_s, card_s, world_s)
+        if name == "density":
+            gpods = pending[:FAULT_GANG]
+            gb = sched.featurizer.featurize(gpods)
+            G = gb.req.shape[0]
+            gbt = enc.to_torch(None, None, None, gb, "cuda")[3]
+            gext = torch.ones((G, N), dtype=torch.bool, device="cuda")
+            for need in (FAULT_GANG, FAULT_GANG + 1):
+                t0 = time.monotonic()
+                hg = hostwave.schedule_gang_host(
+                    nt_h, pm_h, tt_h, gb, np.ones((G, N), bool), 7, None,
+                    need, weights=gating, weight_vec=wvec, **zl)
+                hg_s = time.monotonic() - t0
+                cg = sched_mod.schedule_gang(
+                    nt, pm, tt, gbt, gext, rr, None,
+                    torch.tensor(need, dtype=torch.int32, device="cuda"),
+                    weights=gating, weight_vec=wv,
+                    ts_valid_host=gb.ts_valid, **zl)
+                same_planes(f"gang need {need}", hg, cg,
+                            ("ok", "chosen", "placed", "rr_end", "finite",
+                             "masks", "fail_counts"))
+                if bool(hg.ok) != (need == FAULT_GANG):
+                    fail(f"faults: the gang of {FAULT_GANG} with need "
+                         f"{need} admitted {bool(hg.ok)}")
+                log(f"[faults] (a) gang of {FAULT_GANG} ({G} rows), need "
+                    f"{need}: twin == card (ok {bool(hg.ok)}, chosen, "
+                    f"placed, rr_end, finite, masks, fail_counts); twin "
+                    f"{1e3 * hg_s:.1f} ms")
+        del sched, store, nt, pm, tt, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def drain_per_wave(sched) -> int:
+    """Drain the active queue through the per-wave path
+    (Scheduler.run_once, one wave_size dispatch at a time), the path a
+    drain takes once a failed round hands it the backlog. Returns the
+    pods placed."""
+    placed = 0
+    while sched.queue.active_count() > 0:
+        placed += sched.run_once()
+    return placed
+
+
+def ladder_run(torch, mods, enc, bucket_size, faultpoints, n_pods, faulted):
+    """Phase 17 (b): the density world of n_pods pods at FULL_NODES nodes
+    on the card, on a virtual clock. faulted: kernel.round raises once
+    and kernel.wave twice (three device failures, the breaker's
+    threshold): the round hands the backlog to the per-wave path, the
+    breaker opens and the backlog drains through the twin a wave at a
+    time. Not faulted: the same world drains through the per-wave path
+    on the card, so the two runs batch the pods alike. Then, past the
+    cooldown, FAULT_LATE more pods: the half-open probe dispatches on
+    the card and closes the breaker. Both kernels' counts are set to 0
+    before each drive and read after. Returns the bindings and what was
+    seen."""
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = \
+        mods
+    store, n_bound = build_store(api, store_mod, FULL_NODES, n_pods,
+                                 SEED + 171)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, n_pods + FAULT_LATE,
+                          n_bound)
+    clock = VirtualClock()
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock,
+                      backoff=PodBackoff(initial=0.001, clock=clock))
+    marks = []
+    hook = sched.breaker.on_state
+    sched.breaker.on_state = lambda st: (marks.append(
+        (st, time.monotonic())), hook(st))
+    if faulted:
+        faultpoints.activate("kernel.round", "raise", times=1)
+        faultpoints.activate("kernel.wave", "raise", times=2)
+    tp.taint_ports_masks.launches = 0
+    t0 = time.monotonic()
+    placed = (sched.schedule_pending() if faulted
+              else drain_per_wave(sched))
+    torch.cuda.synchronize()
+    drain_s = time.monotonic() - t0
+    launches = tp.taint_ports_masks.launches
+    hits = (faultpoints.hits("kernel.round"), faultpoints.hits("kernel.wave"))
+    seen = {"drain_s": drain_s, "placed": placed, "launches": launches,
+            "port_pods": sum(1 for p in store.list("pods")
+                             if not p.metadata.name.startswith("holder-")
+                             and p.spec.containers[0].ports),
+            "path": sched.wave_path(), "state": sched.breaker.state,
+            "trips": sched.breaker.trips, "hits": hits,
+            "twin_waves": int(sched.metrics.waves_total.value(path="host"))}
+    if faulted:
+        t_open = next((t for st, t in marks if st == "open"), None)
+        if sched.breaker.state != "open" or sched.breaker.trips != 1:
+            fail(f"faults: (b) breaker {sched.breaker.state} with "
+                 f"{sched.breaker.trips} trips after three failures")
+        if sched.wave_path() != "host" or hits != (1, 2):
+            fail(f"faults: (b) wave_path {sched.wave_path()!r}, hits {hits}")
+        seen["t_open"] = None if t_open is None else t_open - t0
+    faultpoints.reset()
+    clock.t += sched.breaker.cooldown + 1.0
+    add_chunk(api, store, "late", 0, FAULT_LATE)
+    marks.clear()
+    tp.taint_ports_masks.launches = 0
+    t1 = time.monotonic()
+    placed_late = sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen["late_s"] = time.monotonic() - t1
+    seen["launches_late"] = tp.taint_ports_masks.launches
+    seen["marks"] = [(st, t - t1) for st, t in marks]
+    if placed + placed_late != n_pods + FAULT_LATE:
+        fail(f"faults: (b) placed {placed} + {placed_late} of "
+             f"{n_pods} + {FAULT_LATE}")
+    if sched.breaker.state != "closed" or sched.wave_path() != "cuda":
+        fail(f"faults: (b) after the probe: breaker {sched.breaker.state}, "
+             f"wave_path {sched.wave_path()!r}")
+    if seen["launches_late"] < 1:
+        fail("faults: (b) the taint/port kernel did not launch after the "
+             "breaker closed")
+    check_bindings(api, store)
+    return bindings(store), seen
+
+
+def watchdog_run(torch, mods, enc, bucket_size, faultpoints, kernel_mod,
+                 n_pods):
+    """Phase 17 (c): a healthy scheduler drains the density world of
+    n_pods pods and its round dispatch (the host's issue of the round,
+    what the watchdog budgets) is timed; a second drains the same world
+    through the per-wave path on the card; a third arms the watchdog at
+    FAULT_DEADLINE_X times the timed dispatch, and a kernel.hang latency
+    of two deadlines wedges its first dispatch: DispatchTimeout,
+    record_hang (the breaker OPEN at once), the same round salvaged
+    through the twin a wave at a time, equal to the per-wave run's
+    bindings. Once the wedged worker returns and the cooldown has
+    passed, the probe closes the breaker on the card. Returns what was
+    seen."""
+    api, tp, pre, _km, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    from kubernetes_tpu_torch.utils.watchdog import DispatchWatchdog
+
+    inner = kernel_mod._schedule_round
+    issue = []
+
+    def timed(*a, **kw):
+        t = time.monotonic()
+        out = inner(*a, **kw)
+        issue.append(time.monotonic() - t)
+        return out
+
+    got = {}
+    kernel_mod._schedule_round = timed
+    try:
+        for mode in ("round", "waves", "armed"):
+            armed = mode == "armed"
+            store, n_bound = build_store(api, store_mod, FULL_NODES, n_pods,
+                                         SEED + 172)
+            caps = scheduler_caps(enc, bucket_size, FULL_NODES,
+                                  n_pods + WAVE, n_bound)
+            clock = VirtualClock()
+            kw = {}
+            if armed:
+                deadline = max(FAULT_DEADLINE_X * max(issue), 0.25)
+                kw = dict(wave_deadline_s=deadline)
+            sched = Scheduler(store, wave_size=WAVE, caps=caps,
+                              device="cuda", clock=clock,
+                              backoff=PodBackoff(initial=0.001, clock=clock),
+                              **kw)
+            if armed:
+                faultpoints.activate("kernel.hang", "latency",
+                                     arg=2 * deadline, times=1)
+            issue_before = len(issue)
+            tp.taint_ports_masks.launches = 0
+            t0 = time.monotonic()
+            placed = (drain_per_wave(sched) if mode == "waves"
+                      else sched.schedule_pending())
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            if placed != n_pods:
+                fail(f"faults: (c) {mode}: placed {placed} of {n_pods}")
+            got[mode] = bindings(store)
+            if mode == "round":
+                healthy = {"issue_s": max(issue), "wall": wall,
+                           "launches": tp.taint_ports_masks.launches}
+            if not armed:
+                check_bindings(api, store)
+                del sched, store
+                continue
+            wd = sched.watchdog
+            if (wd.abandoned_total != 1 or sched.breaker.state != "open"
+                    or sched.breaker.trips != 1
+                    or sched.wave_path() != "host"):
+                fail(f"faults: (c) abandoned {wd.abandoned_total}, breaker "
+                     f"{sched.breaker.state} ({sched.breaker.trips} trips), "
+                     f"wave_path {sched.wave_path()!r}")
+            t_wedge = time.monotonic()
+            if not wd.drain(60.0):
+                fail("faults: (c) the wedged dispatch never returned")
+            wedge_s = time.monotonic() - t_wedge
+            clock.t += sched.breaker.cooldown + 1.0
+            add_chunk(api, store, "probe", 0, WAVE)
+            del issue[issue_before:]
+            tp.taint_ports_masks.launches = 0
+            t1 = time.monotonic()
+            n = sched.schedule_pending()
+            torch.cuda.synchronize()
+            probe_s = time.monotonic() - t1
+            if (n != WAVE or sched.breaker.state != "closed"
+                    or sched.wave_path() != "cuda"
+                    or tp.taint_ports_masks.launches < 1):
+                fail(f"faults: (c) the probe placed {n}, breaker "
+                     f"{sched.breaker.state}, wave_path "
+                     f"{sched.wave_path()!r}")
+            armed_seen = {
+                "deadline": deadline, "salvage_s": wall, "wedge_s": wedge_s,
+                "probe_s": probe_s, "probe_issue_s": max(issue[issue_before:]),
+                "launches": tp.taint_ports_masks.launches,
+                "overruns": sched.metrics.wave_deadline_overruns.value(
+                    stage="dispatch")}
+            check_bindings(api, store)
+            del sched, store
+    finally:
+        kernel_mod._schedule_round = inner
+        faultpoints.reset()
+    salvaged = {k: v for k, v in got["armed"].items()
+                if not k.startswith("probe-")}
+    if salvaged != got["waves"]:
+        diff = [k for k in got["waves"]
+                if got["waves"][k] != salvaged.get(k)]
+        fail(f"faults: (c) the salvaged round's bindings differ from the "
+             f"per-wave run's for {len(diff)} pods, e.g. {diff[:5]}")
+    # the round's own bindings, for the record: it checks host ports
+    # against its start state, so it may place port pods otherwise
+    healthy["round_differs"] = sum(
+        1 for k in got["waves"] if got["waves"][k] != got["round"].get(k))
+    # the watchdog's own cost: a guarded no-op dispatch
+    wd = DispatchWatchdog(10.0)
+    t0 = time.monotonic()
+    for _ in range(200):
+        wd.run(lambda: None)
+    guard_us = (time.monotonic() - t0) / 200 * 1e6
+    return healthy, armed_seen, guard_us
+
+
+def poison_run(torch, mods, enc, bucket_size, faultpoints, featurize_mod,
+               n_pods, poisoned):
+    """Phase 17 (d): the density world of n_pods pods; poisoned: the
+    pods of FAULT_NAN get a NaN cpu request and the pod FAULT_CRASH rides
+    a wave.poison crash-kind fault; otherwise those five pods are left
+    out. Returns the innocents' bindings, the names of the pods asking a
+    host port, and what was seen."""
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = \
+        mods
+    store, n_bound = build_store(api, store_mod, FULL_NODES, n_pods,
+                                 SEED + 173)
+    nan_names = nan_pods(n_pods)
+    crash_name = f"pod-{FAULT_CRASH}"
+    for name in nan_names + [crash_name]:
+        if not poisoned:
+            store.delete("pods", "default", name)
+        elif name != crash_name:
+            store.get("pods", "default", name).spec.containers[0] \
+                .resources.requests["cpu"] = float("nan")
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, n_pods, n_bound)
+    clock = VirtualClock()
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock,
+                      backoff=PodBackoff(initial=0.001, clock=clock))
+    if poisoned:
+        uid = store.get("pods", "default", crash_name).uid
+        faultpoints.activate("wave.poison", "corrupt",
+                             fn=featurize_mod.poison_pod_fault(uid, "crash"))
+    rounds = []
+    round_fn = sched_mod.schedule_round
+
+    def counted(*a, **kw):
+        rounds.append(1)
+        return round_fn(*a, **kw)
+
+    sched_mod.schedule_round = counted
+    tp.taint_ports_masks.launches = 0
+    try:
+        t0 = time.monotonic()
+        placed = sched.schedule_pending()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        sched_mod.schedule_round = round_fn
+        faultpoints.reset()
+    m = sched.metrics
+    seen = {"placed": placed, "wall": wall, "rounds": len(rounds),
+            "launches": tp.taint_ports_masks.launches,
+            "poison_rounds": int(m.scheduling_errors.value(stage="poison")),
+            "quarantined": sorted(p.metadata.name
+                                  for p in sched.queue.quarantined_pods()),
+            "reasons": {r: int(m.poison_pods.value(reason=r))
+                        for r in ("featurize", "sentinel", "bisect")},
+            "breaker": sched.breaker.state, "trips": sched.breaker.trips,
+            "device_path_trips": int(m.device_path_trips.value)}
+    check_bindings(api, store)
+    out = {k: v for k, v in bindings(store).items()
+           if k not in nan_names and k != crash_name}
+    ports = {p.metadata.name for p in store.list("pods")
+             if p.spec.containers[0].ports
+             and not p.metadata.name.startswith("holder-")}
+    return out, ports, seen
+
+
+def open_breaker_autoscale(torch, mods, enc, bucket_size, ctl):
+    """Phase 17 (e): phase 15's world at AUTOSCALE_SMALL_NODES nodes with
+    the scheduler's breaker forced OPEN: the autoscaler's scale-up
+    what-if runs on backend="host" (the twin; no kernel launch, nothing
+    dispatched to the card) and its verdict (chosen, feasible) equals the
+    device branch's on the same shadow and batch, as does a refit
+    what-if. Returns what was seen."""
+    import numpy as np
+
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = \
+        mods
+    ClusterAutoscaler, FakeCloud, node_from_template, simulate = ctl
+    n_nodes, n_backlog = AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG
+    clock = VirtualClock()
+    store = store_mod.ObjectStore()
+    caps = enc.Caps(
+        M=bucket_size(AUTOSCALE_RESIDENTS * n_nodes + 2 * n_backlog + 64),
+        P=WAVE, LV=bucket_size(n_nodes + 256, 64))
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock, backoff=PodBackoff(initial=0.001,
+                                                      clock=clock),
+                      disable_preemption=True)
+    add_plain_nodes(api, store, n_nodes)
+    resident_pods(api, store, n_nodes)
+    cloud = FakeCloud()
+    cloud.joiner = lambda g, name: store.create(
+        "nodes", node_from_template(g, name))
+    for name, cpu, price, tainted, max_size in AUTOSCALE_GROUPS:
+        cloud.add_node_group(name, group_template(api, name, cpu, tainted),
+                             max_size=max_size, price=price)
+    ca = ClusterAutoscaler(store, cloud, sched, clock=clock)
+    for i in range(n_backlog):
+        store.create("pods", backlog_pod(api, f"job-{i}", i < n_backlog // 2))
+    if drain_placing(sched, clock):
+        fail("faults: (e) a backlog pod placed before any scale-up")
+    sched.breaker.record_hang()  # OPEN, as a wedged dispatch leaves it
+    captured = {}
+    saved = simulate.simulate_placements
+
+    def spy(*a, **kw):
+        captured["args"] = (a, kw)
+        return saved(*a, **kw)
+
+    simulate.simulate_placements = spy
+    launches0 = tp.taint_ports_masks.launches
+    try:
+        t0 = time.monotonic()
+        r = ca.run_once()
+        host_s = time.monotonic() - t0
+    finally:
+        simulate.simulate_placements = saved
+    if tp.taint_ports_masks.launches != launches0:
+        fail("faults: (e) the OPEN-breaker pass launched a kernel")
+    a, kw = captured["args"]
+    if kw.get("backend") != "host":
+        fail(f"faults: (e) the what-if ran on {kw.get('backend')!r}")
+    v_host = ca.last_verdict
+    dkw = dict(kw, backend="device", device="cuda")
+    v_dev = simulate.simulate_placements(*a, **dkw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    v_dev = simulate.simulate_placements(*a, **dkw)
+    torch.cuda.synchronize()
+    dev_s = time.monotonic() - t0
+    for f in ("chosen", "feasible"):
+        x, y = getattr(v_host, f), getattr(v_dev, f)
+        if x.shape != y.shape or not np.array_equal(x, y):
+            fail(f"faults: (e) the host and device verdicts' {f} differ")
+    shadow, pb = a[0], a[1]
+    rkw = {k: v for k, v in kw.items() if k not in ("backend", "device")}
+    ok_h, ch_h = simulate.simulate_refit(shadow, pb, 1, backend="host", **rkw)
+    ok_d, ch_d = simulate.simulate_refit(shadow, pb, 1, backend="device",
+                                         device="cuda", **rkw)
+    if ok_h != ok_d or not np.array_equal(ch_h, ch_d):
+        fail("faults: (e) the host and device refit verdicts differ")
+    if r["scaled_up"] < 1:
+        fail("faults: (e) the OPEN-breaker pass bought no node")
+    return {"scaled_up": r["scaled_up"], "host_s": host_s, "dev_s": dev_s,
+            "P": pb.req.shape[0], "N": shadow.caps.N,
+            "picked": ca.last_scale_up}
+
+
+def faults_phase(torch, mods, enc, bucket_size, lbl, ctl, hostwave,
+                 faultpoints, featurize_mod):
+    """Phase 17: (a) twin == card, (b) the breaker ladder, (c) the
+    watchdog, (d) poison, (e) the autoscaler with the breaker open. The
+    pods of (b) and (d) halve (to no fewer than FAULT_MIN_PODS) when the
+    phase projects past FAULT_BUDGET_S from (a)'s density wave times."""
+    kernel_mod = mods[3]
+    t_phase = time.monotonic()
+    waves = twin_card(torch, mods, enc, bucket_size, lbl, hostwave)
+    host_s, card_s, world_s = waves["density"]
+    n = FAULT_PODS
+
+    def projected(n):
+        # (b): the twin drain with its attribution replays (at most four
+        # waves for the round, one for each failed wave) and the card
+        # drains of n + FAULT_LATE (fault-free) and FAULT_LATE pods;
+        # (d): two card drains of n pods; four worlds built
+        w = n / WAVE
+        return ((w + min(w, 4) + 4) * host_s
+                + (3 * n + 2 * FAULT_LATE) / WAVE * card_s + 4 * world_s)
+
+    while n > FAULT_MIN_PODS and projected(n) > FAULT_BUDGET_S:
+        n //= 2
+    log(f"[faults] (b) and (d) at {n} pods: projected {projected(n):.1f} s "
+        f"({FAULT_PODS} pods unless they project past "
+        f"{FAULT_BUDGET_S:.0f} s; a density wave: twin {1e3 * host_s:.1f} "
+        f"ms, card {1e3 * card_s:.1f} ms, world {world_s:.1f} s)")
+    t0 = time.monotonic()
+    clean, _ = ladder_run(torch, mods, enc, bucket_size, faultpoints, n,
+                          False)
+    torch.cuda.empty_cache()
+    faulted, seen = ladder_run(torch, mods, enc, bucket_size, faultpoints,
+                               n, True)
+    torch.cuda.empty_cache()
+    if faulted != clean:
+        diff = [k for k in clean if clean[k] != faulted.get(k)]
+        fail(f"faults: (b) the faulted run's bindings differ from the "
+             f"fault-free run's for {len(diff)} pods, e.g. {diff[:5]}")
+    marks = ", ".join(f"{st} at +{t:.3f} s" for st, t in seen["marks"])
+    log(f"[faults] (b) {n} density pods, kernel.round raising once and "
+        f"kernel.wave twice: the breaker OPEN at +{seen['t_open']:.3f} s "
+        f"(trips {seen['trips']}, hits round {seen['hits'][0]} wave "
+        f"{seen['hits'][1]}); the backlog drained through the twin: "
+        f"{seen['placed']} pods in {seen['drain_s']:.3f} s = "
+        f"{seen['placed'] / seen['drain_s']:.1f} pods/s, {seen['twin_waves']} "
+        f"twin waves, wave_path 'host', {seen['launches']} kernel launches")
+    log(f"[faults] (b) past the cooldown: {FAULT_LATE} pods in "
+        f"{seen['late_s']:.3f} s on the card, probe {marks}; "
+        f"{seen['launches_late']} kernel launches; bindings of all "
+        f"{n + FAULT_LATE} pods ({seen['port_pods']} asking hostPort 8080) "
+        f"== the fault-free per-wave run's on the card (twin == card end "
+        f"to end); ladder {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    healthy, armed, guard_us = watchdog_run(
+        torch, mods, enc, bucket_size, faultpoints, kernel_mod, FAULT_WATCH)
+    torch.cuda.empty_cache()
+    log(f"[faults] (c) {FAULT_WATCH} pods: a healthy round's dispatch "
+        f"issue {healthy['issue_s']:.3f} s; deadline "
+        f"{armed['deadline']:.3f} s, a kernel.hang of "
+        f"{2 * armed['deadline']:.3f} s: DispatchTimeout, record_hang, the "
+        f"breaker OPEN at once, the round salvaged through the twin in "
+        f"{armed['salvage_s']:.3f} s (bindings == the healthy per-wave "
+        f"run's; the healthy round placed {healthy['round_differs']} pods "
+        f"otherwise); the "
+        f"wedge drained {armed['wedge_s']:.3f} s later; the probe placed "
+        f"{WAVE} pods on the card in {armed['probe_s']:.3f} s (dispatch "
+        f"issue {armed['probe_issue_s']:.3f} s under the watchdog), breaker "
+        f"CLOSED; overruns{{stage=dispatch}} {armed['overruns']}; a guarded "
+        f"no-op dispatch costs {guard_us:.1f} us; "
+        f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    poisoned, ports, ps = poison_run(torch, mods, enc, bucket_size,
+                                     faultpoints, featurize_mod, n, True)
+    torch.cuda.empty_cache()
+    clean_p, _, cs = poison_run(torch, mods, enc, bucket_size, faultpoints,
+                                featurize_mod, n, False)
+    torch.cuda.empty_cache()
+    n_nan = len(FAULT_NAN)
+    want_q = sorted(nan_pods(n) + [f"pod-{FAULT_CRASH}"])
+    if (ps["placed"] != n - n_nan - 1 or ps["quarantined"] != want_q
+            or ps["breaker"] != "closed" or ps["trips"]
+            or ps["device_path_trips"]):
+        fail(f"faults: (d) placed {ps['placed']}, quarantined "
+             f"{ps['quarantined']}, breaker {ps['breaker']} "
+             f"({ps['trips']} trips)")
+    if ps["reasons"] != {"featurize": n_nan, "sentinel": 0, "bisect": 1}:
+        fail(f"faults: (d) conviction reasons {ps['reasons']}")
+    # the bisection splits the crash pod's round into smaller rounds, and
+    # a round checks host ports against its start state: a pod asking
+    # hostPort 8080 may see another feasible set than in the clean run's
+    # one round and take another node (both runs passed check_bindings:
+    # no port or resource is overcommitted). Every other innocent must
+    # bind as in the clean run.
+    if set(poisoned) != set(clean_p):
+        fail("faults: (d) the poisoned and clean runs hold other pods")
+    diff = [k for k in clean_p if clean_p[k] != poisoned[k]]
+    moved = [k for k in diff if k in ports]
+    if len(moved) != len(diff):
+        bad = [k for k in diff if k not in ports]
+        fail(f"faults: (d) the bindings of {len(bad)} innocents without a "
+             f"host port differ from the clean run's, e.g. {bad[:5]}")
+    log(f"[faults] (d) {n} pods, {n_nan} NaN-spec and one wave.poison "
+        f"crash: {ps['placed']} placed, {len(ps['quarantined'])} "
+        f"quarantined ({ps['reasons']}), {ps['poison_rounds']} input-fault "
+        f"rounds, {ps['rounds']} device rounds in {ps['wall']:.3f} s "
+        f"(clean run without them: {cs['rounds']} rounds in "
+        f"{cs['wall']:.3f} s); breaker CLOSED, device_path_trips 0; the "
+        f"innocents' bindings == the clean run's but for {len(moved)} of "
+        f"the {len(ports & set(clean_p))} asking hostPort 8080 (the rest "
+        f"equal); "
+        f"{time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    auto = open_breaker_autoscale(torch, mods, enc, bucket_size, ctl)
+    log(f"[faults] (e) autoscaler, {AUTOSCALE_SMALL_NODES} nodes, breaker "
+        f"OPEN: the scale-up what-if on the twin (P={auto['P']} "
+        f"N={auto['N']}, run_once {auto['host_s']:.3f} s, no kernel "
+        f"launch) == the device branch ({auto['dev_s']:.3f} s) on chosen "
+        f"and feasible, refit too; bought {auto['picked']}; "
+        f"{time.monotonic() - t0:.1f} s")
+    kernel_mod.set_watchdog(None)
+    log(f"[faults] phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": seen["launches"] + seen["launches_late"]
+            + armed["launches"] + ps["launches"],
+            "whatif_launches": 0}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -3238,6 +3946,7 @@ def main() -> None:
     from kubernetes_tpu_torch.ops import affinity
     from kubernetes_tpu_torch.ops import encoding as enc
     from kubernetes_tpu_torch.ops import filters
+    from kubernetes_tpu_torch.ops import hostwave
     from kubernetes_tpu_torch.ops import kernel as kernel_mod
     from kubernetes_tpu_torch.ops import preempt as pre
     from kubernetes_tpu_torch.ops import simulate
@@ -3251,12 +3960,17 @@ def main() -> None:
     from kubernetes_tpu_torch.sched import scheduler as sched_mod
     from kubernetes_tpu_torch.sched import weights as weights_mod
     from kubernetes_tpu_torch.sched.scheduler import Scheduler
+    from kubernetes_tpu_torch.state import featurize as featurize_mod
     from kubernetes_tpu_torch.state.vocab import bucket_size
     from kubernetes_tpu_torch.utils.backoff import PodBackoff
     from kubernetes_tpu_torch.utils.feature_gates import FeatureGates
-    from kubernetes_tpu_torch.utils import tracing
+    from kubernetes_tpu_torch.utils import faultpoints, tracing
     from kubernetes_tpu_torch.utils.metrics import Metrics
 
+    # every Scheduler the phases build, held to no use of the fault
+    # ladder after each healthy phase (4-16)
+    ladder = Ladder(Scheduler)
+    Scheduler = ladder
     mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
     phase_mods = mods + (PodBackoff, store_mod)
     t_start = time.monotonic()
@@ -3366,6 +4080,7 @@ def main() -> None:
     dens = drain(torch, mods, "density", store, caps, n_bound)
     if dens["placed"] < FULL_PODS // 2:
         fail(f"density: only {dens['placed']} of {FULL_PODS} pods placed")
+    ladder.check("density")
     del store
 
     # the kernel and its plain version on the inputs the rounds gave it;
@@ -3513,6 +4228,7 @@ def main() -> None:
     log(f"[parity] policy, {SMALL_NODES} nodes, {SMALL_PODS} pods: card == "
         "CPU bindings")
     t_vol = time.monotonic() - t_vol
+    ladder.check("parity")
 
     # 6. the mixed5k drain at full width
     store, n_bound = build_mixed(api, lbl, store_mod, FULL_NODES, FULL_PODS)
@@ -3520,6 +4236,7 @@ def main() -> None:
                           FULL_PODS - 3 * (FULL_PODS // 4))
     mixed = drain(torch, mods, "mixed", store, caps, n_bound,
                   statics="incoming_statics", sync_probe=True)
+    ladder.check("mixed")
     if mixed["placed"] != FULL_PODS:
         fail(f"mixed: placed {mixed['placed']} of {FULL_PODS} pods")
     n_anti = check_anti_affinity(store)
@@ -3550,6 +4267,7 @@ def main() -> None:
                           n_bound)
     spread = drain(torch, mods, "spread", store, caps, n_bound,
                    statics="topo_statics")
+    ladder.check("spread")
     if spread["placed"] != SPREAD_PODS:
         fail(f"spread: placed {spread['placed']} of {SPREAD_PODS} pods")
     counts = zone_counts(store)
@@ -3571,6 +4289,7 @@ def main() -> None:
 
     # 8. the gangstorm drain
     gang = gang_phase(torch, phase_mods, enc, bucket_size)
+    ladder.check("gang")
     captured = gang.pop("captured")
     for P, w in sorted(captured.items()):
         whatif_err = max(whatif_err, check_whatif(
@@ -3584,6 +4303,7 @@ def main() -> None:
 
     # 9. the preempt drain
     prem = preempt_phase(torch, phase_mods, enc, bucket_size)
+    ladder.check("preempt")
     captured = prem.pop("captured")
     for P, w in sorted(captured.items()):
         whatif_err = max(whatif_err, check_whatif(
@@ -3605,8 +4325,11 @@ def main() -> None:
     # 10-12. the rest of bench.py's DRIVER_SUITE
     t0 = time.monotonic()
     trickle = trickle_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    ladder.check("trickle")
     paced = paced_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    ladder.check("paced")
     phost = preempt_host_phase(torch, phase_mods, enc, bucket_size, Metrics)
+    ladder.check("preempt_host")
     t_new += time.monotonic() - t0
 
     # 13. StatefulSets with claims beside density pods
@@ -3616,6 +4339,7 @@ def main() -> None:
                            WAVE * per_pod_ms(dens["rounds"], "has_ipa")[False]
                            / 1e3)
     max_err = max(max_err, ss.pop("max_err"))
+    ladder.check("statefulset")
     t_vol += time.monotonic() - t0
 
     # 14. the flight recorder and the decision observatory
@@ -3623,19 +4347,30 @@ def main() -> None:
     traced = traced_phase(torch, phase_mods, enc, bucket_size, filters, tele,
                           tracing, weights_mod, SCORE_STACK)
     max_err = max(max_err, traced.pop("max_err"))
+    ladder.check("traced")
     t_traced = time.monotonic() - t0
 
     # 15-16. the cluster-lifecycle controllers
     t0 = time.monotonic()
-    auto = autoscale_phase(torch, phase_mods, enc, bucket_size, (
-        ClusterAutoscaler, FakeCloud, node_from_template, simulate))
+    ctl = (ClusterAutoscaler, FakeCloud, node_from_template, simulate)
+    auto = autoscale_phase(torch, phase_mods, enc, bucket_size, ctl)
+    ladder.check("autoscale")
     outage = zone_outage_phase(torch, phase_mods, enc, bucket_size,
                                (nl_mod, zonehealth))
+    ladder.check("zone_outage")
     t_ctl = time.monotonic() - t0
+
+    # 17. the device-fault ladder
+    t0 = time.monotonic()
+    faults = faults_phase(torch, phase_mods, enc, bucket_size, lbl, ctl,
+                          hostwave, faultpoints, featurize_mod)
+    ladder.made = []
+    t_faults = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
-              "traced": traced, "autoscale": auto, "zone_outage": outage}
+              "traced": traced, "autoscale": auto, "zone_outage": outage,
+              "faults": faults}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -3645,7 +4380,7 @@ def main() -> None:
         + f"; phases multikey, trickle, paced and preempt_host "
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
-        f"total {time.monotonic() - t_start:.1f} s")
+        f"faults {t_faults:.1f} s; total {time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

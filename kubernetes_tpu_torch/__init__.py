@@ -13,16 +13,19 @@ Layout (each module sits under the same path as its counterpart):
   ops/      -- the device path: selector programs, filters, scores, the
                wave/round, the gang dispatch, the preemption what-if, the
                telemetry, the zone tally, the autoscaler's simulation,
-               and the build of the CUDA kernels
+               the build of the CUDA kernels, and the numpy twin of the
+               wave, gang, what-if and telemetry (hostwave.py)
   csrc/     -- CUDA C++ sources (taint/host-port, preemption what-if),
                built at first use into _build/
   plugins/  -- the golden host predicates and priorities, the volume
                predicates, and the profiles and Policy-file registry
   utils/    -- per-pod exponential backoff, metrics, feature gates,
-               tracing, the token bucket
+               tracing, the token bucket, fault points, the dispatch
+               watchdog
   sched/    -- the scheduler: queue, rounds, gangs, preemption, host
                plugins, the equivalence cache, claim binding, commit;
-               the device-path breaker
+               the device-path breaker and its ladder (the twin rung,
+               poison quarantine)
   client/   -- work queues and event recording for the controllers
   cloud/    -- node groups and the fake cloud the autoscaler sizes
   controllers/ -- the node-lifecycle controller (zone tally on the

@@ -4,7 +4,8 @@ The part of kubernetes_tpu/cloud/provider.py that the autoscaler and its
 tests use: the NodeGroup and its template node, the NodeGroups sizing
 interface, the CloudProvider accessor for it, and the in-memory
 FakeCloud (pkg/cloudprovider/providers/fake/fake.go) with its `joiner`
-seam, through which a booted instance registers as a Node. The load
+seam, through which a booted instance registers as a Node, and the
+`cloud.resize` fault point before either resize mutates anything. The load
 balancer, instance, zone and route interfaces of the reference's
 cloud.go are not ported: no ported controller calls them.
 """
@@ -17,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
+from ..utils import faultpoints
 
 # Stamped by the cloud-node controller from Instances.instance_type;
 # the cluster autoscaler infers NodeGroup membership from it.
@@ -178,6 +180,8 @@ class FakeCloud(CloudProvider, NodeGroups):
         new: List[Tuple[NodeGroup, str]] = []
         with self._lock:
             self._record("increase-size")
+            faultpoints.fire("cloud.resize",
+                             payload=("increase_size", name, delta))
             g = self.groups_by_name.get(name)
             if g is None:
                 raise KeyError(f"node group {name} not found")
@@ -210,6 +214,8 @@ class FakeCloud(CloudProvider, NodeGroups):
         group; a call that raises mutates nothing."""
         with self._lock:
             self._record("delete-nodes")
+            faultpoints.fire("cloud.resize",
+                             payload=("delete_nodes", name, tuple(node_names)))
             g = self.groups_by_name.get(name)
             if g is None:
                 raise KeyError(f"node group {name} not found")

@@ -3,8 +3,13 @@
 A copy of kubernetes_tpu/controllers/clusterautoscaler.py over the
 port's simulate (both what-ifs run the port's wave and gang on the
 scheduler's device, so on the card they launch the taint/port kernel),
-featurizer, PDB check and PodBackoff. The reference's fault points
-(`autoscaler.simulate`, `cloud.resize`) are not ported.
+featurizer, PDB check and PodBackoff, with the reference's fault points
+(`autoscaler.simulate` in ops/simulate.py, `cloud.resize` in
+cloud/provider.py). While the scheduler's device-path breaker is OPEN
+the what-ifs run on the numpy twin (`_simulate_backend`), so a tripped
+card is never dispatched to; a sticky CUDA error (an illegal address, a
+device-side assert) keeps that breaker from closing until the process
+restarts, and the autoscaler then stays on the twin.
 
 Reference: kubernetes/autoscaler cluster-autoscaler — RunOnce loops
 ScaleUp (estimate which node-group expansion makes the pending pods
@@ -161,12 +166,9 @@ class ClusterAutoscaler(Controller):
         """What-if execution backend: the numpy host twin while the
         scheduler's device-path breaker is open (a tripped runtime must
         not be dispatched to — the what-if would fail, log, and skip the
-        resize every pass), the device otherwise. The twin does not
-        carry inter-pod affinity, so has_ipa shadows still attempt the
-        device (matching the pre-twin behavior: failure is caught and
-        the pass skipped). The port's Scheduler has no breaker yet, so
-        this is "device" there (ops/simulate.py does not carry the
-        twin)."""
+        resize every pass), the device otherwise. has_ipa shadows still
+        attempt the device, as the reference's do (a failure is caught
+        and the pass skipped)."""
         from ..sched.breaker import OPEN
 
         sched = self.scheduler

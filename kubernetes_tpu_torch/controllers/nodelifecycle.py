@@ -55,9 +55,10 @@ LastHeartbeatTime on NodeCondition).
 
 A copy of kubernetes_tpu/controllers/nodelifecycle.py whose zone tally
 runs on `device` (the CUDA card unless the caller passes another; a
-Scheduler's device when the controller shares its store). The
-reference's fault points (`nodelifecycle.tally`, `nodelifecycle.evict`)
-are not ported.
+Scheduler's device when the controller shares its store). Its fault
+points are the reference's: `nodelifecycle.tally` (ops/zonehealth.py)
+and `nodelifecycle.evict`, after the zone rate limiter admitted an
+eviction and before the pod delete.
 """
 
 from __future__ import annotations
@@ -74,6 +75,7 @@ from ..ops import encoding as enc
 from ..ops import zonehealth
 from ..runtime.store import Conflict
 from ..state.vocab import Interner, VocabSet, bucket_size
+from ..utils import faultpoints
 from ..utils.metrics import Metrics
 from ..utils.ratelimit import TokenBucket
 from .base import Controller, is_pod_active
@@ -461,6 +463,12 @@ class NodeLifecycleController(Controller):
                 self._evict_at.pop(key, None)
                 continue
             if not self._bucket(zone).try_take(now):
+                depth[disp] = depth.get(disp, 0) + 1
+                continue
+            if faultpoints.fire("nodelifecycle.evict",
+                                payload=(key, nname)):
+                # drop-mode fault: the eviction API call was lost on the
+                # wire; the entry stays queued and retries next pass
                 depth[disp] = depth.get(disp, 0) + 1
                 continue
             self._evict_at.pop(key, None)

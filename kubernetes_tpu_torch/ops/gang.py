@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import faultpoints
 from . import encoding as enc
 from .kernel import Weights, _wave_body, dispatch_bucket, record_dispatch
 
@@ -61,7 +62,9 @@ def schedule_gang(nt: enc.NodeTensors, pm: enc.PodMatrix,
     gang admits (minMember < gang size: the surplus parks individually);
     when it does not admit, ALL members report -1 and the usage the loop
     accumulated is dropped with its carry. Counted as a "gang" dispatch
-    (ops/kernel.py record_dispatch)."""
+    (ops/kernel.py record_dispatch), after the `kernel.gang` fault point
+    fires."""
+    faultpoints.fire("kernel.gang")
     if has_ts is None:
         src = ts_valid_host if ts_valid_host is not None else pb.ts_valid
         has_ts = bool(src.any())

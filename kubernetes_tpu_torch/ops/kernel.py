@@ -45,7 +45,10 @@ Every entry point (`schedule_wave`, `schedule_round`, ops/gang.py
 `cluster_telemetry`) runs through `record_dispatch`, which counts its
 dispatches by shape bucket in the metrics registered by
 `set_telemetry`, as the JAX package counts its jit cache hits and
-misses.
+misses, and which is the seam of the dispatch watchdog (`set_watchdog`)
+and of the `kernel.hang` and `device.lost` fault points. The wave, the
+round and the gang fire `kernel.wave`, `kernel.round` and `kernel.gang`
+at their entry, as the JAX entry points do.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils import tracing
+from ..utils import faultpoints, tracing
 from . import encoding as enc
 from .affinity import IncomingStatics, gather_domains, incoming_statics
 from .filters import resource_fit, static_predicate_masks
@@ -130,7 +133,7 @@ class WaveResult(NamedTuple):
     finite: Optional[torch.Tensor] = None
 
 
-# -- dispatch accounting -------------------------------------------------------
+# -- dispatch accounting, the watchdog seam and the fault seams --------------
 #
 # The scheduler registers its Metrics here (set_telemetry) so every
 # dispatch is counted by program and shape bucket, as the JAX package
@@ -139,15 +142,74 @@ class WaveResult(NamedTuple):
 # hook; the last scheduler built owns the series. A "miss" is the first
 # dispatch at a bucket in this process: no program is compiled here, so
 # its seconds are the host's time to issue the call, plus the kernels'
-# first build on the card. The watchdog and the fault points of the JAX
-# seam are left out.
+# first build on the card.
 _TELEMETRY = None
 _COMPILED: set = set()
+# Device-dispatch watchdog (utils/watchdog.py), registered by the
+# scheduler like the telemetry hook (set_watchdog; the last scheduler
+# built owns it, None disables): every dispatch through record_dispatch
+# then runs under a deadline, and one that overruns it is abandoned with
+# DispatchTimeout.
+_WATCHDOG = None
+# The device names the scheduler dispatches to (set_devices; () = none
+# registered). The `device.lost` fault point receives them as its
+# payload, and a failed dispatch is attributed to one of them for the
+# scheduling_errors_total{stage=dispatch, device=...} series.
+_DEVICES: tuple = ()
 
 
 def set_telemetry(metrics) -> None:
     global _TELEMETRY
     _TELEMETRY = metrics
+
+
+def set_watchdog(watchdog) -> None:
+    global _WATCHDOG
+    _WATCHDOG = watchdog
+
+
+def set_devices(devices) -> None:
+    """Register the device names the scheduler dispatches to (the port
+    has no mesh: the one active device; ()/None clears)."""
+    global _DEVICES
+    _DEVICES = tuple(str(d) for d in (devices or ()))
+
+
+def _attribute_device(exc: BaseException) -> str:
+    """Culprit device name of a failed dispatch: the exception carries
+    one (DeviceLost.device), or its text names exactly one registered
+    device as an exact token (a name followed by another digit is a
+    different device's); 'unknown' otherwise
+    (kubernetes_tpu/ops/kernel.py:161)."""
+    dev = getattr(exc, "device", None)
+    if isinstance(dev, str) and dev in _DEVICES:
+        return dev
+    text = str(exc)
+    hits = []
+    for d in _DEVICES:
+        if not d:
+            continue
+        idx = text.find(d)
+        while idx != -1:
+            end = idx + len(d)
+            if end == len(text) or not text[end].isdigit():
+                hits.append(d)
+                break
+            idx = text.find(d, idx + 1)
+    return hits[0] if len(hits) == 1 else "unknown"
+
+
+def _count_dispatch_error(tel, exc: BaseException) -> None:
+    """One failed dispatch on scheduling_errors_total, its device label
+    bounded to the registered devices and 'unknown'."""
+    if tel is None:
+        return
+    from ..utils.metrics import bounded_label
+
+    tel.scheduling_errors.labels(
+        stage="dispatch",
+        device=bounded_label(_attribute_device(exc), _DEVICES,
+                             other="unknown")).inc()
 
 
 def dispatch_bucket(nt, pm, tt, kw, lead=()) -> tuple:
@@ -169,23 +231,47 @@ def dispatch_bucket(nt, pm, tt, kw, lead=()) -> tuple:
 
 
 def record_dispatch(program: str, bucket_key: tuple, fn):
-    """Run one dispatch, counting it as a hit or a miss of its shape
-    bucket in the registered metrics (`device_jit_events`) and observing
-    a miss's seconds (`device_jit_compile_seconds`, and a `jit_compile`
-    tracing event). A failed dispatch counts
-    scheduling_errors{stage="dispatch", device="unknown"} and raises.
-    With no metrics registered it only calls fn."""
+    """Run one dispatch (kubernetes_tpu/ops/kernel.py:238-300).
+
+    The `kernel.hang` and `device.lost` fault points fire inside the
+    guarded dispatch, once each a dispatch. With a watchdog registered
+    (set_watchdog) the dispatch runs on its worker thread under the
+    deadline and raises DispatchTimeout on abandonment; a bucket not
+    seen before in this process gets the compile-scaled budget. With
+    metrics registered (set_telemetry) the dispatch is counted as a hit
+    or a miss of its shape bucket (`device_jit_events`), a miss's
+    seconds observed (`device_jit_compile_seconds`, and a `jit_compile`
+    tracing event), and a failure counted on
+    scheduling_errors{stage="dispatch", device=...} before it raises."""
     tel = _TELEMETRY
-    if tel is None:
+    wd = _WATCHDOG
+    if tel is None and (wd is None or not wd.armed()):
+        # unarmed: the fault seams still fire, nothing else is paid
+        faultpoints.fire("kernel.hang")
+        faultpoints.fire("device.lost", payload=_DEVICES or None)
         return fn()
     key = (program,) + bucket_key
     miss = key not in _COMPILED
+    inner = fn
+
+    def dispatch():
+        faultpoints.fire("kernel.hang")
+        faultpoints.fire("device.lost", payload=_DEVICES or None)
+        return inner()
+
+    if wd is not None and wd.armed():
+        fn = lambda: wd.run(dispatch, program=program, warm=not miss)
+    else:
+        fn = dispatch
+    if tel is None:
+        out = fn()
+        _COMPILED.add(key)  # warm-tracking feeds the watchdog's scaling
+        return out
     t0 = time.monotonic()
     try:
         out = fn()
-    except Exception:
-        tel.scheduling_errors.labels(stage="dispatch",
-                                     device="unknown").inc()
+    except Exception as e:
+        _count_dispatch_error(tel, e)
         raise
     _COMPILED.add(key)
     bucket = "x".join(str(d) for d in bucket_key)
@@ -565,9 +651,18 @@ def schedule_wave(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
     has_ts defaults to whether any pod carries a topology spread
     constraint, as the JAX entry point derives it. collect_scores adds
     the decomposition (WaveResult.deco, [P, ...] planes). Counted as a
-    "wave" dispatch (record_dispatch) unless account is False: the
-    scheduler's exact shadow replays, which the JAX package runs on its
-    numpy twin outside its dispatch counts."""
+    "wave" dispatch (record_dispatch), after the `kernel.wave` fault
+    point fires, unless account is False: the scheduler's exact shadow
+    replays, which the JAX package runs on its numpy twin outside its
+    dispatch counts and its fault seams."""
+    if not account:
+        return _wave_body(nt, pm, tt, pb, extra_mask, rr_start, extra_scores,
+                          weights, num_zones, num_label_values, has_ipa,
+                          collect_scores=collect_scores,
+                          weight_vec=weight_vec,
+                          has_ts=(bool(pb.ts_valid.any()) if has_ts is None
+                                  else has_ts))[0]
+    faultpoints.fire("kernel.wave")
     if has_ts is None:
         has_ts = bool(pb.ts_valid.any())
 
@@ -577,8 +672,6 @@ def schedule_wave(nt: enc.NodeTensors, pm: enc.PodMatrix, tt: enc.TermTable,
                           collect_scores=collect_scores,
                           weight_vec=weight_vec, has_ts=has_ts)[0]
 
-    if not account:
-        return run()
     kw = dict(num_zones=num_zones, num_label_values=num_label_values,
               has_ipa=has_ipa, has_ts=has_ts, use_pallas=nt.valid.is_cuda,
               collect_scores=collect_scores, weight_vec=weight_vec)
@@ -673,7 +766,8 @@ def schedule_round(nt: enc.NodeTensors, pm: enc.PodMatrix,
     finite [W, P]); deco is a ScoreDeco of [W, P, ...] planes with
     collect_scores, pad waves carrying zeros and top_vals of -1 as in
     the JAX round, and None otherwise. Counted as a "round" dispatch
-    (record_dispatch)."""
+    (record_dispatch), after the `kernel.round` fault point fires."""
+    faultpoints.fire("kernel.round")
     if has_ts is None:
         has_ts = bool(pbs.ts_valid.any())
     kw = dict(num_zones=num_zones, num_label_values=num_label_values,

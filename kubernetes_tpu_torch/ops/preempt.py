@@ -30,24 +30,27 @@ static predicate masks come from `static_predicate_masks` with the
 resource and host-port rows set True, as in the JAX program; on the card
 that launches the taint/port kernel.
 
-`preemption_stats_host` is the JAX package's numpy twin
-(kubernetes_tpu/ops/hostwave.py preemption_stats_host) over the
-snapshot's host planes, which the per-pod host preemption uses to rank
-its candidates (sched/preemption.py `vector_candidate_order`).
+`preemption_stats_host` and `victim_levels` live in ops/hostwave.py,
+the numpy twin (imported here for the callers that name them from this
+module); the per-pod host preemption ranks its candidates with the twin
+(sched/preemption.py `vector_candidate_order`), and the scheduler takes
+it while its breaker is open or device_preemption is off.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import List, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import encoding as enc
-from .cuda_build import PKG, compile_shared
+from .cuda_build import (PKG, KernelInputError, compile_shared,
+                         load_library)
 from .filters import static_predicate_masks
+from .hostwave import preemption_stats_host, victim_levels  # noqa: F401
 from .kernel import record_dispatch
 
 SOURCE = PKG / "csrc" / "preempt_whatif.cu"
@@ -69,18 +72,6 @@ class PreemptStats:
         self.prio_max = packed[2]           # [P, N] i32 (NEG sentinel)
         self.prio_sum = np.ascontiguousarray(packed[3]).view(np.float32)
         self.gang_viol = np.ascontiguousarray(packed[4]).view(np.float32)
-
-
-def victim_levels(ep_prio, live, num_levels: int) -> Optional[List[int]]:
-    """Candidate priority thresholds from the live existing-pod rows
-    (kubernetes_tpu/ops/hostwave.py:971): distinct priorities + 1, the
-    highest always kept, padded by repeating the last."""
-    prios = sorted({int(x) + 1 for x in np.asarray(ep_prio)[np.asarray(live)]})
-    if len(prios) > num_levels:
-        prios = prios[:num_levels - 1] + [prios[-1]]
-    if not prios:
-        return None
-    return prios + [prios[-1]] * (num_levels - len(prios))
 
 
 class WhatIf(NamedTuple):
@@ -262,7 +253,7 @@ def build() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         out, log, seconds = compile_shared(SOURCE, "preempt_whatif")
-        lib = bind(ctypes.CDLL(str(out)))
+        lib = bind(load_library(out))
         build_info.update(seconds=seconds, log=log, library=out.name)
         _LIB = lib
         return lib
@@ -373,12 +364,13 @@ def threshold_slots(levels: torch.Tensor, pb_prio: torch.Tensor, *,
 
 def _contig(name: str, t: torch.Tensor, dtype, shape, device) -> torch.Tensor:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelInputError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        raise KernelInputError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
+        raise KernelInputError(
+            f"{name} has shape {tuple(t.shape)}, expected "
+            f"{tuple(shape)}")
     return t.contiguous()
 
 
@@ -443,12 +435,14 @@ def whatif_prepare(w: WhatIf, *, lib=None, stream=None) -> Prepared:
         lib = build()
         stream = torch.cuda.current_stream(device).cuda_stream
     if R > lib.kpw_max_resources():
-        raise ValueError(f"preempt_whatif kernel holds at most "
-                         f"{lib.kpw_max_resources()} resource columns, "
-                         f"got R={R}")
+        raise KernelInputError(
+            f"preempt_whatif kernel holds at most "
+            f"{lib.kpw_max_resources()} resource columns, "
+            f"got R={R}")
     if max(P * N, M, 2 * N + 2) >= 2**31 or N > 2**29:
-        raise ValueError(f"preempt_whatif kernel: P*N={P * N}, M={M}, N={N} "
-                         "exceed its int32 indexing")
+        raise KernelInputError(
+            f"preempt_whatif kernel: P*N={P * N}, M={M}, N={N} "
+            "exceed its int32 indexing")
     out = torch.empty((5, P, N), dtype=i32, device=device)
     if P == 0 or N == 0:
         return Prepared(lib, None, (P, N, R, L, enc.RES_FIXED, 0), stream,
@@ -484,7 +478,7 @@ def preempt_whatif(w: WhatIf) -> torch.Tensor:
     if device.type == "cpu":
         return whatif_plain(w)
     if device.type != "cuda":
-        raise ValueError(f"preempt_whatif: unsupported device {device}")
+        raise KernelInputError(f"preempt_whatif: unsupported device {device}")
     out = whatif_launch(whatif_prepare(w))
     preempt_whatif.launches += 1
     return out
@@ -503,7 +497,8 @@ def preemption_stats(nt: enc.NodeTensors, pm: enc.PodMatrix,
     Counted as a "preempt" dispatch under the JAX bucket
     (kubernetes_tpu/ops/preempt.py:75; ops/kernel.py record_dispatch)."""
     if len(levels) != num_levels:
-        raise ValueError(f"{len(levels)} levels, num_levels={num_levels}")
+        raise KernelInputError(
+            f"{len(levels)} levels, num_levels={num_levels}")
     bucket = (pb.req.shape[0], nt.valid.shape[0], pm.node.shape[0],
               int(num_levels), 1, int(gang_w is not None))
     return record_dispatch("preempt", bucket, lambda: preempt_whatif(
@@ -520,79 +515,6 @@ def preemption_stats_plain(nt: enc.NodeTensors, pm: enc.PodMatrix,
 
 
 # --- the numpy twin of the host per-pod path ---------------------------------
-
-
-def preemption_stats_host(nt, pm, pb, levels, *, num_levels: int,
-                          gang_w=None) -> np.ndarray:
-    """The JAX package's numpy twin of the what-if
-    (kubernetes_tpu/ops/hostwave.py preemption_stats_host) over numpy
-    tuples: packed i32 [5, P, N]. Its sums run in float64 and are rounded
-    to f32 once, as the twin's are; its classes are deduplicated by
-    threshold value. The static masks come from the port's
-    static_predicate_masks on CPU tensors (boolean, so the same as the
-    twin's numpy masks)."""
-    levels = np.asarray(levels, np.int32)
-    P = pb.req.shape[0]
-    N = nt.valid.shape[0]
-    R = nt.alloc.shape[1]
-    is_core = np.arange(R) < enc.RES_FIXED
-    ntt, _, _, pbt = enc.to_torch(nt, None, None, pb, "cpu")
-    static_ok = static_ok_mask(ntt, pbt).numpy()
-
-    live = pm.valid & pm.alive
-    node_ids = np.clip(pm.node, 0, None)
-    prio_f = pm.prio.astype(np.float64)
-
-    ok = np.zeros((P, N), bool)
-    victims = np.zeros((P, N), np.int32)
-    prio_sum = np.zeros((P, N), np.float32)
-    prio_max = np.full((P, N), NEG, np.int32)
-    gang_viol = np.zeros((P, N), np.float32)
-
-    def seg(weights):
-        return np.bincount(node_ids, weights=weights, minlength=N)[:N]
-
-    for l in range(num_levels):
-        thresh = np.minimum(levels[l], pb.prio)  # [P]
-        for t in np.unique(thresh):
-            sel = np.flatnonzero(thresh == t)
-            w_row = (live & (pm.prio < t)).astype(np.float64)
-            rem_cnt = seg(w_row)
-            rem_req = np.stack(
-                [seg(w_row * pm.req[:, r]) for r in range(R)],
-                axis=1).astype(np.float32)  # [N, R]
-            rem_psum = seg(w_row * prio_f).astype(np.float32)
-            rem_pmax = np.full((N,), INT32_MIN, np.int32)
-            np.maximum.at(rem_pmax, node_ids,
-                          np.where(w_row > 0, pm.prio, NEG).astype(np.int32))
-            if gang_w is not None:
-                rem_gang = seg(w_row * np.asarray(
-                    gang_w, np.float64)).astype(np.float32)
-            else:
-                rem_gang = np.zeros((N,), np.float32)
-            used = (nt.requested - rem_req)[None, :, :] + pb.req[sel][:, None, :]
-            col_ok = used <= nt.alloc[None]  # [S, N, R]
-            check = is_core[None, None, :] | (pb.req[sel][:, None, :] > 0)
-            fits = np.all(col_ok | ~check, axis=-1)
-            fits &= (nt.pod_count[None] - rem_cnt.astype(np.int32)[None] + 1
-                     <= nt.allowed_pods[None])
-            feasible = fits & static_ok[sel]
-            sub_ok = ok[sel]
-            take = feasible & ~sub_ok
-            ok[sel] = sub_ok | feasible
-            victims[sel] = np.where(take, rem_cnt.astype(np.int32)[None],
-                                    victims[sel])
-            prio_sum[sel] = np.where(take, rem_psum[None], prio_sum[sel])
-            prio_max[sel] = np.where(take, rem_pmax[None], prio_max[sel])
-            gang_viol[sel] = np.where(take, rem_gang[None], gang_viol[sel])
-
-    return np.stack([
-        ok.astype(np.int32),
-        victims,
-        prio_max,
-        np.ascontiguousarray(prio_sum).view(np.int32),
-        np.ascontiguousarray(gang_viol).view(np.int32),
-    ])
 
 
 # --- seeded worlds at the kernel's edges --------------------------------------

@@ -32,11 +32,13 @@ here the simulation runs on the device path:
      included) come back in one fetch; rows >= n_real are expansion
      demand.
 
-backend="host" (the reference's numpy twin, ops/hostwave.py, which its
-autoscaler takes while the scheduler's device-path breaker is open) is
-not ported: the port's Scheduler has no breaker, so the autoscaler
-never asks for it. The reference's `autoscaler.simulate` fault point is
-not ported either.
+backend="host" runs the same what-ifs on the numpy twin
+(ops/hostwave.py `schedule_wave_host` / `schedule_gang_host`) over the
+shadow's host planes: the autoscaler takes it while the scheduler's
+device-path breaker is open, so a tripped card is never dispatched to
+and the what-ifs keep producing verdicts, equal to the device branch's.
+Both entries fire the `autoscaler.simulate` fault point first, as the
+JAX entries do.
 """
 
 from __future__ import annotations
@@ -50,14 +52,8 @@ import torch
 from ..api import types as api
 from ..state.node_info import NodeInfo
 from ..state.snapshot import Snapshot
-from ..utils import tracing
+from ..utils import faultpoints, tracing
 from . import encoding as enc
-
-HOST_BACKEND_MISSING = (
-    "the host what-if (the numpy twin of the wave and the gang) is not "
-    "ported; it comes with the scheduler's breakers (ROADMAP queue 1 "
-    "item 5)")
-
 
 class SimulationVerdict(NamedTuple):
     """One scale-up what-if: per-pod placement over real+virtual rows
@@ -118,18 +114,32 @@ def simulate_placements(snapshot: Snapshot, pb: enc.PodBatch, *, weights,
                         has_ipa: bool = False, backend: str = "device",
                         device=None) -> SimulationVerdict:
     """Scale-up what-if: the wave over (pending pods x real+virtual
-    rows) on `device`. The loop's greedy commit carries usage across
-    the batch, so multiple pods packing onto one virtual node — and the
-    point where it fills and a second one is needed — fall out of the
-    existing wave. n_real is filled in by the caller (the snapshot
-    doesn't know which rows are virtual). `pb` is the numpy batch."""
-    if backend == "host":
-        raise NotImplementedError(HOST_BACKEND_MISSING)
-    from .kernel import schedule_wave
-
+    rows) on `device`, or on the numpy twin with backend="host". The
+    loop's greedy commit carries usage across the batch, so multiple
+    pods packing onto one virtual node — and the point where it fills
+    and a second one is needed — fall out of the existing wave. n_real
+    is filled in by the caller (the snapshot doesn't know which rows are
+    virtual). `pb` is the numpy batch."""
+    faultpoints.fire("autoscaler.simulate")
     P = pb.req.shape[0]
-    with tracing.span("autoscaler_simulate", cat="device", what="scale_up",
-                      pods=P, backend=backend):
+    with tracing.span("autoscaler_simulate",
+                      cat="host" if backend == "host" else "device",
+                      what="scale_up", pods=P, backend=backend):
+        if backend == "host":
+            from .hostwave import schedule_wave_host
+
+            nt, pm, tt = snapshot.host_tensors()
+            extra = np.ones((P, snapshot.caps.N), bool)
+            res, _usage = schedule_wave_host(
+                nt, pm, tt, pb, extra, 0, None, weights=weights,
+                num_zones=num_zones, num_label_values=num_label_values,
+                has_ipa=has_ipa)
+            return SimulationVerdict(chosen=np.asarray(res.chosen),
+                                     feasible=np.asarray(res.masks).all(
+                                         axis=0),
+                                     n_real=-1)
+        from .kernel import schedule_wave
+
         _, nt, pm, tt, pbt, extra, rr = _upload(snapshot, pb, device)
         res = schedule_wave(nt, pm, tt, pbt, extra, rr, None,
                             weights=weights, num_zones=num_zones,
@@ -153,17 +163,27 @@ def simulate_refit(snapshot: Snapshot, pb: enc.PodBatch, need: int, *,
                    device=None) -> Tuple[bool, np.ndarray]:
     """Scale-down what-if: joint re-placement of a drain candidate's
     residents on the remaining cluster, through the gang all-or-nothing
-    plane (ops/gang.py) with need == number of residents — the verdict
-    is True only when EVERY resident holds capacity simultaneously in
-    one pass, i.e. the drain cannot strand a pod Pending. Returns
-    (ok, chosen rows)."""
-    if backend == "host":
-        raise NotImplementedError(HOST_BACKEND_MISSING)
-    from .gang import schedule_gang
-
+    plane (ops/gang.py; the twin's with backend="host") with need ==
+    number of residents — the verdict is True only when EVERY resident
+    holds capacity simultaneously in one pass, i.e. the drain cannot
+    strand a pod Pending. Returns (ok, chosen rows)."""
+    faultpoints.fire("autoscaler.simulate")
     P = pb.req.shape[0]
-    with tracing.span("autoscaler_simulate", cat="device", what="scale_down",
-                      pods=P, need=need, backend=backend):
+    with tracing.span("autoscaler_simulate",
+                      cat="host" if backend == "host" else "device",
+                      what="scale_down", pods=P, need=need, backend=backend):
+        if backend == "host":
+            from .hostwave import schedule_gang_host
+
+            nt, pm, tt = snapshot.host_tensors()
+            extra = np.ones((P, snapshot.caps.N), bool)
+            res = schedule_gang_host(
+                nt, pm, tt, pb, extra, 0, None, need, weights=weights,
+                num_zones=num_zones, num_label_values=num_label_values,
+                has_ipa=has_ipa)
+            return bool(res.ok), np.asarray(res.chosen)
+        from .gang import schedule_gang
+
         dev, nt, pm, tt, pbt, extra, rr = _upload(snapshot, pb, device)
         res = schedule_gang(nt, pm, tt, pbt, extra, rr, None,
                             torch.tensor(need, dtype=torch.int32, device=dev),

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from . import encoding as enc
-from .cuda_build import PKG, compile_shared
+from .cuda_build import (PKG, KernelInputError, compile_shared,
+                         load_library)
 from .encoding import NodeTensors, PodBatch
 
 DEFAULT_EFFECTS = (enc.EFFECT_NO_SCHEDULE, enc.EFFECT_NO_EXECUTE)
@@ -172,7 +173,7 @@ def build() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         out, log, seconds = compile_shared(SOURCE, "taint_ports")
-        lib = ctypes.CDLL(str(out))
+        lib = load_library(out)
         ptr = ctypes.c_void_p
         lib.ktt_taint_ports.argtypes = (
             [ptr] * 11 + [ctypes.c_int] * 6 + [ctypes.c_uint, ptr])
@@ -201,21 +202,23 @@ def launch_plan(nt: NodeTensors, pb: PodBatch) -> dict:
     err = build().ktt_launch_plan(P, N, T, TL, nt.ports.shape[1],
                                   pb.ports.shape[1], out)
     if err != 0:
-        raise RuntimeError("taint_ports kernel has no launch for these "
-                           f"tables: {build().ktt_error_string(err).decode()}")
+        raise KernelInputError(
+            "taint_ports kernel has no launch for these "
+            f"tables: {build().ktt_error_string(err).decode()}")
     return dict(grid=(out[0], out[1]), block=(out[2], out[3]),
                 shared_bytes=out[4], blocks_per_sm=out[5])
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+        raise KernelInputError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
+        raise KernelInputError(f"{name} must be int32, got {t.dtype}")
     if t.dim() != 2:
-        raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        raise KernelInputError(
+            f"{name} must be 2-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise KernelInputError(f"{name} must be contiguous")
 
 
 def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
@@ -230,7 +233,8 @@ def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
     if device.type == "cpu":
         return taint_ports_plain(nt, pb, effects)
     if device.type != "cuda":
-        raise ValueError(f"taint_ports_masks: unsupported device {device}")
+        raise KernelInputError(
+            f"taint_ports_masks: unsupported device {device}")
     named = (("nt.taint_key", nt.taint_key), ("nt.taint_val", nt.taint_val),
              ("nt.taint_effect", nt.taint_effect), ("nt.ports", nt.ports),
              ("pb.tol_key", pb.tol_key), ("pb.tol_val", pb.tol_val),
@@ -250,18 +254,20 @@ def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
                            ("pb.tol_effect", pb.tol_effect, (P, TL)),
                            ("pb.ports", pb.ports, (P, PQ))):
         if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+            raise KernelInputError(
+                f"{name} has shape {tuple(t.shape)}, "
+                f"expected {shape}")
     if T > MAX_TAINTS or PP > MAX_NODE_PORTS:
-        raise ValueError(
+        raise KernelInputError(
             f"taint_ports kernel is built for at most {MAX_TAINTS} taint "
             f"and {MAX_NODE_PORTS} port slots per node, got T={T}, PP={PP}")
     if max(P, N) >= 2**31:
-        raise ValueError(f"taint_ports kernel: P={P}, N={N} exceed int32")
+        raise KernelInputError(
+            f"taint_ports kernel: P={P}, N={N} exceed int32")
     eff_mask = 0
     for e in effects:
         if not 0 <= int(e) < 32:
-            raise ValueError(f"taint effect id {e} out of range")
+            raise KernelInputError(f"taint effect id {e} out of range")
         eff_mask |= 1 << int(e)
     taints = torch.empty((P, N), dtype=torch.bool, device=device)
     ports = torch.empty((P, N), dtype=torch.bool, device=device)
@@ -269,9 +275,10 @@ def taint_ports_masks(nt: NodeTensors, pb: PodBatch, *,
         return taints, ports
     lib = build()
     if lib.ktt_block_width(T, PP, TL, PQ) == 0:
-        raise ValueError(f"taint_ports kernel: T={T}, PP={PP}, TL={TL}, "
-                         f"PQ={PQ} need more shared memory than a block "
-                         "can have")
+        raise KernelInputError(
+            f"taint_ports kernel: T={T}, PP={PP}, TL={TL}, "
+            f"PQ={PQ} need more shared memory than a block "
+            "can have")
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.ktt_taint_ports(
         *[t.data_ptr() for _, t in named], taints.data_ptr(),

@@ -20,7 +20,9 @@ path is healthy:
           fail just because an accelerator is wedged.
 
 A device failure must not pass quietly: it is logged with its exception
-and counted in TALLY_COUNTS beside the tallies each path took.
+and counted in TALLY_COUNTS beside the tallies each path took. The
+`nodelifecycle.tally` fault point fires at the head of the device path
+(a `raise` there is a device failure like any other).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import faultpoints
 from . import encoding as enc
 
 LOG = logging.getLogger(__name__)
@@ -89,6 +92,8 @@ def zone_tally(zone_id: np.ndarray, bad: np.ndarray, valid: np.ndarray,
         TALLY_COUNTS["host"] += 1
         return zone_tally_host(zone_id, bad, valid, num_zones)
     try:
+        faultpoints.fire("nodelifecycle.tally",
+                         payload=(zone_id, num_zones))
         out = _tally_device(zone_id, bad, valid, int(num_zones), device)
     except Exception as e:
         TALLY_COUNTS["device_failures"] += 1

@@ -1,32 +1,42 @@
 """Device-path circuit breaker.
 
 A copy of kubernetes_tpu/sched/breaker.py's DevicePathBreaker, its
-states and STATE_CODES, ResourceExhausted and is_capacity_error.
-MeshFaultManager and the per-device attribution it rests on are left
-out: the port has no mesh yet. The port's Scheduler carries no breaker
-yet; the node-lifecycle controller's zone tally takes one
-(ops/zonehealth.py).
+states and STATE_CODES, DeviceLost with lost_device_fault (the
+`device.lost` fault point's per-device action), ResourceExhausted and
+is_capacity_error. MeshFaultManager is left out: the port has no mesh
+yet. The port's Scheduler carries one (sched/scheduler.py: its ladder of
+device faults drains the backlog through the numpy twin while the
+breaker is open), and the node-lifecycle controller's zone tally takes
+one (ops/zonehealth.py).
 
-The wave pipeline's device step can fail persistently, not just
-transiently: a wedged XLA runtime, a kernel OOM at this cluster's
-shapes, a tunneled TPU backend that dropped. The per-call fallbacks in
-the scheduler (pallas -> XLA retry, round -> per-wave) handle one
+What the breaker cannot heal: a sticky CUDA error (an illegal memory
+address, a device-side assert, a launch that corrupts the context)
+poisons the process's CUDA context, so every later launch fails and no
+half-open probe can succeed. The scheduler then keeps draining on the
+host twin, with the breaker cycling OPEN -> HALF_OPEN -> OPEN at each
+cooldown, until the process restarts; nothing here tries to recover the
+context. The fault points model recoverable faults only.
+
+The device step can fail persistently, not just transiently: a wedged
+CUDA runtime, a card that dropped off the bus. The round's own fallback (a
+failed round hands its backlog to the per-wave loop) handles one
 failure; a PERSISTENT fault would otherwise pay a doomed device attempt
-— compile time, dispatch, the exception unwind — on every single wave,
-forever. The breaker is the standard remedy (the same shape as
-client-go's backoff-on-connection-storms, applied to an accelerator):
+— the dispatch and the exception unwind — on every single wave,
+forever. The breaker is the standard remedy:
 
   closed     normal operation; consecutive-failure count resets on any
              device success.
-  open       `threshold` consecutive device failures trip it; every
-             wave routes through the exact host path
-             (`_schedule_host_path`) — scheduling NEVER stops, it
-             degrades — until `cooldown` elapses.
+  open       `threshold` consecutive device failures trip it (a
+             watchdog abandonment trips it at once, record_hang); every
+             wave drains through the numpy twin (ops/hostwave.py) —
+             scheduling NEVER stops, it degrades — until `cooldown`
+             elapses.
   half-open  after the cooldown one probe wave is re-admitted to the
              device path. Success closes the breaker (firing
-             `on_recover`, which the scheduler uses to force a full
-             snapshot rebuild — nothing incremental is trusted across a
-             device fault); failure re-opens with a fresh cooldown.
+             `on_recover`, which the scheduler uses to re-upload its
+             whole device mirror — nothing incremental is trusted
+             across a device fault); failure re-opens with a fresh
+             cooldown.
 """
 
 from __future__ import annotations
@@ -108,6 +118,39 @@ class DevicePathBreaker:
         self.trips += 1
         if self.on_trip is not None:
             self.on_trip()
+
+
+class DeviceLost(RuntimeError):
+    """A specific device failed: the `device.lost` fault point raises it
+    through lost_device_fault (utils/faultpoints.py)."""
+
+    def __init__(self, device: str):
+        super().__init__(f"device {device!r} lost")
+        self.device = device
+
+
+def lost_device_fault(device: str):
+    """corrupt-mode fn for the `device.lost` fault point, arming chaos
+    for ONE device: raises DeviceLost(device) when the dispatch seam's
+    payload (the registered device-name tuple, ops/kernel.py
+    set_devices) names it; a None payload (no device registered) is a
+    no-op:
+
+        faultpoints.activate("device.lost", "corrupt",
+                             fn=lost_device_fault("cuda:0"))
+    """
+
+    def fn(payload):
+        if payload is None:
+            return
+        if isinstance(payload, str):
+            if payload == device:
+                raise DeviceLost(device)
+            return
+        if device in payload:
+            raise DeviceLost(device)
+
+    return fn
 
 
 class ResourceExhausted(RuntimeError):

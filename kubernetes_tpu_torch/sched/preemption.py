@@ -13,7 +13,7 @@ criteria (:702 pickOneNodeForPreemption):
 The exact clone/reprieve loop runs only on a PRUNED, RANKED candidate
 set: when the caller passes the live snapshot + featurizer, one
 vectorized (1 x nodes) feasibility-after-victim-removal pass over the
-dense host planes (ops/preempt.py preemption_stats_host — the numpy
+dense host planes (ops/hostwave.py preemption_stats_host — the numpy
 twin of the device what-if) drops every node that cannot fit the pod
 even with ALL lower-priority pods removed, ranks the survivors by the
 device path's tie-break approximation, and caps exact validation at
@@ -206,12 +206,13 @@ def vector_candidate_order(pod: api.Pod, snapshot,
                            featurizer) -> Optional[List[str]]:
     """One vectorized (1 x nodes) feasibility-after-victim-removal pass
     over the snapshot's host planes: the numpy twin of the device
-    what-if (ops/preempt.py preemption_stats_host), computed for just
+    what-if (ops/hostwave.py preemption_stats_host), computed for just
     this pod. Returns candidate node names RANKED by the device path's
     tie-break approximation (gang disruption, max victim priority,
     priority sum, victim count), or None when the pod can't be encoded
     (the caller then validates every resolvable node, as before)."""
-    from ..ops.preempt import PreemptStats, preemption_stats_host, victim_levels
+    from ..ops.hostwave import preemption_stats_host, victim_levels
+    from ..ops.preempt import PreemptStats
 
     aff = pod.spec.affinity
     if (featurizer.needs_host_path(pod)

@@ -27,10 +27,28 @@ minMember members exist; the whole gang then releases at once, and
 pop_wave never splits a gang across waves. The `gang_lookup` hook is
 wired by the scheduler; when it is None none of this code runs.
 
-The JAX queue's load shedding and poison quarantine areas, and its
-FIFO order for clusters with pod priority off, are not carried: the
-port's scheduler has neither overload control nor input fault
-isolation, and always orders by priority.
+Poison-work quarantine (sched/scheduler.py input-fault isolation): pods
+CONVICTED of poisoning the batched scheduling pass — a spec that
+crashes the featurizer, non-finite planes the kernel sentinel flagged,
+or a wave-bisection verdict — park in a QUARANTINE area, separate from
+every other area and deliberately immune to event-driven flushes
+(move_all_to_active must never feed a known-poison pod back into the
+shared wave). Each entry carries a re-probe deadline (the scheduler's
+capped poison backoff): past it the pod re-enters the active heap for
+one fresh attempt — still poisoned, it re-convicts with a doubled
+deadline; fixed, it places and the ladder clears. A genuine SPEC EDIT
+releases the pod immediately (the operator fixed it; waiting out the
+old deadline would punish the fix). Gang members are quarantined and
+released as a unit. The area exports as
+scheduler_pending_pods{queue=quarantine}.
+
+The `queue.quarantine` fault point (drop mode) refuses quarantine
+admissions — a lost conviction; the scheduler then falls back to a
+plain backoff park.
+
+The JAX queue's load shedding area (overload control) and its FIFO
+order for clusters with pod priority off are not carried: the port's
+scheduler has no overload control yet, and always orders by priority.
 """
 
 from __future__ import annotations
@@ -43,6 +61,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ..api import types as api
+from ..utils import faultpoints
 
 
 def _matches_affinity_term(unsched: api.Pod, assigned: api.Pod) -> bool:
@@ -101,10 +120,80 @@ class SchedulingQueue:
         self._gang_members: Dict[str, Dict[str, None]] = {}
         self._gang_of: Dict[str, str] = {}  # uid -> gang key
         self._gang_wait_start: Dict[str, float] = {}
+        # poison-work quarantine (module docstring): uid -> pod convicted
+        # by the scheduler's input-fault isolation, uid -> re-probe
+        # deadline
+        self._quarantine: Dict[str, api.Pod] = {}
+        self._quarantine_until: Dict[str, float] = {}
+
+    # -- poison-work quarantine ------------------------------------------------
+
+    def quarantine(self, pod: api.Pod, until: float) -> bool:
+        """Park one CONVICTED pod in the quarantine area until its
+        re-probe deadline. Removes it from every other pending area;
+        gang membership is kept (a quarantined gang re-probes and
+        re-forms as a unit). False when the `queue.quarantine` fault
+        point dropped the admission (a lost conviction — the caller
+        falls back to a plain backoff park)."""
+        if faultpoints.fire("queue.quarantine", payload=pod):
+            return False
+        with self._lock:
+            self._items.pop(pod.uid, None)
+            self._unschedulable.pop(pod.uid, None)
+            self._backoff.pop(pod.uid, None)
+            key = self._gang_of.get(pod.uid)
+            if key is not None:
+                waiting = self._gang_waiting.get(key)
+                if waiting is not None:
+                    waiting.pop(pod.uid, None)
+                    if not waiting:
+                        del self._gang_waiting[key]
+                        self._gang_wait_start.pop(key, None)
+            self._quarantine[pod.uid] = pod
+            self._quarantine_until[pod.uid] = until
+            # first-enqueue time survives conviction: e2e latency counts
+            # quarantine time for a pod that eventually recovers
+            self.added_at.setdefault(pod.uid, self.clock())
+        return True
+
+    def _flush_quarantine_locked(self):
+        """Re-probe release: quarantined pods past their deadline get
+        one fresh pass through the active heap. Gang-ATOMIC: a due
+        member brings its quarantined mates with it."""
+        if not self._quarantine:
+            return
+        now = self.clock()
+        due = [uid for uid, t in self._quarantine_until.items()
+               if t <= now]
+        for uid in due:
+            pod = self._quarantine.pop(uid, None)
+            if pod is None:
+                continue  # already released as a due mate's gangmate
+            self._quarantine_until.pop(uid, None)
+            self._items[uid] = pod
+            heapq.heappush(self._heap, self._key(pod))
+            key = self._gang_of.get(uid)
+            if key is None:
+                continue
+            for muid in self._gang_members.get(key, ()):
+                mate = self._quarantine.pop(muid, None)
+                if mate is not None:
+                    self._quarantine_until.pop(muid, None)
+                    self._items[muid] = mate
+                    heapq.heappush(self._heap, self._key(mate))
+
+    def quarantine_count(self) -> int:
+        with self._lock:
+            return len(self._quarantine)
+
+    def quarantined_pods(self) -> List[api.Pod]:
+        with self._lock:
+            return list(self._quarantine.values())
 
     def gang_pending_pods(self, key: str) -> List[api.Pod]:
         """Every member of gang `key` currently held in a pending area
-        (active/backoff/unschedulable/gang-waiting)."""
+        (active/backoff/unschedulable/gang-waiting) — the conviction
+        plane quarantines them ATOMICALLY with a poisoned member."""
         out: List[api.Pod] = []
         with self._lock:
             waiting = self._gang_waiting.get(key, {})
@@ -126,7 +215,7 @@ class SchedulingQueue:
     def add(self, pod: api.Pod):
         released = None
         with self._lock:
-            if pod.uid in self._items:
+            if pod.uid in self._items or pod.uid in self._quarantine:
                 return
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
@@ -226,6 +315,7 @@ class SchedulingQueue:
         with self._lock:
             if (pod.uid in self._items or pod.uid in self._unschedulable
                     or pod.uid in self._backoff
+                    or pod.uid in self._quarantine
                     or self._gang_waiting_has_locked(pod.uid)):
                 return
         self.add(pod)
@@ -250,6 +340,7 @@ class SchedulingQueue:
         with self._lock:
             if (pod.uid in self._items or pod.uid in self._unschedulable
                     or pod.uid in self._backoff
+                    or pod.uid in self._quarantine
                     or self._gang_waiting_has_locked(pod.uid)):
                 return
             cycle = self._cycle.pop(pod.uid, self._current_cycle)
@@ -314,6 +405,7 @@ class SchedulingQueue:
         out: List[api.Pod] = []
         with self._lock:
             self._flush_backoff_locked()
+            self._flush_quarantine_locked()
             first = self._pop_locked()
             if first is None:
                 return out
@@ -373,8 +465,46 @@ class SchedulingQueue:
 
         return strip(old) != strip(new)
 
+    @staticmethod
+    def _spec_edited(old: api.Pod, new: api.Pod) -> bool:
+        """NaN-tolerant flavor of _is_pod_updated for the quarantine
+        release test: a NaN resource quantity is the usual poison, and
+        NaN != NaN after the store's deepcopy, so plain equality would
+        read every STATUS-ONLY write (the conviction's own condition
+        update) as a spec edit. Falls back to a repr comparison, under
+        which NaN is stable."""
+
+        def strip(p: api.Pod):
+            meta = dataclasses.replace(p.metadata, resource_version=0)
+            return (meta, p.spec)
+
+        a, b = strip(old), strip(new)
+        if a == b:
+            return False
+        return repr(a) != repr(b)
+
     def update(self, old: Optional[api.Pod], new: api.Pod):
         with self._lock:
+            if new.uid in self._quarantine:
+                if old is not None and self._spec_edited(old, new):
+                    # a genuine SPEC edit releases a convicted pod (and
+                    # its quarantined gangmates) immediately
+                    self._quarantine.pop(new.uid)
+                    self._quarantine_until.pop(new.uid, None)
+                    self._items[new.uid] = new
+                    heapq.heappush(self._heap, self._key(new))
+                    key = self._gang_of.get(new.uid)
+                    if key is not None:
+                        for uid in self._gang_members.get(key, ()):
+                            mate = self._quarantine.pop(uid, None)
+                            if mate is not None:
+                                self._quarantine_until.pop(uid, None)
+                                self._items[uid] = mate
+                                heapq.heappush(self._heap,
+                                               self._key(mate))
+                else:
+                    self._quarantine[new.uid] = new  # status-only change
+                return
             if new.uid in self._items:
                 self._items[new.uid] = new
                 return
@@ -400,6 +530,8 @@ class SchedulingQueue:
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
             self._backoff_until.pop(pod.uid, None)
+            self._quarantine.pop(pod.uid, None)
+            self._quarantine_until.pop(pod.uid, None)
             self.added_at.pop(pod.uid, None)
             # gang accounting must shrink with the member, or a stale uid
             # would open the gate early and place a sub-minMember gang
@@ -426,7 +558,7 @@ class SchedulingQueue:
     def pending_count(self) -> int:
         with self._lock:
             return (len(self._items) + len(self._unschedulable)
-                    + len(self._backoff)
+                    + len(self._backoff) + len(self._quarantine)
                     + sum(len(w) for w in self._gang_waiting.values()))
 
     def unschedulable_pods(self) -> List[api.Pod]:
@@ -435,6 +567,14 @@ class SchedulingQueue:
         with self._lock:
             return list(self._unschedulable.values())
 
+    def unschedulable_count(self) -> int:
+        with self._lock:
+            return len(self._unschedulable)
+
+    def backoff_count(self) -> int:
+        with self._lock:
+            return len(self._backoff)
+
     def gang_waiting_count(self) -> int:
         with self._lock:
             return sum(len(w) for w in self._gang_waiting.values())
@@ -442,6 +582,7 @@ class SchedulingQueue:
     def active_count(self) -> int:
         with self._lock:
             self._flush_backoff_locked()
+            self._flush_quarantine_locked()
             return len(self._items)
 
     def active_pods(self) -> List[api.Pod]:

@@ -43,9 +43,9 @@ time, without atomicity, as in the JAX package.
 
 `device_preemption = False` (the JAX scheduler's attribute of the same
 name) sends the batched what-if of `_pipeline_preempt` through the numpy
-twin (ops/preempt.py `preemption_stats_host`) instead of the what-if
-kernel; the rounds still run on the device. It is a switch the caller
-sets: with it True, a failing what-if raises.
+twin (ops/hostwave.py `preemption_stats_host`) instead of the what-if
+kernel; the rounds still run on the device. With it True, a failing
+what-if is a device failure and its chunk is salvaged on the twin.
 
 Pods are ordered by (-priority, arrival seq), as the JAX scheduling
 queue orders them. A round places at most PIPELINE_MAX_WAVES waves of
@@ -106,14 +106,56 @@ The cluster autoscaler (controllers/clusterautoscaler.py) reads the
 unschedulable map through `pending_unschedulable` and featurizes its
 what-ifs through `shadow_featurizer`; neither touches a round.
 
-Left out with no stand-in: the circuit breakers (sched/breaker.py holds
-the breaker the zone tally takes; no scheduler path takes one), the
-bind journal and the reconciler's retries, extenders (a profile with
-extenders raises NotImplementedError), the mesh, the memory governor,
-poison quarantine and load shedding; the series of that machinery
-(breaker, store, mesh, HBM, shedding, poison, spool) stay at zero in
-`metrics`. The ledger writes `breaker="closed"`, the JAX value while its
-breaker is closed.
+The device-fault ladder (kubernetes_tpu/sched/scheduler.py:1838-1880,
+:2184-2550, :2796-3012) is the JAX scheduler's, without the mesh:
+
+  * every failed round, per-wave dispatch, gang dispatch or preemption
+    what-if is one device failure (`_device_failure`): counted on
+    scheduling_errors{stage="wave"} and, by ops/kernel.py
+    record_dispatch, on scheduling_errors{stage="dispatch", device=...};
+    `breaker_threshold` consecutive failures open the `DevicePathBreaker`
+    (sched/breaker.py; `device_path_trips`, `breaker_state`);
+  * while it is open the backlog drains through the numpy twin
+    (`_schedule_degraded`: ops/hostwave.py twin waves, the twin's
+    all-or-nothing gangs and the twin's preemption what-if), and
+    `wave_path()` says "host"; after `breaker_cooldown` one half-open
+    probe dispatches on the card, and its success closes the breaker
+    and re-uploads the whole device mirror;
+  * `wave_deadline_s` > 0 arms the dispatch watchdog (utils/
+    watchdog.py): an abandoned dispatch trips the breaker at once and
+    its round is salvaged through the twin; while it is still running
+    nothing dispatches, the probe included (`_device_admitted`); host
+    stages that overrun the deadline halve the adaptive wave cap;
+  * bad WORK never blames the card: a spec that crashes the featurizer
+    is convicted directly, a failed dispatch is replayed on the twin
+    first (`_input_fault_verdict`) and a reproduced failure bisects the
+    wave to its culprit (`_isolate_poison`; a gang is convicted whole),
+    and the kernel's numeric-integrity sentinel convicts the pods it
+    flags and re-runs the survivors. Convicted pods wait in the queue's
+    quarantine area on the capped `poison_backoff_s` ladder
+    (`poison_pods{reason}`, `pending_pods{queue=quarantine}`);
+  * the host mirror `_host_rr` keeps the round-robin counter continuous
+    across device -> twin -> device, so placements stay bit-equal to a
+    clean run.
+
+A kernel that fails to build or load raises KernelBuildError
+(ops/cuda_build.py), and a wrapper that refuses its inputs (device,
+dtype, shape, slot counts, shared memory, no launch plan) raises
+KernelInputError, a KernelBuildError; the scheduler re-raises both with
+the popped pods back in the queue and never counts either as a device
+fault, and the JAX scheduler's demotion of a failed Pallas
+kernel to its plain version is not copied: a failed kernel launch is one
+device failure like any other. A sticky CUDA error keeps the scheduler
+on the twin until the process restarts (sched/breaker.py).
+
+Left out with no stand-in: capacity faults (a torch out-of-memory error
+in a round propagates and is not fed to the breaker), the mesh and its
+reform, the store-path breaker, the bind journal and the reconciler's
+retries, extenders (a profile with extenders raises
+NotImplementedError), the memory governor, load shedding and the
+golden-pass conviction (a crash of the exact host path still re-queues
+the popped pods and raises); the series of that machinery (store, mesh,
+HBM, shedding, spool) stay at zero in `metrics`.
 """
 
 from __future__ import annotations
@@ -130,9 +172,12 @@ import torch
 from ..api import labels as lbl
 from ..api import types as api
 from ..ops import encoding as enc
+from ..ops import hostwave
+from ..ops.cuda_build import KernelBuildError
 from ..ops.gang import schedule_gang
 from ..ops import telemetry as tele
-from ..ops.kernel import schedule_round, schedule_wave, set_telemetry
+from ..ops.kernel import (schedule_round, schedule_wave, set_devices,
+                          set_telemetry, set_watchdog)
 from ..ops.preempt import (PreemptStats, preemption_stats,
                            preemption_stats_host, victim_levels)
 from ..ops.scores import SCORE_STACK, W_INTERPOD
@@ -141,15 +186,19 @@ from ..plugins import golden
 from ..plugins.registry import Profile, default_profile
 from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectStore
 from ..state.cache import SchedulerCache
-from ..state.featurize import PodFeaturizer
+from ..state.featurize import PodFeaturizeError, PodFeaturizer
 from ..state.snapshot import Snapshot
-from ..utils import tracing
+from ..utils import faultpoints, tracing
 from ..utils.backoff import PodBackoff
 from ..utils.feature_gates import FeatureGates
 from ..utils.metrics import Metrics, bounded_label
 from ..utils.trace import Trace
+from ..utils.watchdog import DispatchTimeout, DispatchWatchdog
+from . import breaker as breaker_mod
+from .breaker import STATE_CODES, DevicePathBreaker, is_capacity_error
 from .equivalence import EquivalenceCache, equivalence_class
-from .errors import REASON_KEYS, REASONS, FitError, insufficient_resource_reason
+from .errors import (REASON_KEYS, REASONS, FitError, PoisonError,
+                     insufficient_resource_reason)
 from .gang import GangDirectory
 from .preemption import (GangGuard, PreemptionResult,
                          get_lower_priority_nominated_pods,
@@ -265,7 +314,10 @@ class Scheduler:
                  disable_preemption: bool = False,
                  profile: Optional[Profile] = None,
                  features: Optional[FeatureGates] = None,
-                 shadow_exact_interval: int = 0):
+                 shadow_exact_interval: int = 0,
+                 breaker_threshold: int = 3, breaker_cooldown: float = 30.0,
+                 wave_deadline_s: float = 0.0,
+                 poison_backoff_s: float = 5.0):
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -322,7 +374,57 @@ class Scheduler:
         self.volume_binder = VolumeBinder(store)
         self._wave_host_fails: Dict[int, Dict[str, str]] = {}
         self._rr: Optional[torch.Tensor] = None  # round-robin counter
+        # the host MIRROR of the round-robin counter: a device pass adds
+        # its placements (the device counter advances by one a
+        # placement), a twin wave advances it directly and drops _rr, and
+        # the next device pass re-seeds _rr from it — tie-breaks stay
+        # bit-equal to a clean run across device -> twin -> device
+        self._host_rr = 0
         self._last_path: Optional[str] = None
+        # poison-work isolation: the capped re-probe backoff of CONVICTED
+        # pods (sched/queue.py quarantine area), apart from the
+        # scheduling backoff: a conviction clears only on a successful
+        # bind or the pod's deletion
+        self.poison_backoff = PodBackoff(
+            initial=max(float(poison_backoff_s), 0.001),
+            maximum=max(float(poison_backoff_s), 0.001) * 64,
+            clock=clock)
+        self.poison_convictions = 0
+        # the device-path circuit breaker: consecutive device failures
+        # send whole waves through the numpy twin until a half-open probe
+        # succeeds; recovery re-uploads the whole device mirror
+        self.breaker = DevicePathBreaker(
+            threshold=breaker_threshold, cooldown=breaker_cooldown,
+            clock=clock, on_recover=self.snapshot.invalidate_device,
+            on_trip=lambda: self.metrics.device_path_trips.inc(),
+            on_state=self._breaker_state_changed)
+        self.metrics.breaker_state.set(STATE_CODES[self.breaker.state])
+        # failed dispatches are attributed to the active device
+        # (scheduling_errors{stage=dispatch, device=...})
+        set_devices([self.device])
+        # both kernels are built now, before any dispatch runs under the
+        # watchdog: a first build inside a guarded dispatch would read as
+        # a hang. A failed build raises KernelBuildError here.
+        if self.device.type == "cuda":
+            from ..ops import preempt as _preempt
+            from ..ops import taint_ports as _taint_ports
+
+            _taint_ports.build()
+            _preempt.build()
+        # the dispatch watchdog: with wave_deadline_s > 0 every dispatch
+        # runs under that deadline, and an abandoned one trips the
+        # breaker at once and salvages its round through the twin.
+        # Process-global like the telemetry hook: a deadline-free
+        # scheduler clears a predecessor's.
+        self.wave_deadline_s = float(wave_deadline_s)
+        self.watchdog = None
+        if self.wave_deadline_s > 0:
+            self.watchdog = DispatchWatchdog(
+                self.wave_deadline_s, on_abandon=self._dispatch_abandoned)
+        set_watchdog(self.watchdog)
+        # the adaptive wave cap: host-stage overruns of wave_deadline_s
+        # halve it (floor MIN_ADAPTIVE_WAVE), fast rounds grow it back
+        self._wave_cap = wave_size
         self._wire()
 
     @property
@@ -525,10 +627,83 @@ class Scheduler:
         return PodFeaturizer(snapshot, self.featurizer.group_selectors)
 
     def wave_path(self) -> str:
-        """What the most recent device program ran: 'cuda' when the
-        taint/port kernel launched, 'torch-cpu' on the CPU, 'unresolved'
-        before any."""
+        """What the most recent wave, round or gang ran on: 'cuda' when
+        the taint/port kernel launched, 'torch-cpu' on the CPU, 'host'
+        for the numpy twin (degraded waves; the JAX scheduler says
+        'vector'), 'unresolved' before any."""
         return self._last_path or "unresolved"
+
+    # -- the device-fault ladder's hooks (kubernetes_tpu/sched/
+    # scheduler.py:711, :797-849) ------------------------------------------------
+
+    def _breaker_state_changed(self, state: str) -> None:
+        """Every breaker transition lands on the state gauge (0=closed,
+        1=half-open, 2=open) and, when tracing, as a span event."""
+        self.metrics.breaker_state.set(STATE_CODES[state])
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("breaker", state=state,
+                      failures=self.breaker.failures)
+
+    def _dispatch_abandoned(self, program: str, deadline: float) -> None:
+        """Watchdog abandonment hook: the overrun counter's dispatch
+        stage, a span event and a log line; the dispatch itself raises
+        DispatchTimeout into the device-failure path."""
+        self.metrics.wave_deadline_overruns.labels(stage="dispatch").inc()
+        logging.getLogger(__name__).error(
+            "device dispatch %s abandoned after %.3fs deadline; device "
+            "presumed wedged until it returns", program, deadline)
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("dispatch_abandoned", program=program,
+                      deadline_s=round(deadline, 3))
+
+    # floor of the adaptive wave cap
+    MIN_ADAPTIVE_WAVE = 16
+
+    def _account_host_overrun(self, host_seconds: float) -> None:
+        """Deadline accounting for the HOST stages of a round (featurize,
+        stage, upload): one over wave_deadline_s halves the adaptive wave
+        cap, one under a quarter of it doubles the cap back toward
+        wave_size. No-op while wave_deadline_s is 0."""
+        if self.wave_deadline_s <= 0:
+            return
+        if host_seconds > self.wave_deadline_s:
+            self.metrics.wave_deadline_overruns.labels(stage="host").inc()
+            self._wave_cap = max(self._wave_cap // 2,
+                                 min(self.MIN_ADAPTIVE_WAVE,
+                                     self.wave_size))
+        elif (host_seconds <= self.wave_deadline_s / 4
+                and self._wave_cap < self.wave_size):
+            self._wave_cap = min(self._wave_cap * 2, self.wave_size)
+        self.metrics.effective_wave_size.set(self._wave_cap)
+
+    def _runtime_wedged(self) -> bool:
+        """Is a watchdog-abandoned dispatch still running? The device is
+        presumed wedged until that thread returns."""
+        return self.watchdog is not None and bool(
+            self.watchdog.outstanding())
+
+    def _device_admitted(self) -> bool:
+        """May this wave or round dispatch to the device? False while the
+        device is wedged: even the breaker's half-open probe must not be
+        spent on it — allow() is not consulted then, so the OPEN ->
+        HALF_OPEN transition waits until the wedge clears."""
+        if self._runtime_wedged():
+            return False
+        return self.breaker.allow()
+
+    def export_queue_gauges(self) -> None:
+        """Refresh scheduler_pending_pods{queue=...} for the areas the
+        port's queue has (kubernetes_tpu/sched/scheduler.py:1315):
+        active, backoff, unschedulable, gang_waiting and quarantine.
+        Called from housekeeping and after a drain settles."""
+        g = self.metrics.pending_pods
+        g.labels(queue="active").set(self.queue.active_count())
+        g.labels(queue="backoff").set(self.queue.backoff_count())
+        g.labels(queue="unschedulable").set(self.queue.unschedulable_count())
+        g.labels(queue="gang_waiting").set(self.queue.gang_waiting_count())
+        g.labels(queue="quarantine").set(self.queue.quarantine_count())
 
     def _note_path(self, launches0: int) -> None:
         self._last_path = ("cuda" if taint_ports_masks.launches > launches0
@@ -760,28 +935,43 @@ class Scheduler:
                 names.append(f"ext{c}")
         return names
 
-    def _emit_telemetry(self, rt) -> None:
+    def _emit_telemetry(self, rt, device_ok: bool = True) -> None:
         """One cluster-state reduction for a traced round (rt is the
         round trace; callers gate on it, so tracing off costs nothing),
         as the JAX scheduler's (:1052-1165): ops/telemetry.py on the
-        node tensors' device, one fetch, the gauges refreshed, the
-        round's ledger record extended and its stage marked. There is no
-        CPU stand-in: a failure counts
-        scheduling_errors{stage="telemetry"}, is logged, and the round
-        records no telemetry."""
+        node tensors' device while the breaker is CLOSED and no
+        dispatch is wedged, the numpy twin (ops/hostwave.py
+        cluster_telemetry_host) otherwise; the gauges refreshed, the
+        round's ledger record extended and its stage marked.
+
+        device_ok: False from degraded rounds — the device just
+        misbehaved (or the breaker is open), and a telemetry dispatch
+        there could hang where scheduling stepped away. A device failure
+        counts scheduling_errors{stage="telemetry"}, is logged, and the
+        twin serves the round."""
         Z = self.snapshot.caps.Z
         R = self.snapshot.caps.R
-        try:
-            nt, _pm, _tt = self.snapshot.to_device(self.device)
-            packed = tele.cluster_telemetry(nt, num_zones=Z).cpu().numpy()
-        except Exception as e:
-            self.metrics.scheduling_errors.labels(stage="telemetry").inc()
-            logging.getLogger(__name__).error(
-                "cluster telemetry failed; round %s records none", rt.rid,
-                exc_info=e)
-            return
-        self.metrics.device_fetch_bytes.inc(packed.nbytes)
-        backend = "device"
+        packed = None
+        backend = "host"
+        # passive breaker check: allow() would spend the half-open probe
+        if (device_ok and self.breaker.state == breaker_mod.CLOSED
+                and not self._runtime_wedged()):
+            try:
+                nt, _pm, _tt = self.snapshot.to_device(self.device)
+                packed = tele.cluster_telemetry(nt,
+                                                num_zones=Z).cpu().numpy()
+                self.metrics.device_fetch_bytes.inc(packed.nbytes)
+                backend = "device"
+            except Exception as e:
+                self.metrics.scheduling_errors.labels(
+                    stage="telemetry").inc()
+                logging.getLogger(__name__).error(
+                    "cluster telemetry failed on the device; round %s "
+                    "takes the twin's", rt.rid, exc_info=e)
+                packed = None
+        if packed is None:
+            nt, _pm, _tt = self.snapshot.host_tensors()
+            packed = hostwave.cluster_telemetry_host(nt, num_zones=Z)
         ct = tele.ClusterTelemetry(packed, R, Z)
         res_names = self._resource_names()
         util = ct.utilization()
@@ -868,11 +1058,15 @@ class Scheduler:
         while self.queue.active_count() > 0:
             if allow_pipeline:
                 pre = self.pipeline_preemptions
+                pre_poison = self.poison_convictions
                 n = self._schedule_pipelined()
                 placed += n
-                if n > 0 or self.pipeline_preemptions > pre:
-                    # preemptions are progress too: victims were evicted,
-                    # and the survivors re-run the PIPELINE
+                if (n > 0 or self.pipeline_preemptions > pre
+                        or self.poison_convictions > pre_poison):
+                    # preemptions and poison convictions are progress
+                    # too: victims were evicted or culprits quarantined,
+                    # and the survivors re-run the PIPELINE (so their
+                    # placements stay bit-equal a clean run's)
                     continue
                 # zero progress: the per-wave loop owns failure
                 # attribution and host preemption for the rest of the
@@ -880,23 +1074,26 @@ class Scheduler:
                 # would re-pop the whole backlog each time)
                 allow_pipeline = False
             placed += self.run_once()
+        self.export_queue_gauges()
         return placed
 
     def _housekeep(self) -> None:
-        """Expire assumed pods and sweep idle backoff entries
-        (PodBackoff.gc, reference backoff_utils.go Gc)."""
+        """Expire assumed pods, sweep idle backoff entries (PodBackoff.gc,
+        reference backoff_utils.go Gc) and refresh the queue gauges."""
         with self._mu:
             self.cache.cleanup_expired()
         now = self.clock()
         if now >= self._next_backoff_gc:
             self._next_backoff_gc = now + self.BACKOFF_GC_PERIOD
             self.backoff.gc()
+            self.poison_backoff.gc()
+        self.export_queue_gauges()
 
     def run_once(self) -> int:
         """Schedule one wave through the per-wave path. Returns the pods
         placed."""
         self._housekeep()
-        pods = self.queue.pop_wave(self.wave_size)
+        pods = self.queue.pop_wave(self._wave_cap)
         if not pods:
             return 0
         with self._mu:
@@ -909,13 +1106,17 @@ class Scheduler:
         self._housekeep()
         all_pods: List[api.Pod] = []
         while True:
-            batch = self.queue.pop_wave(self.wave_size)
+            batch = self.queue.pop_wave(self._wave_cap)
             if not batch:
                 break
             all_pods.extend(batch)
         if not all_pods:
             return 0
         with self._mu:
+            if not self._device_admitted():
+                # breaker open (or a wedged dispatch outstanding): the
+                # whole backlog takes the twin — degraded, never stopped
+                return self._schedule_degraded(all_pods)
             placed = 0
             # gangs bypass the device-resident round: their placements
             # must be all-or-nothing per group, which the round's
@@ -938,6 +1139,11 @@ class Scheduler:
                 if golden:
                     tracing.event("golden_gap", **golden)
                 return placed
+            # RE-check admission: a gang dispatch above may have been
+            # abandoned by the watchdog (breaker now open)
+            if not self._device_admitted():
+                return placed + self._schedule_degraded(pods,
+                                                        golden=golden)
             return placed + self._run_pipeline(pods, golden=golden)
 
     def warm_pipeline(self, pods: List[api.Pod],
@@ -999,10 +1205,21 @@ class Scheduler:
         """One device-resident round over `pods` (queue order); the pods
         it leaves unplaced go to batched preemption, and those it does
         not handle back to the queue. golden: the pass's host-path pods
-        by reason, ledgered with a traced round. Returns pods placed."""
+        by reason, ledgered with a traced round. Returns pods placed.
+
+        The device-fault ladder of kubernetes_tpu/sched/scheduler.py:
+        1586-1963: a pod whose spec crashes the featurizer is convicted
+        and the survivors re-featurized; a failed dispatch first gets an
+        input-fault verdict (the twin replays the round's pods) and
+        bisects or convicts poison work; a genuine device failure feeds
+        the breaker and hands the backlog back (a watchdog abandonment
+        salvages it through the twin at once); the sentinel's flagged
+        pods are convicted and the survivors re-run."""
         trace = Trace(f"pipeline of {len(pods)}", clock=self.clock)
         start = self.clock()
-        W = self.wave_size
+        # the ADAPTIVE cap: equal to wave_size unless wave_deadline_s
+        # overruns shrank it
+        W = self._wave_cap
         # ipa anywhere in the backlog (or already placed) caps the round
         # at the ipa wave count, even for ipa-free leading rounds
         max_waves = (PIPELINE_MAX_WAVES_IPA
@@ -1028,13 +1245,25 @@ class Scheduler:
             if golden:
                 rt.ledger["golden"] = golden
         # pass 1 grows every vocab/cap to its final size; when it grew,
-        # pass 2 re-emits every batch at the uniform final shapes
-        sig0 = (self.featurizer.vocabs.version(),
-                dataclasses.astuple(self.snapshot.caps))
-        pbs = [self.featurizer.featurize(wv) for wv in waves]
-        if (self.featurizer.vocabs.version(),
-                dataclasses.astuple(self.snapshot.caps)) != sig0:
-            pbs = [self.featurizer.featurize(wv) for wv in waves]
+        # pass 2 re-emits every batch at the uniform final shapes. A
+        # PodFeaturizeError is a DIRECT conviction: quarantine the
+        # culprit, re-chunk the survivors, featurize again.
+        while True:
+            try:
+                sig0 = (self.featurizer.vocabs.version(),
+                        dataclasses.astuple(self.snapshot.caps))
+                pbs = [self.featurizer.featurize(wv) for wv in waves]
+                if (self.featurizer.vocabs.version(),
+                        dataclasses.astuple(self.snapshot.caps)) != sig0:
+                    pbs = [self.featurizer.featurize(wv) for wv in waves]
+                break
+            except PodFeaturizeError as e:
+                pods = self._convict_featurize_victim(e, pods)
+                if not pods:
+                    if rt is not None:
+                        rec.end_round(rt, outcome="input_fault")
+                    return 0
+                waves = [pods[i:i + W] for i in range(0, len(pods), W)]
         for wv, pb in zip(waves, pbs):
             P = pb.req.shape[0]
             if (not self._host_plugin_mask(wv, P).all()
@@ -1048,6 +1277,26 @@ class Scheduler:
                 if rt is not None:
                     rec.end_round(rt, outcome="host_fallback")
                 return 0
+        try:
+            # the chaos seam, a wave at a time, while the batches are
+            # still host numpy: a crash-kind poison reproduces on the
+            # attribution replay, a nan-kind corrupts the victim's row
+            for wv_pods, pb in zip(waves, pbs):
+                self._wave_poison_seam(wv_pods, pb)
+        except Exception as e:
+            verdict = self._input_fault_verdict(pods, e)
+            if rt is not None:
+                rec.end_round(rt, outcome=("input_fault"
+                                           if verdict is not None
+                                           else "device_failure"),
+                              error=type(e).__name__)
+            if verdict is None:
+                # transient (a times-bounded fault ran out): requeue for
+                # a clean retry
+                for p in pods:
+                    self.queue.add_if_not_present(p)
+                return 0
+            return self._isolate_poison(pods, verdict, self._run_pipeline)
         pm_rows_all, term_rows_all = self.snapshot.stage_pending(pods)
         tpp = term_rows_all.shape[1]
         trace.step("featurized+staged")
@@ -1060,9 +1309,14 @@ class Scheduler:
         if rt is not None:
             rt.mark("upload", cat="device",
                     bytes=self.snapshot.upload_bytes_total - up0, shards=1)
+        # featurize+stage+upload overruns shrink the wave before they
+        # stretch the latency
+        self._account_host_overrun(self.clock() - start)
         usage = (nt.requested, nt.nonzero, nt.pod_count)
         if self._rr is None:
-            self._rr = torch.zeros((), dtype=torch.int32, device=dev)
+            # re-seed from the host mirror (a twin pass dropped _rr)
+            self._rr = torch.tensor(self._host_rr, dtype=torch.int32,
+                                    device=dev)
         # inter-pod affinity anywhere: bound pods' terms, or a required or
         # preferred term in any of the round's batches (host numpy)
         has_ipa = bool(self.snapshot.has_affinity_terms
@@ -1071,51 +1325,93 @@ class Scheduler:
         wbucket = pipeline_bucket(len(waves), hi=max_waves)
         pbs_stacked, pm_rows, term_rows = assemble_round(
             pbs, waves, pm_rows_all, term_rows_all, wbucket, tpp)
-        pbs_t = enc.to_torch(None, None, None, pbs_stacked, dev)[3]
-        pm_rows_t = torch.from_numpy(pm_rows).to(dev)
-        term_rows_t = torch.from_numpy(term_rows).to(dev)
         launches0 = taint_ports_masks.launches
-        # the decomposition rides along exactly when tracing
-        chosen_d, _fail, _usage_end, rr_end, deco_d, fin_d = schedule_round(
-            nt, pm, tt, pbs_t, usage, self._rr, pm_rows_t, term_rows_t,
-            weights=gating, num_zones=self.snapshot.caps.Z,
-            num_label_values=self.snapshot.num_label_values,
-            has_ipa=has_ipa, collect_scores=rt is not None,
-            weight_vec=enc.weight_vec_to_torch(wvec, dev))
-        trace.step("dispatched")
+        try:
+            pbs_t = enc.to_torch(None, None, None, pbs_stacked, dev)[3]
+            pm_rows_t = torch.from_numpy(pm_rows).to(dev)
+            term_rows_t = torch.from_numpy(term_rows).to(dev)
+            # the decomposition rides along exactly when tracing
+            (chosen_d, _fail, _usage_end, rr_end, deco_d,
+             fin_d) = schedule_round(
+                nt, pm, tt, pbs_t, usage, self._rr, pm_rows_t, term_rows_t,
+                weights=gating, num_zones=self.snapshot.caps.Z,
+                num_label_values=self.snapshot.num_label_values,
+                has_ipa=has_ipa, collect_scores=rt is not None,
+                weight_vec=enc.weight_vec_to_torch(wvec, dev))
+            trace.step("dispatched")
+            if rt is not None:
+                # a traced round waits for the card here, so that its
+                # device_wave span holds the device time
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                rt.mark("device_wave", cat="device", waves=len(waves),
+                        path=("cuda" if taint_ports_masks.launches > launches0
+                              else "torch-cpu"))
+            # the round's one fetch: chosen and the sentinel together
+            # (and the decomposition planes when tracing); a fault of
+            # the card's work surfaces here, inside the try
+            chosen_all = chosen_d.cpu().numpy()
+            fin_all = fin_d.cpu().numpy()
+            deco_all = None
+            if deco_d is not None:
+                deco_all = tuple(a.cpu().numpy() for a in deco_d)
+        except Exception as e:
+            for p in pods:
+                self.snapshot.unstage(p)
+            if isinstance(e, KernelBuildError) or is_capacity_error(e):
+                # a kernel that cannot be built is not a device fault,
+                # and a capacity fault is the memory plane's (a later
+                # slice): neither feeds the breaker
+                for p in pods:
+                    self.queue.add_if_not_present(p)
+                if rt is not None:
+                    rec.end_round(rt, outcome="error",
+                                  error=type(e).__name__)
+                raise
+            # input-fault attribution BEFORE breaker accounting: bad work
+            # must never blame the device
+            verdict = self._input_fault_verdict(pods, e)
+            if verdict is not None:
+                if rt is not None:
+                    rec.end_round(rt, outcome="input_fault",
+                                  error=type(e).__name__)
+                return self._isolate_poison(pods, verdict,
+                                            self._run_pipeline)
+            self._device_failure(e)
+            if rt is not None:
+                rec.end_round(rt, outcome="device_failure",
+                              error=type(e).__name__)
+            if isinstance(e, DispatchTimeout):
+                # a wedged dispatch: the breaker opened (record_hang) and
+                # the SAME round's pods place now through the twin.
+                # golden is not re-passed: this round's record has it.
+                return self._schedule_degraded(pods)
+            for p in pods:
+                self.queue.add_if_not_present(p)
+            return 0
+        self.breaker.record_success()
         self._note_path(launches0)
-        if rt is not None:
-            # a traced round waits for the card here, so that its
-            # device_wave span holds the device time
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            rt.mark("device_wave", cat="device", waves=len(waves),
-                    path=self.wave_path())
-        # the round's one fetch: chosen and the sentinel together (and
-        # the decomposition planes when tracing)
-        chosen_all = chosen_d.cpu().numpy()
-        fin_all = fin_d.cpu().numpy()
         fetched = chosen_all.nbytes + fin_all.nbytes
-        deco_all = None
-        if deco_d is not None:
-            deco_all = tuple(a.cpu().numpy() for a in deco_d)
+        if deco_all is not None:
             fetched += sum(a.nbytes for a in deco_all)
         self.metrics.device_fetch_bytes.inc(fetched)
         trace.step("fetched")
         if rt is not None:
             rt.mark("fetch", cat="device", bytes=int(fetched))
+        # numeric-integrity sentinel, fetched with chosen: a non-finite
+        # row means a poison pod contaminated the shared usage carry —
+        # DISCARD the whole round, convict the flagged pods, re-run the
+        # survivors (bit-equal a clean run); rr not advanced
         bad = [wv_pods[i].uid for wi, wv_pods in enumerate(waves)
                for i in range(len(wv_pods)) if not fin_all[wi, i]]
         if bad:
-            # the featurizer rejects non-finite specs, so a non-finite
-            # row here means corrupted inputs: discard the whole round
             for p in pods:
                 self.snapshot.unstage(p)
-                self.queue.add_if_not_present(p)
             if rt is not None:
                 rec.end_round(rt, outcome="input_fault", poison=len(bad))
-            raise FloatingPointError(
-                f"numeric-integrity sentinel flagged pods {bad}")
+            return self._isolate_poison(
+                pods, PoisonError("numeric-integrity sentinel", uids=bad),
+                self._run_pipeline)
         # exact shadow sampling runs BEFORE any commit changes the
         # snapshot: the replay must see the state the round scored
         exact_info = None
@@ -1125,6 +1421,8 @@ class Scheduler:
                 chosen_all[0], self._rr, has_ipa,
                 bool(pbs[0].ts_valid.any()), gating, (nt, pm, tt))
         self._rr = rr_end
+        # the mirror: the round advanced rr once a placement
+        self._host_rr += int(np.sum(chosen_all >= 0))
         placed = 0
         committed: set = set()
         retry: List[api.Pod] = []
@@ -1145,7 +1443,14 @@ class Scheduler:
                 retry.append(pod)
         if rt is not None:
             rt.mark("commit", placed=placed)
-        handled = self._pipeline_preempt(retry) if retry else set()
+        try:
+            handled = self._pipeline_preempt(retry) if retry else set()
+        except Exception:
+            # a what-if that raises (KernelBuildError, a capacity fault)
+            # leaves the round's failures in the queue
+            for pod in retry:
+                self.queue.add_if_not_present(pod)
+            raise
         for pod in retry:
             if pod.uid not in handled:
                 self.queue.add_if_not_present(pod)
@@ -1172,20 +1477,26 @@ class Scheduler:
                 rt, outcome="ok", placed=placed, retried=len(retry),
                 preempted=len(handled), scores=scores, shadow=shadow,
                 path=self.wave_path(),
-                snapshot=self._round_snapshot_shape(), breaker="closed")
+                snapshot=self._round_snapshot_shape(),
+                breaker=self.breaker.state)
         trace.log_if_long(0.5)
         return placed
 
     # -- batched preemption (kubernetes_tpu/sched/scheduler.py:1965) -----------
 
-    def _pipeline_preempt(self, pods: List[api.Pod]) -> set:
+    def _pipeline_preempt(self, pods: List[api.Pod],
+                          host: bool = False) -> set:
         """Batched preemption for round failures: one what-if launch
-        computes the stats for every failed pod x node of a chunk, then
-        the host runs the exact victim selection and the tie-breaks on
-        the few ranked candidates. Returns the uids handled (nominated +
-        parked); the rest go back to the queue."""
+        computes the stats for every failed pod x node of a chunk (the
+        numpy twin's when `host` is set, device_preemption is off, or
+        the device is not admitted), then the host runs the exact victim
+        selection and the tie-breaks on the few ranked candidates.
+        Returns the uids handled (nominated + parked); the rest go back
+        to the queue."""
         if self.disable_preemption:
             return set()
+        if not self.device_preemption:
+            host = True
         cands = [p for p in pods
                  if pod_eligible_to_preempt_others(p, self.cache)]
         if not cands:
@@ -1198,7 +1509,7 @@ class Scheduler:
         exhausted: Dict[str, int] = {}
         for i in range(0, len(cands), self.wave_size):
             handled |= self._preempt_chunk(cands[i:i + self.wave_size],
-                                           claimed, exhausted)
+                                           claimed, exhausted, host=host)
         return handled
 
     def _preempt_gang_weights(self):
@@ -1217,42 +1528,59 @@ class Scheduler:
                         w[slot] = 1.0
         return guard, (w if w.any() else None)
 
-    def _whatif(self, cands: List[api.Pod]):
-        """The what-if of one preemption chunk: (packed [5, P, N] stats as
-        numpy, the victim-gang guard), or (None, None) when nothing is
-        evictable anywhere. On the device, or through the numpy twin when
-        device_preemption is off."""
-        pb = self.featurizer.featurize(cands)
+    def _whatif(self, pb, levels, gang_w, host: bool):
+        """The what-if of one preemption chunk: packed [5, P, N] stats as
+        numpy. On the device (one launch, one fetch), or through the numpy
+        twin when `host` is set or the device is not admitted; a device
+        failure feeds the breaker and the chunk is salvaged on the twin
+        (kubernetes_tpu/sched/scheduler.py:2039-2090). A kernel that
+        cannot be built or refuses the inputs (KernelBuildError), and a
+        capacity fault, raise as they do in the round: neither is a
+        device fault."""
+        if not host and not self._device_admitted():
+            # the breaker opened (or a dispatch wedged) mid-round: the
+            # chunk must not follow the wave onto a bad device
+            host = True
+        if not host:
+            try:
+                nt, pm, _tt = self.snapshot.to_device(self.device)
+                pbt = enc.to_torch(None, None, None, pb, self.device)[3]
+                packed = preemption_stats(nt, pm, pbt, levels,
+                                          num_levels=PREEMPT_LEVELS,
+                                          gang_w=gang_w)
+                # the fetch surfaces the card's faults too: keep it inside
+                return packed.cpu().numpy()  # ONE fetch for all planes
+            except Exception as e:
+                if isinstance(e, KernelBuildError) or is_capacity_error(e):
+                    raise
+                self._device_failure(e)
+        nt_h, pm_h, _tt = self.snapshot.host_tensors()
+        return preemption_stats_host(nt_h, pm_h, pb,
+                                     np.asarray(levels, np.int32),
+                                     num_levels=PREEMPT_LEVELS,
+                                     gang_w=gang_w)
+
+    def _preempt_chunk(self, cands: List[api.Pod],
+                       claimed: Dict[str, List[api.Pod]],
+                       exhausted: Dict[str, int],
+                       host: bool = False) -> set:
+        t0 = self.clock()
+        trace = Trace(f"preempt chunk of {len(cands)}", clock=self.clock)
+        pb, cands = self._featurize_guarded(cands)
+        if not cands:
+            return set()
         # candidate thresholds: distinct priorities of live existing pods
         # (+1 so "< level" removes that class); always keep the HIGHEST
         # so the remove-all-lower option survives the level cap
         live = self.snapshot.ep_valid & self.snapshot.ep_alive
         levels = victim_levels(self.snapshot.ep_prio, live, PREEMPT_LEVELS)
         if levels is None:
-            return None, None
+            return set()
         # victim-gang awareness: the per-class segment sum ranks
         # gang-sparing nodes first; None for gang-free clusters
         guard, gang_w = self._preempt_gang_weights()
-        if not self.device_preemption:
-            nt_h, pm_h, _tt = self.snapshot.host_tensors()
-            return preemption_stats_host(nt_h, pm_h, pb, levels,
-                                         num_levels=PREEMPT_LEVELS,
-                                         gang_w=gang_w), guard
-        nt, pm, _tt = self.snapshot.to_device(self.device)
-        pbt = enc.to_torch(None, None, None, pb, self.device)[3]
-        packed = preemption_stats(nt, pm, pbt, levels,
-                                  num_levels=PREEMPT_LEVELS, gang_w=gang_w)
-        return packed.cpu().numpy(), guard  # ONE fetch for all planes
-
-    def _preempt_chunk(self, cands: List[api.Pod],
-                       claimed: Dict[str, List[api.Pod]],
-                       exhausted: Dict[str, int]) -> set:
-        t0 = self.clock()
-        trace = Trace(f"preempt chunk of {len(cands)}", clock=self.clock)
-        packed, guard = self._whatif(cands)
+        packed = self._whatif(pb, levels, gang_w, host)
         trace.step("what-if")
-        if packed is None:
-            return set()
         st = PreemptStats(packed)
         ok, victims_n = st.ok, st.victims
         psum, pmax = st.prio_sum, st.prio_max
@@ -1348,6 +1676,14 @@ class Scheduler:
     # -- the per-wave loop (kubernetes_tpu/sched/scheduler.py:3028) -------------
 
     def _run_wave(self, pods: List[api.Pod]) -> int:
+        """One wave through the per-wave dispatch, with the device-fault
+        ladder of kubernetes_tpu/sched/scheduler.py:3028-3321: not
+        admitted, the wave drains through the twin; a failed dispatch
+        gets an input-fault verdict first, then feeds the breaker and
+        degrades THIS wave to the twin; the sentinel's flagged pods are
+        convicted and the survivors re-run."""
+        if not self._device_admitted():
+            return self._schedule_degraded(pods)
         # gang members place through the all-or-nothing path; pop_wave
         # delivers gangs whole
         placed_gang = 0
@@ -1357,6 +1693,10 @@ class Scheduler:
             placed_gang = self._schedule_gangs(gang_pods)
             if not pods:
                 return placed_gang
+            if not self._device_admitted():
+                # a gang dispatch was just abandoned by the watchdog: the
+                # wave must not follow it onto the wedged device
+                return placed_gang + self._schedule_degraded(pods)
         # pods whose required pod-(anti)affinity spans more than one
         # topology key take the exact host path
         host_path = [p for p in pods if self.featurizer.needs_host_path(p)]
@@ -1379,7 +1719,12 @@ class Scheduler:
             self._trace_queue_waits(rt, pods)
             if golden:
                 rt.ledger["golden"] = golden
-        pb = self.featurizer.featurize(pods)
+        pb, pods = self._featurize_guarded(pods)
+        if not pods:
+            # the whole wave was convicted at featurize time
+            if rt is not None:
+                rec.end_round(rt, outcome="input_fault")
+            return placed_gang
         P = pb.req.shape[0]
         extra = self._host_plugin_mask(pods, P)
         extra_scores = self._host_score_matrix(pods, P)
@@ -1387,44 +1732,100 @@ class Scheduler:
         if rt is not None:
             rt.mark("featurize", pods=len(pods))
             up0 = self.snapshot.upload_bytes_total
+        try:
+            # the chaos seam while pb is still the host batch (see
+            # _run_pipeline)
+            self._wave_poison_seam(pods, pb)
+        except Exception as e:
+            verdict = self._input_fault_verdict(pods, e)
+            if rt is not None:
+                rec.end_round(rt, outcome=("input_fault"
+                                           if verdict is not None
+                                           else "device_failure"),
+                              error=type(e).__name__)
+            if verdict is None:
+                # transient: park the wave for a clean retry
+                for p in pods:
+                    self._park_with_backoff(p)
+                return placed_gang
+            return placed_gang + self._isolate_poison(pods, verdict,
+                                                      self._run_wave)
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
         if rt is not None:
             rt.mark("upload", cat="device",
                     bytes=self.snapshot.upload_bytes_total - up0)
+        self._account_host_overrun(self.clock() - start)
         if self._rr is None:
-            self._rr = torch.zeros((), dtype=torch.int32, device=dev)
+            # re-seed from the host mirror (a twin pass dropped _rr)
+            self._rr = torch.tensor(self._host_rr, dtype=torch.int32,
+                                    device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
                        or pb.rn_has.any() or (pb.pa_w != 0).any())
-        pbt = enc.to_torch(None, None, None, pb, dev)[3]
-        # the host inputs go up in one copy each; a failed copy raises
-        extra = torch.from_numpy(extra).to(dev)
-        if extra_scores is not None:
-            extra_scores = torch.from_numpy(extra_scores).to(dev)
         launches0 = taint_ports_masks.launches
-        # the decomposition rides along exactly when tracing
-        res = schedule_wave(nt, pm, tt, pbt, extra, self._rr, extra_scores,
-                            weights=gating,
-                            num_zones=self.snapshot.caps.Z,
-                            num_label_values=self.snapshot.num_label_values,
-                            has_ipa=has_ipa,
-                            has_ts=bool(pb.ts_valid.any()),
-                            collect_scores=rt is not None,
-                            weight_vec=enc.weight_vec_to_torch(wvec, dev))
-        chosen = res.chosen.cpu().numpy()
-        fin = res.finite.cpu().numpy()
+        try:
+            pbt = enc.to_torch(None, None, None, pb, dev)[3]
+            # the host inputs go up in one copy each
+            extra_t = torch.from_numpy(extra).to(dev)
+            scores_t = (torch.from_numpy(extra_scores).to(dev)
+                        if extra_scores is not None else None)
+            # the decomposition rides along exactly when tracing
+            res = schedule_wave(nt, pm, tt, pbt, extra_t, self._rr,
+                                scores_t, weights=gating,
+                                num_zones=self.snapshot.caps.Z,
+                                num_label_values=self.snapshot
+                                .num_label_values,
+                                has_ipa=has_ipa,
+                                has_ts=bool(pb.ts_valid.any()),
+                                collect_scores=rt is not None,
+                                weight_vec=enc.weight_vec_to_torch(wvec,
+                                                                   dev))
+            # the fetch surfaces the card's faults too: inside the try
+            chosen = res.chosen.cpu().numpy()
+            fin = res.finite.cpu().numpy()
+        except Exception as e:
+            if isinstance(e, KernelBuildError) or is_capacity_error(e):
+                # neither is a device fault (see _run_pipeline)
+                for p in pods:
+                    self.queue.add_if_not_present(p)
+                if rt is not None:
+                    rec.end_round(rt, outcome="error",
+                                  error=type(e).__name__)
+                raise
+            # input-fault attribution BEFORE breaker accounting
+            verdict = self._input_fault_verdict(pods, e)
+            if verdict is not None:
+                if rt is not None:
+                    rec.end_round(rt, outcome="input_fault",
+                                  error=type(e).__name__)
+                return placed_gang + self._isolate_poison(pods, verdict,
+                                                          self._run_wave)
+            # count it against the breaker and degrade THIS wave to the
+            # twin: a device fault costs a slower wave, never a stopped
+            # scheduler. golden is not re-passed (this wave's record
+            # has it).
+            self._device_failure(e)
+            if rt is not None:
+                rec.end_round(rt, outcome="device_failure",
+                              error=type(e).__name__)
+            return placed_gang + self._schedule_degraded(pods)
+        self.breaker.record_success()
         self._note_path(launches0)
+        # numeric-integrity sentinel, fetched with chosen: the WHOLE wave
+        # is discarded, the flagged pods convicted, the survivors re-run;
+        # rr not advanced
         bad = [pods[i].uid for i in range(len(pods)) if not fin[i]]
         if bad:
-            for p in pods:
-                self.queue.add_if_not_present(p)
             if rt is not None:
                 rec.end_round(rt, outcome="input_fault", poison=len(bad))
-            raise FloatingPointError(
-                f"numeric-integrity sentinel flagged pods {bad}")
+            return placed_gang + self._isolate_poison(
+                pods, PoisonError("numeric-integrity sentinel", uids=bad),
+                self._run_wave)
         self._rr = res.rr_end
         if rt is not None:
             rt.mark("device_wave", cat="device", path=self.wave_path())
+        # the mirror: one rr advance a placement
+        self._host_rr += int(np.sum(chosen >= 0))
         fetched = chosen.nbytes + fin.nbytes
         deco = None
         if res.deco is not None:
@@ -1478,9 +1879,514 @@ class Scheduler:
                 rt, outcome="ok", placed=placed,
                 failed=len(pods) - placed, path=self.wave_path(),
                 scores=scores, shadow=shadow,
-                snapshot=self._round_snapshot_shape(), breaker="closed")
+                snapshot=self._round_snapshot_shape(),
+                breaker=self.breaker.state)
         trace.log_if_long(0.1)
         return placed + placed_gang
+
+    # -- the device-fault ladder (kubernetes_tpu/sched/scheduler.py:2184-2550) ---
+
+    def _device_failure(self, exc: BaseException) -> bool:
+        """Account one device-path failure: a watchdog abandonment
+        (DispatchTimeout) trips the breaker at once (record_hang), any
+        other failure counts toward its threshold. The port has no mesh
+        to reform, so this always returns False (not reformed), as the
+        JAX scheduler's does without a mesh. A KernelBuildError (a
+        kernel that cannot be built or loaded, or a wrapper's
+        KernelInputError refusal) is not a device fault: it re-raises
+        and the breaker is left as it is."""
+        if isinstance(exc, KernelBuildError):
+            raise exc
+        self.metrics.scheduling_errors.labels(stage="wave").inc()
+        if isinstance(exc, DispatchTimeout):
+            self.breaker.record_hang()
+        else:
+            self.breaker.record_failure()
+        logging.getLogger(__name__).error(
+            "device wave failed (%s consecutive, breaker %s): %s: %s",
+            self.breaker.failures, self.breaker.state,
+            type(exc).__name__, exc, exc_info=exc)
+        return False
+
+    def _needs_golden(self, pod: api.Pod) -> bool:
+        """Must this pod take the exact golden path instead of the twin?
+        Only for the encoding neither the twin nor the device carries:
+        multi-topology-key required affinity (needs_host_path)."""
+        return self.featurizer.needs_host_path(pod)
+
+    def _count_degraded_golden(self, pods: List[api.Pod], rt=None) -> None:
+        """Degraded-mode visibility: pods the twin can't encode drain
+        through the golden path; count them by reason
+        (scheduler_degraded_golden_pods_total{reason}) and tag the round
+        ledger."""
+        counts = self._golden_reasons(pods)
+        for r, n in counts.items():
+            self.metrics.degraded_golden_pods.labels(reason=r).inc(n)
+        if rt is not None:
+            g = rt.ledger.setdefault("degraded_golden", {})
+            for r, n in counts.items():
+                g[r] = g.get(r, 0) + n
+
+    def _schedule_degraded(self, pods: List[api.Pod],
+                           golden: Optional[Dict[str, int]] = None) -> int:
+        """Breaker-open degraded mode: the backlog drains through the
+        numpy twin (ops/hostwave.py) — one batched mask+score wave a
+        wave_size chunk, batched twin preemption for its failures, and
+        all-or-nothing gang placement through the twin's
+        count-feasibility plane. Pods the twin can't encode take the
+        exact golden path, as they do on the device path. Nothing here
+        touches the device."""
+        gating, wvec, wver = self._weights_kw()
+        rec = tracing.active()
+        rt = None
+        if rec is not None:
+            rt = rec.begin_round("degraded", pending=len(pods),
+                                 weights_version=wver)
+            self._trace_queue_waits(rt, pods)
+            if golden:
+                g = rt.ledger.setdefault("golden", {})
+                for r, n in golden.items():
+                    g[r] = g.get(r, 0) + n
+        placed = 0
+        # gangs stay atomic in degraded mode
+        gang_pods = [p for p in pods if self.gangs.key(p) is not None]
+        if gang_pods:
+            pods = [p for p in pods if self.gangs.key(p) is None]
+            groups: Dict[str, List[api.Pod]] = {}
+            for p in gang_pods:
+                groups.setdefault(self.gangs.key(p), []).append(p)
+            for key, members in groups.items():
+                placed += self._schedule_degraded_gang(key, members, rt)
+        golden_pods = [p for p in pods if self._needs_golden(p)]
+        if golden_pods:
+            pods = [p for p in pods if not self._needs_golden(p)]
+            self._count_degraded_golden(golden_pods, rt)
+            placed += self._schedule_host_batch(golden_pods, rest=pods)
+        # chunk at wave_size: featurize buckets caps.P by batch length
+        deco_acc: Optional[List] = [] if rt is not None else None
+        committed: set = set()
+        for i in range(0, len(pods), self.wave_size):
+            placed += self._host_wave(pods[i:i + self.wave_size], rt,
+                                      deco_acc=deco_acc,
+                                      committed=committed,
+                                      weights_view=(gating, wvec))
+        if rt is not None:
+            scores = shadow = None
+            if deco_acc:
+                # one decision-recording pass over every twin chunk's
+                # decomposition
+                all_pods = [p for ps, _c, _d in deco_acc for p in ps]
+                chosen_cat = np.concatenate([c for _p, c, _d in deco_acc])
+                planes = [np.concatenate([d[k] for _p, _c, d in deco_acc])
+                          for k in range(4)]
+                scores, shadow = self._record_decisions(
+                    rec, all_pods, chosen_cat, *planes,
+                    committed=committed, wvec=wvec, wver=wver)
+            self._emit_telemetry(rt, device_ok=False)
+            rec.end_round(rt, outcome="ok", placed=placed, path="host",
+                          scores=scores, shadow=shadow,
+                          breaker=self.breaker.state,
+                          snapshot=self._round_snapshot_shape())
+        return placed
+
+    def _host_wave(self, pods: List[api.Pod], rt=None,
+                   deco_acc: Optional[List] = None,
+                   committed: Optional[set] = None,
+                   weights_view=None) -> int:
+        """One batched twin wave: numpy masks, scores and greedy commit
+        over the snapshot's host planes (no device touch), then the same
+        exact int64 recheck -> assume -> bind commit as the device path.
+        Failures go through ONE batched twin preemption pass, then park
+        with exact FitError attribution from the twin's mask stack.
+
+        deco_acc: when tracing, (pods, chosen, deco) of the chunk is
+        appended for the degraded round's decision-recording pass."""
+        if not pods:
+            return 0
+        trace = Trace(f"host wave of {len(pods)}", clock=self.clock)
+        start = self.clock()
+        for _p in pods:
+            self.metrics.schedule_attempts.inc()
+        runner = (lambda ps: self._host_wave(
+            ps, rt, deco_acc=deco_acc, committed=committed,
+            weights_view=weights_view))
+        pb, pods = self._featurize_guarded(pods)
+        if not pods:
+            return 0  # the whole chunk was convicted at featurize time
+        P = pb.req.shape[0]
+        extra = self._host_plugin_mask(pods, P)
+        extra_scores = self._host_score_matrix(pods, P)
+        trace.step("featurized")
+        if rt is not None:
+            rt.mark("featurize", pods=len(pods))
+        nt, pm, tt = self.snapshot.host_tensors()
+        gating, wvec = (weights_view if weights_view is not None
+                        else self._weights_kw()[:2])
+        has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
+                       or pb.rn_has.any() or (pb.pa_w != 0).any())
+        try:
+            self._wave_poison_seam(pods, pb)
+            res, _usage = hostwave.schedule_wave_host(
+                nt, pm, tt, pb, extra, self._host_rr, extra_scores,
+                weights=gating,
+                num_zones=self.snapshot.caps.Z,
+                num_label_values=self.snapshot.num_label_values,
+                has_ipa=has_ipa,
+                collect_scores=deco_acc is not None,
+                weight_vec=wvec)
+        except Exception as e:
+            # a crash on the host path follows the data (no device to
+            # blame): input fault — bisect to the culprit. Known
+            # infrastructure errors are exempt.
+            if self._infra_error(e):
+                self.metrics.scheduling_errors.labels(stage="wave").inc()
+                logging.getLogger(__name__).error(
+                    "host wave failed on infrastructure, parking %d "
+                    "pods", len(pods), exc_info=e)
+                for p in pods:
+                    self._park_with_backoff(p)
+                return 0
+            verdict = (e if isinstance(e, (PoisonError, PodFeaturizeError))
+                       else PoisonError(f"host twin pass failed: "
+                                        f"{type(e).__name__}: {e}"))
+            return self._isolate_poison(pods, verdict, runner)
+        # numeric-integrity sentinel: discard the chunk, convict the
+        # flagged pods, re-run the survivors (host rr not advanced)
+        fin = np.asarray(res.finite)
+        bad = [pods[i].uid for i in range(len(pods)) if not fin[i]]
+        if bad:
+            return self._isolate_poison(
+                pods, PoisonError("numeric-integrity sentinel", uids=bad),
+                runner)
+        if deco_acc is not None and res.deco is not None:
+            # featurize's P-bucket pad rows sliced off: the degraded round
+            # concatenates chunks
+            n = len(pods)
+            deco_acc.append((list(pods), np.asarray(res.chosen[:n]),
+                             tuple(np.asarray(a)[:n] for a in res.deco)))
+        self._host_rr = int(res.rr_end)
+        self._rr = None  # device resumption re-seeds from the mirror
+        self._last_path = "host"
+        trace.step("host wave")
+        if rt is not None:
+            rt.mark("host_wave", cat="host", backend="vector",
+                    pods=len(pods))
+        placed = 0
+        failed: List = []
+        for i, pod in enumerate(pods):
+            node_idx = int(res.chosen[i])
+            if node_idx >= 0:
+                if self._commit(pod, self.snapshot.node_names[node_idx]):
+                    placed += 1
+                    if committed is not None:
+                        committed.add(pod.uid)
+                    continue
+                # exact recheck lost a race with f32 arithmetic: retry
+                self.queue.add_if_not_present(pod)
+                continue
+            failed.append((i, pod))
+        trace.step("committed")
+        if rt is not None:
+            rt.mark("commit", placed=placed)
+        handled: set = set()
+        if failed:
+            handled = self._pipeline_preempt([p for _, p in failed],
+                                             host=True)
+            for i, pod in failed:
+                self.metrics.pods_failed.inc()
+                err = self._fit_error(pod, i, res.fail_counts, res.masks)
+                self._count_unschedulable(err)
+                if pod.uid not in handled:
+                    self._park_with_backoff(pod)
+                self.store.set_pod_condition(
+                    pod, ("PodScheduled", "False:" + err.message()))
+            if rt is not None:
+                rt.mark("preempt", candidates=len(failed),
+                        handled=len(handled))
+        self.metrics.e2e_scheduling_latency.observe(self.clock() - start)
+        self.metrics.waves_total.labels(path="host").inc()
+        trace.log_if_long(0.5)
+        return placed
+
+    def _schedule_degraded_gang(self, key: str, members: List[api.Pod],
+                                rt=None) -> int:
+        """Degraded-mode gang placement through the twin's all-or-nothing
+        count-feasibility plane (ops/hostwave.py schedule_gang_host):
+        minMember members hold capacity together or nothing commits.
+        Gangs with golden-only members place individually."""
+        self.metrics.gang_schedule_attempts.inc()
+        for _p in members:
+            self.metrics.schedule_attempts.inc()
+        if any(self._needs_golden(p) for p in members):
+            self._count_degraded_golden(
+                [p for p in members if self._needs_golden(p)], rt)
+            return self._schedule_host_batch(members)
+        min_member = self.gangs.min_member(members[0])
+        bound = self.gangs.bound_count(self.cache, key,
+                                       exclude={p.uid for p in members})
+        need = max(min_member - bound, 0)
+        try:
+            pb = self.featurizer.featurize(members)
+        except PodFeaturizeError as e:
+            # gang-atomic conviction, as on the device path
+            self._gang_input_fault(members, e, rt)
+            return 0
+        P = pb.req.shape[0]
+        extra = self._host_plugin_mask(members, P)
+        extra_scores = self._host_score_matrix(members, P)
+        nt, pm, tt = self.snapshot.host_tensors()
+        gating, wvec, _wver = self._weights_kw()
+        has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
+                       or pb.rn_has.any() or (pb.pa_w != 0).any())
+        try:
+            self._wave_poison_seam(members, pb)
+            res = hostwave.schedule_gang_host(
+                nt, pm, tt, pb, extra, self._host_rr, extra_scores, need,
+                weights=gating,
+                num_zones=self.snapshot.caps.Z,
+                num_label_values=self.snapshot.num_label_values,
+                has_ipa=has_ipa,
+                weight_vec=wvec)
+        except Exception as e:
+            # a host-path crash follows the data: the gang convicts whole
+            verdict = (e if isinstance(e, (PoisonError, PodFeaturizeError))
+                       else PoisonError(f"host twin gang pass failed: "
+                                        f"{type(e).__name__}: {e}"))
+            self._gang_input_fault(members, verdict, rt)
+            return 0
+        self._last_path = "host"
+        if rt is not None:
+            rt.mark("host_wave", cat="host", backend="vector", gang=key,
+                    pods=len(members))
+        fin = np.asarray(res.finite)
+        bad = [members[i].uid for i in range(len(members)) if not fin[i]]
+        if bad:
+            self._gang_input_fault(
+                members,
+                PoisonError("numeric-integrity sentinel", uids=bad), rt)
+            return 0
+        if not bool(res.ok):
+            self._fail_gang(key, members, need, res.masks, int(res.placed))
+            return 0
+        self._host_rr = int(res.rr_end)
+        self._rr = None  # device resumption re-seeds from the mirror
+        pairs: List = []
+        leftover: List = []
+        for i, pod in enumerate(members):
+            n = int(res.chosen[i])
+            if n >= 0:
+                pairs.append((pod, self.snapshot.node_names[n]))
+            else:
+                leftover.append((i, pod))
+        if not self._commit_gang(pairs):
+            for pod in members:
+                self.queue.add_if_not_present(pod)
+            return 0
+        self.backoff.clear("gang:" + key)
+        self.metrics.waves_total.labels(path="host").inc()
+        if leftover:
+            for i, pod in leftover:
+                self._handle_failure(pod, i, res.fail_counts, res.masks)
+        return len(pairs)
+
+    # -- poison-work isolation (kubernetes_tpu/sched/scheduler.py:2796-3012) ---
+
+    # the attribution replay is bounded: a poison beyond it is caught by
+    # the salvage path's own twin waves
+    ATTRIBUTION_REPLAY_MAX_WAVES = 4
+
+    def _wave_poison_seam(self, pods: List[api.Pod], pb) -> None:
+        """The `wave.poison` chaos seam: fired before EVERY batched pass
+        over a pod list — device round/wave/gang dispatches, degraded
+        twin waves and the input-fault attribution replay — with (pods,
+        host PodBatch) as payload, so an injected poison follows the
+        DATA across backends (state/featurize.py poison_pod_fault)."""
+        faultpoints.fire("wave.poison", payload=(pods, pb))
+
+    def _featurize_guarded(self, pods: List[api.Pod]):
+        """(PodBatch, survivors): featurize a batch, convicting pods
+        whose spec crashes (or numerically poisons) the featurizer.
+        Returns (None, []) when every pod was convicted."""
+        pods = list(pods)
+        while pods:
+            try:
+                return self.featurizer.featurize(pods), pods
+            except PodFeaturizeError as e:
+                pods = self._convict_featurize_victim(e, pods)
+        return None, []
+
+    def _convict_featurize_victim(self, e: PodFeaturizeError,
+                                  pods: List[api.Pod]) -> List[api.Pod]:
+        """Quarantine the pod the typed error names and return the
+        survivors. Re-raises when it names a pod outside the batch (a
+        bug, not poison)."""
+        victims = [p for p in pods if p.uid == e.uid]
+        if not victims:
+            raise e
+        self._convict(victims, reason="featurize", error=str(e),
+                      cohort=pods)
+        return [p for p in pods if p.uid != e.uid]
+
+    @staticmethod
+    def _infra_error(exc: BaseException) -> bool:
+        """An infrastructure failure (store, OS), which the pod's own
+        spec cannot cause."""
+        return isinstance(exc, (OSError, TimeoutError, Conflict, KeyError))
+
+    def _input_fault_verdict(self, pods: List[api.Pod],
+                             exc: BaseException):
+        """Fault ATTRIBUTION, before any breaker accounting: replay the
+        failed batch through the numpy twin over the host planes
+        (commits discarded, rr untouched). The twin failing too — or its
+        sentinel flagging non-finite planes — convicts the WORK: returns
+        the verdict (uids when attribution is direct, none for the
+        bisection path). A clean replay returns None: a genuine device
+        fault. DispatchTimeout skips the replay — a wedge is the
+        device's, never the work's."""
+        if isinstance(exc, DispatchTimeout):
+            return None
+        if isinstance(exc, (PoisonError, PodFeaturizeError)):
+            return exc
+        replay = pods[:self.ATTRIBUTION_REPLAY_MAX_WAVES * self.wave_size]
+        gating, wvec, _wver = self._weights_kw()
+        try:
+            for s in range(0, len(replay), self.wave_size):
+                chunk = replay[s:s + self.wave_size]
+                pb = self.featurizer.featurize(chunk)
+                self._wave_poison_seam(chunk, pb)
+                nt, pm, tt = self.snapshot.host_tensors()
+                extra = np.ones((pb.req.shape[0], nt.valid.shape[0]), bool)
+                has_ipa = bool(self.snapshot.has_affinity_terms
+                               or pb.ra_has.any() or pb.rn_has.any()
+                               or (pb.pa_w != 0).any())
+                res, _usage = hostwave.schedule_wave_host(
+                    nt, pm, tt, pb, extra, self._host_rr, None,
+                    weights=gating, num_zones=self.snapshot.caps.Z,
+                    num_label_values=self.snapshot.num_label_values,
+                    has_ipa=has_ipa, weight_vec=wvec)
+                fin = np.asarray(res.finite)
+                bad = [p.uid for j, p in enumerate(chunk) if not fin[j]]
+                if bad:
+                    return PoisonError(
+                        "numeric-integrity sentinel flagged the twin "
+                        "replay", uids=bad)
+        except PodFeaturizeError as fe:
+            return fe
+        except Exception as replay_exc:
+            if self._infra_error(replay_exc):
+                # the replay itself failed on infrastructure: that proves
+                # nothing about the work
+                return None
+            return PoisonError(
+                f"twin replay reproduced the failure: "
+                f"{type(replay_exc).__name__}: {replay_exc}")
+        return None
+
+    def _isolate_poison(self, pods: List[api.Pod], verdict,
+                        runner) -> int:
+        """Input-fault isolation. Direct conviction when the verdict
+        names UIDs — the survivors requeue and place bit-equal a clean
+        run on the next round. Otherwise WAVE BISECTION: split in half
+        preserving order and re-run each half through `runner`; the
+        clean half places, the poisoned half fails again and recurses,
+        converging on the culprit in log2(wave) rounds. Returns pods
+        placed by the retries."""
+        self.metrics.scheduling_errors.labels(stage="poison").inc()
+        victims, reason = self._verdict_attribution(verdict, pods)
+        if victims:
+            vuids = {p.uid for p in victims}
+            self._convict(victims, reason=reason, error=str(verdict),
+                          cohort=pods)
+            for p in pods:
+                if p.uid not in vuids:
+                    self.queue.add_if_not_present(p)
+            return 0
+        if len(pods) <= 1:
+            self._convict(list(pods), reason="bisect", error=str(verdict),
+                          cohort=pods)
+            return 0
+        mid = (len(pods) + 1) // 2
+        tracing.event("poison_bisect", pods=len(pods))
+        logging.getLogger(__name__).warning(
+            "input fault with no direct attribution: bisecting a "
+            "%d-pod wave (%s)", len(pods), verdict)
+        return runner(pods[:mid]) + runner(pods[mid:])
+
+    def _convict(self, pods: List[api.Pod], reason: str, error: str = "",
+                 cohort=()) -> None:
+        """Quarantine convicted poison work. Gang-atomic: a poisoned
+        member convicts its WHOLE gang (pending mates pulled from every
+        queue area and from `cohort`, the in-hand wave mates). Every
+        conviction gets a FitError condition, the
+        scheduler_poison_pods_total{reason} increment and a capped
+        re-probe deadline; a dropped quarantine (the queue.quarantine
+        fault) degrades to a plain backoff park."""
+        victims: Dict[str, tuple] = {}
+        for p in pods:
+            victims[p.uid] = (p, reason)
+        if self.gangs.active:
+            keys: Dict[str, None] = {}
+            for p in pods:
+                k = self.gangs.key(p)
+                if k is not None:
+                    keys[k] = None
+            for k in keys:
+                for mate in self.queue.gang_pending_pods(k):
+                    victims.setdefault(mate.uid, (mate, "gang"))
+                for mate in cohort:
+                    if (mate.uid not in victims
+                            and self.gangs.key(mate) == k):
+                        victims[mate.uid] = (mate, "gang")
+        n_nodes = int(np.sum(self.snapshot.valid))
+        log = logging.getLogger(__name__)
+        for uid, (pod, r) in victims.items():
+            d = self.poison_backoff.bump(uid)
+            until = self.clock() + d
+            if not self.queue.quarantine(pod, until):
+                self._park_with_backoff(pod)
+                continue
+            self.poison_convictions += 1
+            self.metrics.pods_failed.inc()
+            self.metrics.poison_pods.labels(reason=r).inc()
+            err = FitError(pod.full_name(), n_nodes,
+                           {REASONS["Poisoned"]: 1})
+            self.store.set_pod_condition(
+                pod, ("PodScheduled", "False:" + err.message()))
+            tracing.event("pod_quarantined", pod=uid, reason=r,
+                          reprobe_s=round(d, 3))
+            log.error(
+                "poison pod %s quarantined (%s; re-probe in %.1fs): %s",
+                pod.full_name(), r, d, error or reason)
+
+    def _gang_input_fault(self, members: List[api.Pod], verdict,
+                          rt=None) -> None:
+        """Gang flavor of _isolate_poison: no bisection within a gang —
+        one poisoned member quarantines the group (the culprit keeps its
+        direct reason, the mates are booked under reason=gang)."""
+        self.metrics.scheduling_errors.labels(stage="poison").inc()
+        culprits, reason = self._verdict_attribution(verdict, members)
+        if not culprits:
+            culprits = list(members)
+        self._convict(culprits, reason=reason, error=str(verdict),
+                      cohort=members)
+        if rt is not None:
+            rt.ledger["outcome"] = "input_fault"
+
+    @staticmethod
+    def _verdict_attribution(verdict, pods: List[api.Pod]):
+        """(culprits, reason) for one input-fault verdict: the pods it
+        names directly with the matching conviction reason, or
+        ([], "bisect") when attribution is indirect."""
+        uids = set(getattr(verdict, "uids", ()) or ())
+        one = getattr(verdict, "uid", None)
+        if one:
+            uids.add(one)
+        culprits = [p for p in pods if p.uid in uids]
+        if not culprits:
+            return [], "bisect"
+        return culprits, ("featurize"
+                          if isinstance(verdict, PodFeaturizeError)
+                          else "sentinel")
 
     # -- the exact host path (kubernetes_tpu/sched/scheduler.py:3334) -------------
 
@@ -1715,10 +2621,14 @@ class Scheduler:
         finally:
             if rt is not None and rt.t1 is None:
                 rec.end_round(rt, snapshot=self._round_snapshot_shape(),
-                              breaker="closed")
+                              breaker=self.breaker.state)
 
     def _schedule_one_gang_inner(self, key: str, members: List[api.Pod],
                                  rt=None) -> int:
+        # per-gang admission: an earlier gang of this batch may have been
+        # abandoned by the watchdog
+        if not self._device_admitted():
+            return self._schedule_degraded_gang(key, members, rt)
         min_member = self.gangs.min_member(members[0])
         bound = self.gangs.bound_count(self.cache, key,
                                        exclude={p.uid for p in members})
@@ -1734,38 +2644,91 @@ class Scheduler:
         placed = self._schedule_host_batch(host_path, rest=members)
         if not members:
             return placed
-        pb = self.featurizer.featurize(members)
+        try:
+            pb = self.featurizer.featurize(members)
+        except PodFeaturizeError as e:
+            # gang-atomic conviction: one poisoned member quarantines the
+            # whole group
+            self._gang_input_fault(members, e, rt)
+            return placed
         P = pb.req.shape[0]
         extra = self._host_plugin_mask(members, P)
         extra_scores = self._host_score_matrix(members, P)
         if rt is not None:
             rt.mark("featurize", pods=len(members))
+        try:
+            # the chaos seam while pb is still the host batch
+            self._wave_poison_seam(members, pb)
+        except Exception as e:
+            verdict = self._input_fault_verdict(members, e)
+            if verdict is None:
+                for p in members:
+                    self._park_with_backoff(p)
+                if rt is not None:
+                    rt.ledger["outcome"] = "device_failure"
+                return placed
+            self._gang_input_fault(members, verdict, rt)
+            return placed
         dev = self.device
         nt, pm, tt = self.snapshot.to_device(dev)
         if rt is not None:
             rt.mark("upload", cat="device")
         if self._rr is None:
-            self._rr = torch.zeros((), dtype=torch.int32, device=dev)
+            # re-seed from the host mirror (a twin pass dropped _rr)
+            self._rr = torch.tensor(self._host_rr, dtype=torch.int32,
+                                    device=dev)
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
                        or pb.rn_has.any() or (pb.pa_w != 0).any())
         gating, wvec, _wver = self._weights_kw()
-        pbt = enc.to_torch(None, None, None, pb, dev)[3]
-        # the host inputs go up in one copy each; a failed copy raises
-        extra = torch.from_numpy(extra).to(dev)
-        if extra_scores is not None:
-            extra_scores = torch.from_numpy(extra_scores).to(dev)
         launches0 = taint_ports_masks.launches
-        res = schedule_gang(
-            nt, pm, tt, pbt, extra, self._rr, extra_scores,
-            torch.tensor(need, dtype=torch.int32, device=dev),
-            weights=gating, num_zones=self.snapshot.caps.Z,
-            num_label_values=self.snapshot.num_label_values,
-            has_ipa=has_ipa, weight_vec=enc.weight_vec_to_torch(wvec, dev),
-            ts_valid_host=pb.ts_valid)
-        # the dispatch's one fetch: chosen, ok, placed and finite together
-        head = torch.cat([res.chosen, res.ok.to(torch.int32).reshape(1),
-                          res.placed.reshape(1),
-                          res.finite.to(torch.int32)]).cpu().numpy()
+        try:
+            pbt = enc.to_torch(None, None, None, pb, dev)[3]
+            # the host inputs go up in one copy each
+            extra_t = torch.from_numpy(extra).to(dev)
+            scores_t = (torch.from_numpy(extra_scores).to(dev)
+                        if extra_scores is not None else None)
+            res = schedule_gang(
+                nt, pm, tt, pbt, extra_t, self._rr, scores_t,
+                torch.tensor(need, dtype=torch.int32, device=dev),
+                weights=gating, num_zones=self.snapshot.caps.Z,
+                num_label_values=self.snapshot.num_label_values,
+                has_ipa=has_ipa,
+                weight_vec=enc.weight_vec_to_torch(wvec, dev),
+                ts_valid_host=pb.ts_valid)
+            # the dispatch's one fetch: chosen, ok, placed and finite
+            # together; the card's faults surface here, inside the try
+            head = torch.cat([res.chosen, res.ok.to(torch.int32).reshape(1),
+                              res.placed.reshape(1),
+                              res.finite.to(torch.int32)]).cpu().numpy()
+        except Exception as e:
+            if isinstance(e, KernelBuildError) or is_capacity_error(e):
+                # neither is a device fault (see _run_pipeline)
+                for p in members:
+                    self.queue.add_if_not_present(p)
+                if rt is not None:
+                    rt.ledger.update(outcome="error",
+                                     error=type(e).__name__)
+                raise
+            # input-fault attribution first: a poisoned member quarantines
+            # its gang, never feeds the breaker
+            verdict = self._input_fault_verdict(members, e)
+            if verdict is not None:
+                self._gang_input_fault(members, verdict, rt)
+                return placed
+            self._device_failure(e)
+            if rt is not None:
+                rt.ledger.update(outcome="device_failure",
+                                 error=type(e).__name__)
+            if isinstance(e, DispatchTimeout):
+                # a wedged dispatch: salvage the gang through the twin's
+                # all-or-nothing plane now (the breaker just opened)
+                return placed + self._schedule_degraded_gang(key, members,
+                                                             rt)
+            # park the gang for retry (nothing placed: atomicity holds)
+            for p in members:
+                self._park_with_backoff(p)
+            return placed
+        self.breaker.record_success()
         G = res.chosen.shape[0]
         chosen, ok, n_placed = head[:G], bool(head[G]), int(head[G + 1])
         fin = head[G + 2:] != 0
@@ -1776,21 +2739,22 @@ class Scheduler:
         # counted as the JAX scheduler counts its fetch of chosen (i32)
         # and finite (bool)
         self.metrics.device_fetch_bytes.inc(G * (4 + 1))
+        # numeric-integrity sentinel: a poisoned member discards the
+        # whole gang's placements and convicts the group atomically
         bad = [members[i].uid for i in range(len(members)) if not fin[i]]
         if bad:
-            for p in members:
-                self.queue.add_if_not_present(p)
-            if rt is not None:
-                rt.ledger["outcome"] = "input_fault"
-            raise FloatingPointError(
-                f"numeric-integrity sentinel flagged gang pods {bad}")
+            self._gang_input_fault(
+                members, PoisonError("numeric-integrity sentinel", uids=bad),
+                rt)
+            return placed
         if not ok:
             if rt is not None:
                 rt.ledger.update(outcome="gang_unplaceable",
                                  path=self.wave_path())
-            self._fail_gang(key, members, need, res, n_placed)
+            self._fail_gang(key, members, need, res.masks, n_placed)
             return placed
         self._rr = res.rr_end
+        self._host_rr += int(np.sum(chosen >= 0))  # the mirror
         pairs: List = []
         leftover: List = []
         for i, pod in enumerate(members):
@@ -1821,8 +2785,8 @@ class Scheduler:
                 self._handle_failure(pod, i, fail_counts, masks)
         return placed + len(pairs)
 
-    def _fail_gang(self, key: str, members: List[api.Pod], need: int, res,
-                   n_placed: int) -> None:
+    def _fail_gang(self, key: str, members: List[api.Pod], need: int,
+                   masks, n_placed: int) -> None:
         """minMember pods can't hold capacity together: no member commits
         (the device already discarded the placements), every member parks
         with ONE shared backoff deadline, and gang-aware preemption runs
@@ -1846,7 +2810,10 @@ class Scheduler:
             return
         t0 = self.clock()
         guard = self._gang_guard()
-        masks = res.masks.cpu().numpy()
+        # the member mask stack [Q, G, N]: a device tensor, or the twin's
+        # numpy planes
+        masks = (masks.cpu().numpy() if isinstance(masks, torch.Tensor)
+                 else np.asarray(masks))
         # claimed: nodes earlier members already nominated — each member
         # must free a DIFFERENT node or the gang re-fails with one slot
         # freed
@@ -2169,6 +3136,9 @@ class Scheduler:
             self.metrics.pod_scheduling_latency.observe(self.clock() - added)
         self.metrics.pods_scheduled.inc()
         self.backoff.clear(pod.uid)
+        # a successful bind clears the poison ladder too: a recovered
+        # spec starts fresh on any future conviction
+        self.poison_backoff.clear(pod.uid)
         self.queue.clear_backoff(pod.uid)
         self.queue.update_nominated_pod(pod, "")
         return True

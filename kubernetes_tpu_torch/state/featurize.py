@@ -22,6 +22,7 @@ import numpy as np
 from ..api import labels as lbl
 from ..api import types as api
 from ..ops import encoding as enc
+from ..utils import faultpoints
 from .snapshot import Snapshot, _parse_label_num
 from .vocab import bucket_size
 
@@ -71,6 +72,63 @@ class PodFeaturizeError(FeaturizeError):
         super().__init__(
             f"pod {self.pod_name} (uid {self.uid}) poisons featurization: "
             f"{type(cause).__name__}: {cause}")
+
+
+def poison_pod_fault(uid: str, kind: str = "nan"):
+    """corrupt-mode fn poisoning exactly ONE pod UID — the
+    lost_device_fault (sched/breaker.py) analog for *work* instead of
+    devices. Two seams consume it:
+
+      featurize.poison  payload (pod, row-dict), fired AFTER the
+                        featurizer's finite validation — kind="nan"
+                        writes NaN into the victim's req columns
+                        (models post-validation in-flight corruption:
+                        slips past the featurizer, MUST be caught by
+                        the kernel's numeric-integrity sentinel);
+                        kind="crash" raises PodFeaturizeError (direct
+                        attribution, no bisection needed).
+      wave.poison       payload (pods, PodBatch), fired before BOTH the
+                        device dispatch and every numpy-twin pass over
+                        the same pods — kind="crash" raises whenever
+                        the victim rides in the batch, so the fault
+                        follows the DATA across backends: the twin
+                        replay crashes too, classification lands on
+                        input-fault, and wave bisection isolates the
+                        victim; kind="nan" corrupts the victim's
+                        host-side PodBatch row pre-upload (sentinel
+                        path).
+
+    Everything without the victim proceeds untouched, so one activation
+    models exactly one poison pod:
+
+        faultpoints.activate("wave.poison", "corrupt",
+                             fn=poison_pod_fault(pod.uid, "crash"))
+    """
+
+    def fn(payload):
+        if payload is None:
+            return
+        first = payload[0] if isinstance(payload, tuple) else None
+        if first is not None and not isinstance(first, (list, tuple)):
+            pod, d = payload  # featurize seam
+            if getattr(pod, "uid", None) != uid:
+                return
+            if kind == "crash":
+                raise PodFeaturizeError(
+                    pod, RuntimeError("injected poison spec"))
+            d["req"] = np.full_like(d["req"], np.nan)
+            return
+        pods, pb = payload  # wave seam
+        for i, p in enumerate(pods):
+            if getattr(p, "uid", None) == uid:
+                if kind == "crash":
+                    raise RuntimeError(
+                        f"injected poison work riding pod uid {uid!r}")
+                # host-side batch, pre-upload: numpy in place
+                pb.req[i] = np.nan
+                return
+
+    return fn
 
 
 class PodFeaturizer:
@@ -341,7 +399,10 @@ class PodFeaturizer:
         re-raised as a typed, UID-carrying PodFeaturizeError, and rows
         whose resource columns came out non-finite (a 'NaN'-quantity
         spec parses without error) are rejected HERE — before they can
-        reach a device program and poison the whole wave's usage carry."""
+        reach a device program and poison the whole wave's usage carry.
+        The featurize.poison chaos seam fires AFTER the validation:
+        corrupt-mode injection models post-validation corruption, which
+        only the kernel's numeric-integrity sentinel can catch."""
         try:
             d = self._featurize_pod(pod)
         except PodFeaturizeError:
@@ -357,6 +418,12 @@ class PodFeaturizer:
                 and np.isfinite(d["nonzero"]).all()):
             raise PodFeaturizeError(
                 pod, ValueError("non-finite resource request"))
+        try:
+            faultpoints.fire("featurize.poison", payload=(pod, d))
+        except PodFeaturizeError:
+            raise
+        except Exception as e:
+            raise PodFeaturizeError(pod, e) from e
         return d
 
     # -- inter-pod affinity ----------------------------------------------------

@@ -724,6 +724,12 @@ class Snapshot:
             for a in host)
         rows.clear()
 
+    def invalidate_device(self) -> None:
+        """Forget the device copy: the next to_device uploads every group
+        whole (the scheduler's breaker recovery — nothing incremental is
+        trusted across a device fault)."""
+        self._device_cache.clear()
+
     def to_device(self, device=None
                   ) -> Tuple[enc.NodeTensors, enc.PodMatrix, enc.TermTable]:
         """Upload dirty groups (whole, or just the touched rows); reuse

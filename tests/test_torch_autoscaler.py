@@ -11,9 +11,10 @@ last_scale_down, the events, the nodes (cordons, drain annotations),
 the bindings, the autoscaler series and the scheduler series of
 tests/torch_parity.py. The scenarios mirror tests/test_autoscaler.py's
 TestScaleUp, TestBoundsAndCooldown and TestScaleDown, plus a tainted
-template, a failing cloud (FakeCloud.fail_next in both packages: the
-reference's `cloud.resize` fault point is not ported) and the shadow's
-isolation from the live snapshot. The ReplicaSet controller is not
+template, a failing cloud (FakeCloud.fail_next, and the `cloud.resize`
+fault point, in both packages), the `autoscaler.simulate` fault point,
+the what-ifs on the numpy twin while the scheduler's breaker is OPEN and
+the shadow's isolation from the live snapshot. The ReplicaSet controller is not
 ported: drained replicas are re-created by the test, as it would.
 """
 
@@ -36,8 +37,9 @@ from kubernetes_tpu_torch.ops import simulate as tsim
 from kubernetes_tpu_torch.runtime.store import ObjectStore as TorchStore
 from kubernetes_tpu_torch.sched.scheduler import Scheduler as TorchScheduler
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
-from torch_parity import SCHED_CAPS, metric_state
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
+from torch_parity import SCHED_CAPS, arm, metric_state
 from torch_worlds import FakeClock, _mods, bindings
 
 SIDES = ("jax", "torch")
@@ -352,6 +354,64 @@ class TestBoundsAndCooldown:
         assert big.target_size == first
 
 
+class TestFaultSeams:
+    def test_cloud_resize_fault_backs_off_and_never_doubles(self):
+        """cloud.resize raising once (before FakeCloud mutates anything):
+        the group backs off as with fail_next, then resizes once."""
+        from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+        w = CA(2, node_cpu="2")
+        big = w.group("big", "8", max_size=4)
+        w.autoscaler()
+        for i in range(3):
+            w.pod(f"p{i}", cpu="3")
+        assert w.drain() == 0
+        arm("cloud.resize", times=1)
+        assert w.run_once()["scaled_up"] == 0
+        assert big.target_size == 0 and not w.t[2].instances_by_name
+        assert tfp.hits("cloud.resize") == 1
+        w.advance(1.1)
+        first = w.run_once()["scaled_up"]
+        assert first >= 1 and big.target_size == first
+
+    def test_autoscaler_simulate_fault_skips_the_pass(self):
+        """autoscaler.simulate raising once: the what-if pass is skipped
+        (counted on scheduling_errors{stage=autoscaler}), nothing is
+        bought; the next pass scales up."""
+        w = CA(2, node_cpu="2")
+        big = w.group("big", "8", max_size=4)
+        w.autoscaler()
+        for i in range(3):
+            w.pod(f"p{i}", cpu="3")
+        assert w.drain() == 0
+        arm("autoscaler.simulate", times=1)
+        assert w.run_once()["scaled_up"] == 0
+        assert big.target_size == 0
+        assert w.sched["torch"].metrics.scheduling_errors.value(
+            stage="autoscaler") == 1
+        assert w.run_once()["scaled_up"] >= 1
+
+    def test_open_breaker_runs_the_what_ifs_on_the_twin(self):
+        """With both schedulers' breakers OPEN the autoscaler takes
+        backend="host": its scale-up verdict and resize equal the JAX
+        package's, and the joined nodes host the pods."""
+        w = CA(2, node_cpu="2")
+        big = w.group("big", "8", max_size=4)
+        w.autoscaler()
+        for i in range(3):
+            w.pod(f"p{i}", cpu="3")
+        assert w.drain() == 0
+        for s in SIDES:
+            w.sched[s].breaker.record_hang()
+        assert w.ca["torch"]._simulate_backend(False) == "host"
+        r = w.run_once()
+        assert r["scaled_up"] >= 1 and big.target_size == r["scaled_up"]
+        v = w.t[3].last_verdict
+        assert v.n_real == 2 and (v.chosen[:3] >= v.n_real).all()
+        w.advance(2.0)
+        assert w.drain() == 3
+
+
 class TestScaleDown:
     def _replicas(self, w, n, cpu="1", prefix="r"):
         for i in range(n):
@@ -551,15 +611,29 @@ def test_what_if_leaves_the_live_snapshot_alone():
 
 
 def test_host_backend_is_not_ported():
-    snap = tsim.Snapshot()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tsim.simulate_placements(snap, None, weights=None, num_zones=8,
-                                 num_label_values=64, backend="host",
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tsim.simulate_refit(snap, None, 1, weights=None, num_zones=8,
-                            num_label_values=64, backend="host",
-                            device="cpu")
+    """backend="host" no longer raises NotImplementedError: it runs the
+    numpy twin (ops/hostwave.py), the JAX package's OPEN-breaker branch,
+    and both what-ifs answer as the JAX package's host backend does on
+    the same cluster."""
+    w = CA(3, node_cpu="2")
+    w.group("big", "8", max_size=4)
+    for i in range(3):
+        w.pod(f"p{i}", cpu="3")
+    assert w.drain() == 0
+    got = {}
+    for s in SIDES:
+        sched = w.sched[s]
+        pending = sched.pending_unschedulable()
+        shadow, n_real = SIM[s].shadow_snapshot(sched.cache, sched.snapshot)
+        pb = sched.shadow_featurizer(shadow).featurize(pending)
+        kw = dict(weights=sched.profile.weights(), num_zones=shadow.caps.Z,
+                  num_label_values=shadow.num_label_values,
+                  backend="host")
+        v = SIM[s].simulate_placements(shadow, pb, **kw)
+        ok, chosen = SIM[s].simulate_refit(shadow, pb, 1, **kw)
+        got[s] = (v.chosen, v.feasible, ok, chosen)
+    for a, b in zip(got["jax"], got["torch"]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_capacity_errors_of_the_card_are_classified():

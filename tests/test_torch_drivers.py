@@ -30,7 +30,8 @@ from kubernetes_tpu_torch.sched import scheduler as tsched
 from kubernetes_tpu_torch.utils import metrics as tmetrics
 from kubernetes_tpu_torch.utils.backoff import PodBackoff as TorchBackoff
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both
 from torch_worlds import (FakeClock, bench_node, bench_pod, bindings,
                           ipa_store_world)
@@ -237,27 +238,68 @@ def test_preempt_host_matches_jax(monkeypatch):
 
 
 def test_failing_device_whatif_raises(monkeypatch):
-    """With device_preemption on, a what-if that fails raises out of the
-    drain: no silent switch to the twin."""
+    """With device_preemption on, a what-if whose kernel cannot be built,
+    whose wrapper refuses the inputs, or that runs out of device memory
+    raises out of the drain with the breaker untouched and the preemptor
+    back in the queue: no silent switch to the twin. One that fails on
+    the device is not a silent switch either: it is counted as a device
+    failure against the breaker (scheduling_errors{stage="wave"}) and
+    its chunk is salvaged through the numpy twin, as the JAX scheduler
+    salvages it."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.cuda_build import (KernelBuildError,
+                                                     KernelInputError)
+
+    def world():
+        store = ObjectStore()
+        sched = tsched.Scheduler(store, wave_size=WAVE, device="cpu",
+                                 clock=FakeClock())
+        for i in range(2):
+            store.create("nodes", bench_node("kubernetes_tpu_torch", i))
+        for i in range(4):
+            store.create("pods", bench_pod("kubernetes_tpu_torch",
+                                           f"hog-{i}", "hog", cpu="8",
+                                           priority=1))
+        assert sched.schedule_pending() == 4
+        store.create("pods", bench_pod("kubernetes_tpu_torch", "vip", "vip",
+                                       cpu="8", priority=100))
+        return store, sched
+
+    def unbuilt(*a, **kw):
+        raise KernelBuildError("nvcc failed to build preempt_whatif.cu")
+
+    def refused(*a, **kw):
+        raise KernelInputError("preempt_whatif kernel holds at most 8 "
+                               "resource columns")
+
+    def oom(*a, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    for fail, err, match in ((unbuilt, KernelBuildError, "nvcc failed"),
+                             (refused, KernelInputError, "resource col"),
+                             (oom, torch.cuda.OutOfMemoryError, "memory")):
+        monkeypatch.setattr(tsched, "preemption_stats", fail)
+        store, sched = world()
+        with pytest.raises(err, match=match):
+            sched.schedule_pending()
+        assert sched.breaker.state == "closed"
+        assert sched.breaker.failures == 0
+        assert sched.metrics.scheduling_errors.value(stage="wave") == 0
+        assert sched.pending_count() == 1
 
     def broken(*a, **kw):
         raise RuntimeError("what-if failed")
 
     monkeypatch.setattr(tsched, "preemption_stats", broken)
-    clock = FakeClock()
-    store = ObjectStore()
-    sched = tsched.Scheduler(store, wave_size=WAVE, device="cpu",
-                             clock=clock)
-    for i in range(2):
-        store.create("nodes", bench_node("kubernetes_tpu_torch", i))
-    for i in range(4):
-        store.create("pods", bench_pod("kubernetes_tpu_torch", f"hog-{i}",
-                                       "hog", cpu="8", priority=1))
-    assert sched.schedule_pending() == 4
-    store.create("pods", bench_pod("kubernetes_tpu_torch", "vip", "vip",
-                                   cpu="8", priority=100))
-    with pytest.raises(RuntimeError, match="what-if failed"):
-        sched.schedule_pending()
+    store, sched = world()
+    sched.schedule_pending()
+    assert sched.metrics.scheduling_errors.value(stage="wave") == 1
+    # one failure, below the threshold; the next round's success reset it
+    assert sched.breaker.state == "closed" and sched.breaker.trips == 0
+    assert sched.pipeline_preemptions == 1
+    assert sum(1 for p in store.list("pods") if p.metadata.name.startswith(
+        "hog-")) == 3
 
 
 # --- warm-up -------------------------------------------------------------------

@@ -19,7 +19,8 @@ from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import gang as tgang
 from kubernetes_tpu_torch.ops import kernel as tk
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both, eq
 from torch_worlds import op_world
 

@@ -19,7 +19,8 @@ from kubernetes_tpu_torch.plugins import golden as tgolden
 from kubernetes_tpu_torch.runtime.store import ObjectStore
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both
 from torch_worlds import (FakeClock, bindings, multikey_affinity, plain_node,
                           plain_pod)

@@ -13,7 +13,8 @@ from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import kernel as tk
 from kubernetes_tpu_torch.sched import scheduler as tsched
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import (LIVE_VECTOR, RICH_WEIGHTS, WAVE_PLANES,
                           compare_rounds, eq, round_inputs)
 from torch_worlds import op_world

@@ -15,7 +15,9 @@ and a short blip (the tolerations DefaultTolerationSeconds admits are
 set on the pods here: the admission chain is not ported). A scheduler
 on each store then places pods around the controller's NoExecute
 taints. The zone tally itself is held to both JAX forms over seeded
-columns, and an open breaker sends it to the host, counted.
+columns, and an open breaker sends it to the host, counted. The fault
+points `nodelifecycle.tally` and `nodelifecycle.evict` are armed alike
+in both packages (their hits compared).
 """
 
 import numpy as np
@@ -33,8 +35,9 @@ from kubernetes_tpu_torch.runtime.store import ObjectStore as TorchStore
 from kubernetes_tpu_torch.sched import breaker as tbreaker
 from kubernetes_tpu_torch.sched.scheduler import Scheduler as TorchScheduler
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
-from torch_parity import SCHED_CAPS
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
+from torch_parity import SCHED_CAPS, arm
 from torch_worlds import _mods, bindings
 
 SIDES = ("jax", "torch")
@@ -472,6 +475,63 @@ def test_a_failing_device_tally_is_answered_by_the_host_and_counted(
     assert br.failures == 1
     assert "device lost" in caplog.text
     tzh.reset_counts()
+
+
+def test_tally_fault_point_is_a_device_failure_in_both_packages():
+    """nodelifecycle.tally raising: both packages answer on the host and
+    charge their breaker one failure; equal answers, equal hits."""
+    from kubernetes_tpu.sched import breaker as jbreaker
+    from kubernetes_tpu.utils import faultpoints as jfp
+    from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+    zone_id, bad, valid = _columns(7, 16, 12, 3)
+    arm("nodelifecycle.tally", times=1)
+    tbr = tbreaker.DevicePathBreaker(threshold=3)
+    jbr = jbreaker.DevicePathBreaker(threshold=3)
+    tzh.reset_counts()
+    got = tzh.zone_tally(zone_id, bad, valid, 8, breaker=tbr, device="cpu")
+    want = jzh.zone_tally(zone_id, bad, valid, 8, breaker=jbr)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert tbr.failures == jbr.failures == 1
+    assert tzh.TALLY_COUNTS == {"device": 0, "host": 1, "device_failures": 1}
+    assert tfp.hits("nodelifecycle.tally") == jfp.hits(
+        "nodelifecycle.tally") == 1
+    # the budget spent, the next tally takes the device again
+    tzh.zone_tally(zone_id, bad, valid, 8, breaker=tbr, device="cpu")
+    assert tbr.failures == 0 and tzh.TALLY_COUNTS["device"] == 1
+    tzh.reset_counts()
+
+
+def test_evict_drop_fault_keeps_the_eviction_queued():
+    """nodelifecycle.evict dropped once: the eviction call is lost, the
+    entry stays queued (queue depth counts it) and the next pass evicts,
+    equal in both packages at every pass."""
+    from kubernetes_tpu.utils import faultpoints as jfp
+    from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+    w = NL(grace_period=40.0)
+    w.node("n1")
+    w.node("n2")
+    w.pod("p1", node_name="n1", tolerations=[dict(
+        key=tnl.TAINT_UNREACHABLE, operator="Exists",
+        effect="NoExecute", toleration_seconds=30)])
+    w.monitor()
+    w.now += 100
+    w.refresh(["n2"])
+    w.monitor()
+    w.now += 31
+    w.refresh(["n2"])
+    arm("nodelifecycle.evict", "drop", times=1)
+    w.monitor()
+    assert w.alive("p") == ["p1"]
+    assert tfp.hits("nodelifecycle.evict") == jfp.hits(
+        "nodelifecycle.evict") == 1
+    w.now += 1
+    w.refresh(["n2"])
+    w.monitor()
+    assert w.alive("p") == []
+    assert w.t[1].evictions == 1
 
 
 def test_controller_without_a_card_raises():

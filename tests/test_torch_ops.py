@@ -24,7 +24,8 @@ from kubernetes_tpu_torch.ops import filters as tf
 from kubernetes_tpu_torch.ops import scores as ts
 from kubernetes_tpu_torch.ops import selectors as tsel
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_worlds import make_pod, op_world
 
 SEEDS = [0, 1, 2]

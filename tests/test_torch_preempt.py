@@ -25,7 +25,8 @@ from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import preempt as tpre
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both, parity_world
 from torch_worlds import FakeClock, bindings, ipa_store_world, store_world
 
@@ -252,8 +253,8 @@ def test_backlog_preempts_through_pipeline_in_two_chunks():
         b.pod(f"vip-{i}", cpu="2", priority=100)
     chunks = []
     whatif = b.sched["torch"]._whatif
-    b.sched["torch"]._whatif = lambda cands: (chunks.append(len(cands)),
-                                              whatif(cands))[1]
+    b.sched["torch"]._whatif = lambda pb, *a, **kw: (
+        chunks.append(int(pb.valid.sum())), whatif(pb, *a, **kw))[1]
     placed = b.run()
     assert chunks == [4, 4]
     assert b.sched["torch"].pipeline_preemptions == 8

@@ -22,7 +22,8 @@ from kubernetes_tpu_torch.api import types as tapi
 from kubernetes_tpu_torch.ops.encoding import Caps
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_worlds import FakeClock, bindings, store_world
 
 REPO = Path(__file__).resolve().parent.parent

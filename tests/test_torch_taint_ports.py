@@ -18,7 +18,8 @@ from kubernetes_tpu.ops.pallas_kernels import taint_ports_masks as jax_masks
 from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import taint_ports as ttp
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_worlds import op_world
 
 EFFECT_SETS = {

@@ -21,7 +21,8 @@ from kubernetes_tpu.ops import telemetry as jtele
 from kubernetes_tpu_torch.ops import encoding as tenc
 from kubernetes_tpu_torch.ops import telemetry as ttele
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import CAPS
 from torch_worlds import ipa_world
 

@@ -27,7 +27,8 @@ from kubernetes_tpu_torch.ops import kernel as tk
 from kubernetes_tpu_torch.ops import topology as tt_
 from kubernetes_tpu_torch.sched import scheduler as tsched
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import (CAPS, WAVE_PLANES, assemble, compare_rounds, eq,
                           parity_world, round_inputs)
 from torch_worlds import ZONE, bindings, spread_store_world, zone_skew

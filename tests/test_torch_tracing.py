@@ -35,7 +35,8 @@ from kubernetes_tpu_torch.runtime.store import Conflict as TorchConflict
 from kubernetes_tpu_torch.sched import weights as tweights
 from kubernetes_tpu_torch.utils import tracing as ttracing
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both
 from torch_worlds import GCE_PD, bindings, multikey_affinity, volume_pod
 

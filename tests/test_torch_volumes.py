@@ -29,7 +29,8 @@ from kubernetes_tpu_torch.sched.errors import REASONS
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
 from kubernetes_tpu_torch.utils.feature_gates import FeatureGates
 
-from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                         torch_one_thread)
 from torch_parity import Both, claims
 from torch_worlds import (GCE_PD, EBS, bindings, plain_node,
                           plain_pod, volume_pod, volume_pv, volume_pvc)

@@ -1,5 +1,6 @@
 """Guards for the port's parity tests: the JAX dispatch watchdog
-disarmed, and one PyTorch intra-op thread.
+disarmed, one PyTorch intra-op thread, and both packages' fault
+registries and the port's dispatch watchdog cleared after each test.
 
 kubernetes_tpu's dispatch watchdog is process-global
 (kubernetes_tpu/ops/kernel.py `set_watchdog`): a JAX Scheduler built
@@ -9,7 +10,8 @@ it armed for every later test on the same worker. A cold JAX program
 overruns its deadline and raises DispatchTimeout. Import the fixture
 into a test module that dispatches JAX programs:
 
-    from torch_guard import jax_watchdog_off, torch_one_thread  # noqa: F401
+    from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
+                             torch_one_thread)
 
 It saves the watchdog, disarms it for the test and restores it after;
 nothing in the JAX package changes.
@@ -22,12 +24,22 @@ timing-sensitive tests of other workers. `torch_one_thread` runs each
 test on one thread and restores the count after. The thread count
 cannot change a result: the port's reductions are over booleans,
 integers and integer-valued floats.
+
+`faults_off` resets the fault registries of both packages
+(kubernetes_tpu/utils/faultpoints.py and kubernetes_tpu_torch/utils/
+faultpoints.py, each process-global) and clears the port's dispatch
+watchdog (kubernetes_tpu_torch/ops/kernel.py `set_watchdog`) after the
+test, draining a watchdog a test armed, so that neither a fault nor a
+watchdog outlives the test that armed it.
 """
 
 import pytest
 import torch
 
 from kubernetes_tpu.ops import kernel as jax_kernel
+from kubernetes_tpu.utils import faultpoints as jax_faultpoints
+from kubernetes_tpu_torch.ops import kernel as torch_kernel
+from kubernetes_tpu_torch.utils import faultpoints as torch_faultpoints
 
 
 @pytest.fixture(autouse=True)
@@ -44,3 +56,14 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(saved)
+
+
+@pytest.fixture(autouse=True)
+def faults_off():
+    yield
+    jax_faultpoints.reset()
+    torch_faultpoints.reset()
+    wd = torch_kernel._WATCHDOG
+    torch_kernel.set_watchdog(None)
+    if wd is not None:
+        wd.drain(timeout=10.0)

@@ -164,15 +164,17 @@ class Both:
     nominations, PodScheduled conditions, claim bindings), the queues,
     the preemption counters, the equivalence caches' hits and misses and
     the SCHED_METRICS. profile(pkg, store) and features(pkg), where
-    given, build each package's Profile and FeatureGates."""
+    given, build each package's Profile and FeatureGates; sched_kw are
+    further Scheduler keywords both packages take (breaker_threshold,
+    breaker_cooldown, wave_deadline_s, poison_backoff_s)."""
 
     def __init__(self, n_nodes=0, wave=16, profile=None, features=None,
-                 **node_kw):
+                 sched_kw=None, **node_kw):
         self.clock = {"jax": FakeClock(), "torch": FakeClock()}
         self.stores = {"jax": JaxStore(), "torch": TorchStore()}
         kw = {}
         for side, store in self.stores.items():
-            kw[side] = {}
+            kw[side] = dict(sched_kw or {})
             if profile is not None:
                 kw[side]["profile"] = profile(self.pkg(side), store)
             if features is not None:
@@ -258,3 +260,63 @@ class Both:
                    if p.metadata.annotations.get(
                        "pod-group.scheduling.k8s.io/name") == gang
                    and p.spec.node_name)
+
+
+# the series of the device-fault ladder both schedulers keep
+FAULT_METRICS = ("device_path_trips", "breaker_state", "poison_pods",
+                 "degraded_golden_pods", "wave_deadline_overruns")
+
+
+def fault_state(sched) -> dict:
+    """The device-fault ladder's state of one scheduler: the breaker
+    (state, consecutive failures, trips), the round-robin mirror, the
+    convictions and the quarantined pods, the FAULT_METRICS and the
+    quarantine gauge."""
+    out = {"breaker": (sched.breaker.state, sched.breaker.failures,
+                       sched.breaker.trips),
+           "host_rr": sched._host_rr,
+           "convictions": sched.poison_convictions,
+           "quarantined": sorted(p.metadata.name
+                                 for p in sched.queue.quarantined_pods())}
+    m = sched.metrics
+    for name in FAULT_METRICS:
+        fam = getattr(m, name)
+        if hasattr(fam, "children"):
+            out[name] = {c.name: c.value for c in fam.children()}
+        else:
+            out[name] = fam.value
+    out["quarantine_gauge"] = m.pending_pods.value(queue="quarantine")
+    return out
+
+
+def check_faults(b, points=()):
+    """Both schedulers of `b` (a Both) in the same fault state, and each
+    fault point of `points` hit as many times in both packages."""
+    from kubernetes_tpu.utils import faultpoints as jfp
+    from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+    assert fault_state(b.sched["torch"]) == fault_state(b.sched["jax"])
+    for name in points:
+        assert tfp.hits(name) == jfp.hits(name), name
+
+
+def arm(name, mode="raise", **kw):
+    """Arm one fault point in both packages; a corrupt fn is given as
+    make(pkg) -> fn so each package gets its own."""
+    from kubernetes_tpu.utils import faultpoints as jfp
+    from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+    make = kw.pop("make", None)
+    for pkg, fp in (("kubernetes_tpu", jfp), ("kubernetes_tpu_torch", tfp)):
+        extra = dict(kw)
+        if make is not None:
+            extra["fn"] = make(pkg)
+        fp.activate(name, mode, **extra)
+
+
+def disarm(name):
+    from kubernetes_tpu.utils import faultpoints as jfp
+    from kubernetes_tpu_torch.utils import faultpoints as tfp
+
+    jfp.deactivate(name)
+    tfp.deactivate(name)
