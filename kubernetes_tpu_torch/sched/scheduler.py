@@ -1134,7 +1134,7 @@ class Scheduler:
             golden = self._golden_reasons(host_path)
             pods = [p for p in all_pods
                     if not self.featurizer.needs_host_path(p)]
-            placed += self._schedule_host_batch(host_path, rest=pods)
+            placed += self._schedule_host_batch(host_path)
             if not pods:
                 if golden:
                     tracing.event("golden_gap", **golden)
@@ -1702,7 +1702,7 @@ class Scheduler:
         host_path = [p for p in pods if self.featurizer.needs_host_path(p)]
         golden = self._golden_reasons(host_path)
         pods = [p for p in pods if not self.featurizer.needs_host_path(p)]
-        placed_gang += self._schedule_host_batch(host_path, rest=pods)
+        placed_gang += self._schedule_host_batch(host_path)
         if not pods:
             if golden:
                 tracing.event("golden_gap", **golden)
@@ -1961,7 +1961,7 @@ class Scheduler:
         if golden_pods:
             pods = [p for p in pods if not self._needs_golden(p)]
             self._count_degraded_golden(golden_pods, rt)
-            placed += self._schedule_host_batch(golden_pods, rest=pods)
+            placed += self._schedule_host_batch(golden_pods)
         # chunk at wave_size: featurize buckets caps.P by batch length
         deco_acc: Optional[List] = [] if rt is not None else None
         committed: set = set()
@@ -2230,7 +2230,10 @@ class Scheduler:
     @staticmethod
     def _infra_error(exc: BaseException) -> bool:
         """An infrastructure failure (store, OS), which the pod's own
-        spec cannot cause."""
+        spec cannot cause (kubernetes_tpu/sched/scheduler.py:3390-3406;
+        the port has no REST client, so there is no APIStatusError to
+        add). Conviction paths that wrap phases with side effects
+        (commit, preemption) must not blame the work for these."""
         return isinstance(exc, (OSError, TimeoutError, Conflict, KeyError))
 
     def _input_fault_verdict(self, pods: List[api.Pod],
@@ -2390,35 +2393,56 @@ class Scheduler:
 
     # -- the exact host path (kubernetes_tpu/sched/scheduler.py:3334) -------------
 
-    def _schedule_host_batch(self, pods: List[api.Pod],
-                             rest: List[api.Pod] = ()) -> int:
+    def _schedule_host_batch(self, pods: List[api.Pod]) -> int:
         """The exact host path for `pods`, one pod at a time, over one
         ClusterView shared by the batch (it reads the live cache, so
-        commits and evictions inside the loop stay visible). An
-        infrastructure failure parks its pod with backoff and the batch
-        goes on. Any other exception puts the pod that raised, the pods
-        of the batch not yet tried and `rest` (the other pods its caller
-        popped) back in the queue, and raises: the port has no poison
-        quarantine, and drops no pod. Returns the pods placed."""
+        commits and evictions inside the loop stay visible)
+        (kubernetes_tpu/sched/scheduler.py:3334-3388). The per-pod loop
+        is the fault domain: a pod whose spec crashes the golden pass is
+        convicted (reason golden, into the queue's quarantine) and the
+        batch drains on; an infrastructure failure parks its pod with
+        backoff; when EVERY pod of a batch of two or more crashed, the
+        fault is systemic and the batch is parked, not convicted.
+        Returns the pods placed."""
         if not pods:
             return 0
         view = golden.ClusterView(self.cache.node_infos)
         placed = 0
-        for i, p in enumerate(pods):
+        crashed: List[tuple] = []
+        for p in pods:
             try:
                 placed += self._schedule_host_path(p, view)
-            except (OSError, TimeoutError, Conflict, KeyError) as e:
-                # the golden pass also preempts and commits: a store
-                # failure there is not the pod's fault
-                self.metrics.scheduling_errors.labels(stage="bind").inc()
-                logging.getLogger(__name__).error(
-                    "golden pass failed on infrastructure, parking %s",
-                    p.full_name(), exc_info=e)
+            except Exception as e:
+                if self._infra_error(e):
+                    # the golden pass also preempts and commits: a store
+                    # failure there is not the pod's fault — a plain
+                    # backoff park, never a conviction
+                    self.metrics.scheduling_errors.labels(
+                        stage="bind").inc()
+                    logging.getLogger(__name__).error(
+                        "golden pass failed on infrastructure, "
+                        "parking %s", p.full_name(), exc_info=e)
+                    self._park_with_backoff(p)
+                    continue
+                crashed.append((p, e))
+        if crashed and len(crashed) == len(pods) and len(pods) > 1:
+            # EVERY pod of the batch crashed the golden pass: a systemic
+            # fault (a buggy host plugin, corrupt shared state), not
+            # per-pod poison — park the batch instead of quarantining an
+            # innocent class. A single-pod batch cannot be told apart and
+            # keeps the conviction (the re-probe ladder bounds a wrong
+            # call).
+            self.metrics.scheduling_errors.labels(stage="wave").inc()
+            logging.getLogger(__name__).error(
+                "golden pass crashed for ALL %d pods (systemic, not "
+                "poison); parking batch", len(pods),
+                exc_info=crashed[0][1])
+            for p, _e in crashed:
                 self._park_with_backoff(p)
-            except Exception:
-                for q in list(pods[i:]) + list(rest):
-                    self.queue.add_if_not_present(q)
-                raise
+            return placed
+        for p, e in crashed:
+            self._convict([p], reason="golden",
+                          error=f"{type(e).__name__}: {e}")
         return placed
 
     def _schedule_host_path(self, pod: api.Pod, view) -> int:
@@ -2641,7 +2665,7 @@ class Scheduler:
         host_path = [p for p in members if self.featurizer.needs_host_path(p)]
         members = [p for p in members
                    if not self.featurizer.needs_host_path(p)]
-        placed = self._schedule_host_batch(host_path, rest=members)
+        placed = self._schedule_host_batch(host_path)
         if not members:
             return placed
         try:

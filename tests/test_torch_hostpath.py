@@ -8,12 +8,13 @@ places them (torch_parity.Both: bindings,
 nominations, victims, queue and metrics after every step, on a virtual
 clock). Also: every placed pod satisfies both of its terms, read back
 from the store; the JAX default profile's volume predicates pass these
-volume-free pods; a crash of the golden pass re-queues and raises, and
-an infrastructure error parks the pod.
+volume-free pods; a pod whose spec crashes the golden pass is convicted
+into the quarantine and the drain goes on, a batch whose every pod
+crashes is parked as a systemic fault, both as in the JAX Scheduler,
+and an infrastructure error parks the pod.
 """
 
-import pytest
-
+from kubernetes_tpu.plugins import golden as jgolden
 from kubernetes_tpu.plugins import volumes as jvolumes
 from kubernetes_tpu_torch.plugins import golden as tgolden
 from kubernetes_tpu_torch.runtime.store import ObjectStore
@@ -21,7 +22,7 @@ from kubernetes_tpu_torch.sched.scheduler import Scheduler
 
 from torch_guard import (faults_off, jax_watchdog_off,  # noqa: F401
                          torch_one_thread)
-from torch_parity import Both
+from torch_parity import Both, check_faults
 from torch_worlds import (FakeClock, bindings, multikey_affinity, plain_node,
                           plain_pod)
 
@@ -204,22 +205,59 @@ def _torch_world(clock):
     return store, sched
 
 
-def test_golden_crash_requeues_and_raises(monkeypatch):
-    """A crash of the golden pass is not swallowed: it raises out of the
-    drain with every pod of the popped backlog back in the queue."""
+def _golden_crash_world(monkeypatch, crash):
+    """The world of ROADMAP queue 3's golden-pass fault, in both packages:
+    12 zoned nodes with their anchors, pods near-0..3 (multikey_affinity,
+    500m) and plain-0..3 (500m), and golden.pod_fits_on_node patched in
+    both packages to raise ValueError for the pods named in `crash`."""
+    b = _zoned(12)
+    _anchors(b)
+    for i in range(4):
+        b.pod(f"near-{i}", cpu="500m", affinity=multikey_affinity())
+        b.pod(f"plain-{i}", cpu="500m")
+    for mod in (jgolden, tgolden):
+        def crashing(pod, ni, _fits=mod.pod_fits_on_node, **kw):
+            if pod.metadata.name in crash:
+                raise ValueError("golden pass crashed")
+            return _fits(pod, ni, **kw)
 
-    def crash(*a, **kw):
-        raise ValueError("golden pass crashed")
+        monkeypatch.setattr(mod, "pod_fits_on_node", crashing)
+    return b
 
-    store, sched = _torch_world(FakeClock())
-    pending = sched.pending_count()
-    monkeypatch.setattr(tgolden, "pod_fits_on_node", crash)
-    with pytest.raises(ValueError, match="golden pass crashed"):
-        sched.schedule_pending()
-    assert sched.pending_count() == pending
-    assert sorted(p.metadata.name for p in sched.queue.active_pods()) == [
-        f"{k}-{i}" for k in ("near", "plain") for i in range(3)]
-    assert not any(bindings(store)[f"plain-{i}"] for i in range(3))
+
+def test_golden_crash_convicts_the_pod_and_drains_on(monkeypatch):
+    """A pod whose spec crashes the golden pass is convicted (reason
+    golden, into the quarantine) and the drain goes on, as in the JAX
+    Scheduler: 7 of the 8 pods bound in both packages, the same
+    quarantine, poison_pods{reason="golden"} 1 and the same fault
+    state."""
+    b = _golden_crash_world(monkeypatch, {"near-1"})
+    assert b.run() == 7
+    check_faults(b)
+    t = b.sched["torch"]
+    assert [p.metadata.name for p in t.queue.quarantined_pods()] == [
+        "near-1"]
+    assert t.metrics.poison_pods.value(reason="golden") == 1
+    assert t.poison_convictions == 1
+    assert not bindings(b.stores["torch"])["near-1"]
+    assert bindings(b.stores["torch"])["near-2"]
+
+
+def test_golden_crash_of_every_pod_parks_the_batch(monkeypatch):
+    """When every pod of a host-path batch of two or more crashes the
+    golden pass, the fault is systemic, not poison: the batch is parked
+    with backoff and nobody is convicted; the device pods place. Both
+    packages alike."""
+    b = _golden_crash_world(monkeypatch, {f"near-{i}" for i in range(4)})
+    assert b.run() == 4
+    check_faults(b)
+    t = b.sched["torch"]
+    assert t.queue.quarantine_count() == 0 and t.poison_convictions == 0
+    assert t.metrics.scheduling_errors.value(stage="wave") == 1
+    assert t.queue.backoff_count() + t.queue.unschedulable_count() == 4
+    got = bindings(b.stores["torch"])
+    assert all(got[f"plain-{i}"] for i in range(4))
+    assert not any(got[f"near-{i}"] for i in range(4))
 
 
 def test_golden_infrastructure_error_parks_the_pod(monkeypatch):
