@@ -46,7 +46,8 @@ Every entry point (`schedule_wave`, `schedule_round`, ops/gang.py
 dispatches by shape bucket in the metrics registered by
 `set_telemetry`, as the JAX package counts its jit cache hits and
 misses, and which is the seam of the dispatch watchdog (`set_watchdog`)
-and of the `kernel.hang` and `device.lost` fault points. The wave, the
+and of the `kernel.hang`, `device.lost` and `device.oom` fault points.
+The wave, the
 round and the gang fire `kernel.wave`, `kernel.round` and `kernel.gang`
 at their entry, as the JAX entry points do.
 """
@@ -233,8 +234,10 @@ def dispatch_bucket(nt, pm, tt, kw, lead=()) -> tuple:
 def record_dispatch(program: str, bucket_key: tuple, fn):
     """Run one dispatch (kubernetes_tpu/ops/kernel.py:238-300).
 
-    The `kernel.hang` and `device.lost` fault points fire inside the
-    guarded dispatch, once each a dispatch. With a watchdog registered
+    The `kernel.hang`, `device.lost` and `device.oom` fault points fire
+    inside the guarded dispatch, once each a dispatch (`device.oom` is the
+    capacity seam: the scheduler compacts, halves the wave or takes the
+    twin, and never charges a device). With a watchdog registered
     (set_watchdog) the dispatch runs on its worker thread under the
     deadline and raises DispatchTimeout on abandonment; a bucket not
     seen before in this process gets the compile-scaled budget. With
@@ -249,6 +252,7 @@ def record_dispatch(program: str, bucket_key: tuple, fn):
         # unarmed: the fault seams still fire, nothing else is paid
         faultpoints.fire("kernel.hang")
         faultpoints.fire("device.lost", payload=_DEVICES or None)
+        faultpoints.fire("device.oom", payload=_DEVICES or None)
         return fn()
     key = (program,) + bucket_key
     miss = key not in _COMPILED
@@ -257,6 +261,7 @@ def record_dispatch(program: str, bucket_key: tuple, fn):
     def dispatch():
         faultpoints.fire("kernel.hang")
         faultpoints.fire("device.lost", payload=_DEVICES or None)
+        faultpoints.fire("device.oom", payload=_DEVICES or None)
         return inner()
 
     if wd is not None and wd.armed():

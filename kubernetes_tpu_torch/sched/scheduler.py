@@ -1531,12 +1531,12 @@ class Scheduler:
     def _whatif(self, pb, levels, gang_w, host: bool):
         """The what-if of one preemption chunk: packed [5, P, N] stats as
         numpy. On the device (one launch, one fetch), or through the numpy
-        twin when `host` is set or the device is not admitted; a device
-        failure feeds the breaker and the chunk is salvaged on the twin
+        twin when `host` is set or the device is not admitted; any other
+        failure of the dispatch or the fetch, an out-of-memory error
+        included, feeds the breaker and the chunk is salvaged on the twin
         (kubernetes_tpu/sched/scheduler.py:2039-2090). A kernel that
-        cannot be built or refuses the inputs (KernelBuildError), and a
-        capacity fault, raise as they do in the round: neither is a
-        device fault."""
+        cannot be built or refuses the inputs (KernelBuildError) raises
+        as it does in the round: it is not a device fault."""
         if not host and not self._device_admitted():
             # the breaker opened (or a dispatch wedged) mid-round: the
             # chunk must not follow the wave onto a bad device
@@ -1551,8 +1551,7 @@ class Scheduler:
                 # the fetch surfaces the card's faults too: keep it inside
                 return packed.cpu().numpy()  # ONE fetch for all planes
             except Exception as e:
-                if isinstance(e, KernelBuildError) or is_capacity_error(e):
-                    raise
+                # _device_failure re-raises a KernelBuildError
                 self._device_failure(e)
         nt_h, pm_h, _tt = self.snapshot.host_tensors()
         return preemption_stats_host(nt_h, pm_h, pb,

@@ -31,6 +31,10 @@ Wired points (grep for `faultpoints.fire`):
                    sched.breaker.lost_device_fault(name) — raises
                    DeviceLost(name) while that device is in the payload;
                    a plain `raise` models an unattributed loss
+  device.oom       ops/kernel.py record_dispatch, inside the guarded
+                   dispatch (next to device.lost; payload: the active
+                   device-name tuple). The capacity-fault seam: a
+                   `raise` models the card running out of memory
   featurize.poison state/featurize.py _featurize_pod_guarded, AFTER the
                    per-pod finite validation (payload: (pod, row-dict)).
                    Arm `corrupt` with state.featurize.poison_pod_fault
