@@ -83,9 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
                seconds by phase, each kernel's launches; the what-if
                timed on the drain's chunk (P = 16) as in phase 9;
   9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
-               priority-1 hogs of 8 cores (two a node), then 10 000
+               priority-1 hogs of 8 cores (two a node), then 5 000
                priority-100 vips of 8 cores, each placing only by
-               evicting a hog. 10 000 placed, 10 000 evicted, every
+               evicting a hog. 5 000 placed, 5 000 evicted, every
                preemption done by the pipeline. Printed: vip pods/s,
                what-if chunks and launches, host validation seconds; on
                the largest chunk, the what-if by CUDA events as a whole
@@ -226,10 +226,51 @@ Phases (any failure exits non-zero and prints no result line):
                device branch's (chosen, feasible; refit too). (b) and
                (d) halve their pods (to no fewer than 512) when they
                project past 45 s.
+  18. memory — the memory plane and load shedding (state/scrubber.py,
+               Snapshot._compact, the capacity-fault ladder, the queue's
+               shed area) at 5 000 nodes, waves of 128: (a) device.oom
+               once in the density world's first round (1 024 pods):
+               strike 1 compacts and retries, capacity_faults 1, the
+               breaker CLOSED, no conviction, the bindings equal a
+               fault-free run's; three times in a row (512 pods): strikes
+               2 and 3 halve the wave cap, strike 3 salvages the round
+               through the twin, the bindings equal a per-wave drain on
+               the card;
+               once at the first what-if chunk of the preempt world (5 000
+               nodes full of bound hogs, 256 vips): the chunk salvaged on
+               the twin, the drain complete; (b) 30 000 bound density
+               pods, 12 cycles of 32 Jobs x 8 pods (their own
+               controller-uid and job-name values) bound and deleted, the
+               compaction cadence crossed every 3 cycles on the virtual
+               clock: per cycle the vocabulary sizes, caps, projected
+               bytes, torch.cuda.memory_allocated() (before and after each
+               compaction, which must free device memory), the compaction
+               seconds and the upload bytes; the label-value vocabulary
+               the same after every compaction, the first upload after
+               each a full one and the next a row delta; a 500-node copy
+               (3 000 bound pods, 2 pods a Job) with compaction on and off
+               on the card and on the CPU: the same bindings in all four;
+               (c) a budget just above the settled footprint and a wave of
+               128 pods with 16 new label keys: the grow demands a
+               compaction, housekeeping runs it (trigger governor), the
+               headroom printed, the breaker untouched; (d) snapshot.write
+               (corrupt) on 8 node rows, one scrub at 5 000 nodes and
+               30 000 bound pods (seconds printed) reports exactly those
+               rows and repairs them, the next upload is row deltas; on
+               500 nodes the drain after the repair equals a clean
+               run's; (e) tests/test_storm.py's burst at 5 000 nodes: 2 560
+               priority-0 pods in bursts of 640 a tick with a pod at
+               HIGH_PRIORITY_BAND after every 20, one wave a tick until
+               nothing is pending, with shed_watermark 1 024 (shed_age_s 60 on the
+               virtual clock) and with shedding off: every high pod bound
+               before any shed pod, the shed area drained oldest first,
+               every pod bound, no high pod shed; the p99 latency of each
+               class on the virtual clock printed for both.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
-watchdog abandonment, no quarantined pod (a healthy phase that leaned on
-the ladder fails).
+watchdog abandonment, no quarantined pod, no capacity fault, compaction
+or strike (a healthy phase that leaned on a ladder fails); phase 17's
+schedulers are held to no capacity fault.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -266,8 +307,9 @@ SMALL_NODES, SMALL_PODS = 500, 1000
 GANGS, GANG_SIZE, GANG_HIGH, GANG_CPU = 1200, 8, 1600, 8
 GANG_P = 16
 # phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
-# as many 8-core vips
-PREEMPT_VIPS = 10000
+# half as many 8-core vips (cut for the script's time from 10 000, one a
+# hog, to 5 000)
+PREEMPT_VIPS = 5000
 # phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
@@ -387,6 +429,32 @@ HOSTNAME = "kubernetes.io/hostname"
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
 # the fields of the node and pod tensors that taint_ports_masks reads
+# phase 18 (the memory plane and load shedding), cut for the script's
+# time (PERF.md section 4): (a) the density world of MEM_OOM_PODS pods
+# with device.oom once and its fault-free run, MEM_STRIKE_PODS pods with
+# device.oom three times and the per-wave drain on the card, the preempt
+# world's FULL_NODES nodes full of bound hogs and MEM_VIPS vips; (b)
+# MEM_RESIDENT bound density pods and MEM_CYCLES cycles of MEM_JOBS Jobs
+# x MEM_JOB_PODS pods (cut from 32), the cadence MEM_COMPACT_S virtual
+# seconds crossed every MEM_COMPACT_EVERY cycles; its 500-node copy with
+# MEM_SMALL_RESIDENT bound pods and MEM_SMALL_JOB_PODS pods a Job; (c) a
+# budget MEM_GOV_SLACK bytes above the footprint, a wave of pods with
+# MEM_GOV_KEYS new label keys; (d) MEM_CORRUPT corrupted rows, a
+# 500-node drain of MEM_SCRUB_PODS pods; (e) STORM_LOW priority-0 pods
+# (cut from 20 000) in bursts of STORM_BURST a tick (5 waves) with a
+# HIGH_PRIORITY_BAND pod after every STORM_EVERY (STORM_HIGH, cut from
+# 1 000), the watermark STORM_WATERMARK (cut from 4 096 with the burst)
+# and shed_age_s STORM_AGE_S on the virtual clock; after the burst one
+# wave a tick (at most STORM_DRAIN_TICKS) until nothing is pending
+MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 1024, 512, 256
+MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 12, 32, 8
+MEM_COMPACT_S, MEM_COMPACT_EVERY = 60.0, 3
+MEM_SMALL_NODES, MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS = 500, 3000, 2
+MEM_GOV_SLACK, MEM_GOV_KEYS = 4096, 16
+MEM_CORRUPT, MEM_SCRUB_PODS = 8, 512
+STORM_LOW, STORM_HIGH, STORM_EVERY = 2560, 128, 20
+STORM_BURST, STORM_WATERMARK, STORM_AGE_S = 5 * WAVE, 1024, 60.0
+STORM_DRAIN_TICKS = 200
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
 KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
@@ -3310,16 +3378,39 @@ class Ladder:
                     "quarantined": s.queue.quarantine_count(),
                     "convictions": s.poison_convictions,
                     "device_failures": int(
-                        s.metrics.scheduling_errors.value(stage="wave"))}
+                        s.metrics.scheduling_errors.value(stage="wave")),
+                    **self.capacity(s)}
             if used != {"breaker": "closed", "trips": 0,
                         "device_path_trips": 0, "abandoned": 0,
                         "quarantined": 0, "convictions": 0,
-                        "device_failures": 0}:
+                        "device_failures": 0, "capacity_faults": 0,
+                        "oom_compactions": 0, "strikes": 0}:
                 fail(f"{phase}: a healthy phase used the device-fault "
-                     f"ladder: {used}")
+                     f"ladder or the capacity ladder: {used}")
         log(f"[ladder] {phase}: {len(self.made)} schedulers, breaker "
             "CLOSED, no trip, no device failure, no watchdog abandonment, "
-            "no quarantined pod")
+            "no quarantined pod, no capacity fault")
+        self.made = []
+
+    @staticmethod
+    def capacity(s) -> dict:
+        """The capacity ladder of one scheduler: faults, compactions it
+        ran for them, outstanding strikes."""
+        return {"capacity_faults": int(s.metrics.capacity_faults.value),
+                "oom_compactions": int(
+                    s.metrics.snapshot_compactions_total.value(
+                        trigger="oom")),
+                "strikes": s._capacity_strikes}
+
+    def check_capacity(self, phase: str) -> None:
+        """The schedulers of a phase that injects device faults (17): none
+        of them used the capacity ladder."""
+        for s in self.made:
+            used = self.capacity(s)
+            if any(used.values()):
+                fail(f"{phase}: the capacity ladder ran: {used}")
+        log(f"[ladder] {phase}: {len(self.made)} schedulers, no capacity "
+            "fault")
         self.made = []
 
 
@@ -3928,6 +4019,665 @@ def faults_phase(torch, mods, enc, bucket_size, lbl, ctl, hostwave,
             "whatif_launches": 0}
 
 
+# -- phase 18: the memory plane and load shedding ---------------------------------
+
+
+def memory_caps(snap) -> dict:
+    """The snapshot-owned caps a compaction may shrink (their names)."""
+    return {d: getattr(snap.caps, d) for d in ("N", "M", "E", "K", "KP",
+                                               "LV")}
+
+
+def job_pod(api, name, job, uid, node_name=""):
+    """A pod of a 1.11 Job: 100m / 128Mi, the `controller-uid` and
+    `job-name` labels the Job controller stamps, owned by the Job."""
+    return api.Pod(
+        metadata=api.ObjectMeta(
+            name=name, labels={"controller-uid": uid, "job-name": job},
+            owner_references=[api.OwnerReference(
+                kind="Job", name=job, uid=uid, controller=True)]),
+        spec=api.PodSpec(node_name=node_name, containers=[api.Container(
+            resources=api.ResourceRequirements(
+                requests=api.resource_list(cpu="100m", memory="128Mi")))]))
+
+
+def resident_world(mods, enc, bucket_size, n_nodes, n_resident, n_extra,
+                   device, seed, **kw):
+    """build_store's 5 000-node shape (no backlog) with n_resident density
+    pods (tolerating every taint) bound round-robin over the nodes at
+    creation (the scheduler
+    adds them to its mirror at start), on a virtual clock; caps sized
+    for n_extra more pods. Returns (store, scheduler, clock)."""
+    api, Scheduler, PodBackoff, store_mod = mods[0], mods[5], mods[6], \
+        mods[7]
+    store, n_bound = build_store(api, store_mod, n_nodes, 0, seed)
+    for j in range(n_resident):
+        p = batch_pod(api, f"res-{j}", "density", "100m", None)
+        p.spec.node_name = f"node-{j % n_nodes}"
+        # daemon-style, as build_store's port holders: bound on tainted
+        # nodes too
+        p.spec.tolerations = [api.Toleration(
+            operator=api.TOLERATION_OP_EXISTS)]
+        store.create("pods", p)
+    clock = VirtualClock()
+    caps = scheduler_caps(enc, bucket_size, n_nodes, n_extra,
+                          n_resident + n_bound)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      clock=clock,
+                      backoff=PodBackoff(initial=0.001, clock=clock), **kw)
+    return store, sched, clock
+
+
+def capacity_state(sched) -> dict:
+    m = sched.metrics
+    return {"capacity_faults": int(m.capacity_faults.value),
+            "oom_compactions": int(m.snapshot_compactions_total.value(
+                trigger="oom")),
+            "breaker": sched.breaker.state, "trips": sched.breaker.trips,
+            "convictions": sched.poison_convictions,
+            "quarantined": sched.queue.quarantine_count(),
+            "strikes": sched._capacity_strikes, "wave_cap": sched._wave_cap}
+
+
+def oom_run(torch, mods, enc, bucket_size, faultpoints, n_pods, times,
+            per_wave=False):
+    """Phase 18 (a): the density world of n_pods pods at FULL_NODES nodes
+    on the card, device.oom raising `times` times in a row (0: a
+    fault-free run). per_wave drains through the per-wave path (the
+    reference of a twin salvage). Returns (bindings, what was seen)."""
+    api, tp, store_mod = mods[0], mods[1], mods[7]
+    Scheduler, PodBackoff = mods[5], mods[6]
+    store, n_bound = build_store(api, store_mod, FULL_NODES, n_pods,
+                                 SEED + 181)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, n_pods, n_bound)
+    clock = VirtualClock()
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock,
+                      backoff=PodBackoff(initial=0.001, clock=clock))
+    seconds = []
+    compact = sched.scrubber.compact
+
+    def timed(*a, **kw):
+        t0 = time.monotonic()
+        try:
+            return compact(*a, **kw)
+        finally:
+            seconds.append(time.monotonic() - t0)
+
+    sched.scrubber.compact = timed
+    if times:
+        faultpoints.activate("device.oom", "raise", times=times)
+    launches0 = tp.taint_ports_masks.launches
+    t0 = time.monotonic()
+    placed = drain_per_wave(sched) if per_wave else sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen = capacity_state(sched)
+    seen.update(wall=time.monotonic() - t0, placed=placed,
+                launches=tp.taint_ports_masks.launches - launches0,
+                hits=faultpoints.hits("device.oom"), compact_s=seconds,
+                path=sched.wave_path(),
+                twin_waves=int(sched.metrics.waves_total.value(path="host")))
+    faultpoints.reset()
+    if placed != n_pods:
+        fail(f"memory: (a) placed {placed} of {n_pods} "
+             f"(device.oom x{times})")
+    check_bindings(api, store)
+    return bindings(store), seen
+
+
+def whatif_oom_run(torch, mods, enc, bucket_size, faultpoints):
+    """Phase 18 (a), the what-if: FULL_NODES nodes each full with two
+    8-core priority-1 hogs bound at creation, then MEM_VIPS 8-core
+    priority-1000 pods on a virtual clock; device.oom raises once at the
+    first preemption chunk's what-if dispatch (armed by a wrapper just
+    before the call). The chunk must be salvaged on the twin and the
+    drain complete. Returns what was seen."""
+    api, tp, pre, sched_mod, Scheduler, PodBackoff, store_mod = (
+        mods[0], mods[1], mods[2], mods[4], mods[5], mods[6], mods[7])
+    store = store_mod.ObjectStore()
+    add_plain_nodes(api, store, FULL_NODES)
+    for i in range(FULL_NODES):
+        for k in range(2):
+            p = batch_pod(api, f"hog-{i}-{k}", "hog", "8", 1)
+            p.spec.node_name = f"node-{i}"
+            store.create("pods", p)
+    add_singles(api, store, "vip", MEM_VIPS, "8", 1000)
+    clock = VirtualClock()
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, MEM_VIPS,
+                          2 * FULL_NODES)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock,
+                      backoff=PodBackoff(initial=0.001, clock=clock))
+    stats = sched_mod.preemption_stats
+    calls = []
+
+    def arming(*a, **kw):
+        if not calls:
+            faultpoints.activate("device.oom", "raise", times=1)
+        calls.append(1)
+        return stats(*a, **kw)
+
+    sched_mod.preemption_stats = arming
+    launches0 = pre.preempt_whatif.launches
+    try:
+        t0 = time.monotonic()
+        placed = settle(sched, clock)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        sched_mod.preemption_stats = stats
+    seen = capacity_state(sched)
+    seen.update(wall=wall, placed=placed, chunks=len(calls),
+                whatif_launches=pre.preempt_whatif.launches - launches0,
+                hits=faultpoints.hits("device.oom"),
+                device_failures=int(sched.metrics.scheduling_errors.value(
+                    stage="wave")),
+                evicted=evictions(sched))
+    faultpoints.reset()
+    vips = [p for p in store.list("pods")
+            if p.metadata.name.startswith("vip-")]
+    if placed != MEM_VIPS or not all(p.spec.node_name for p in vips):
+        fail(f"memory: (a) the what-if drain placed {placed} of "
+             f"{MEM_VIPS} vips")
+    if (seen["hits"], seen["device_failures"], seen["capacity_faults"],
+            seen["breaker"], seen["trips"]) != (1, 1, 0, "closed", 0):
+        fail(f"memory: (a) the what-if's device.oom: {seen}")
+    if seen["whatif_launches"] < 1:
+        fail("memory: (a) no what-if chunk launched the kernel")
+    check_bindings(api, store)
+    return seen
+
+
+def churn_run(torch, mods, enc, bucket_size, n_nodes, n_resident,
+              job_pods, device, compact, log_cycles):
+    """Phase 18 (b): n_resident density pods bound at start; MEM_CYCLES
+    cycles of MEM_JOBS Jobs x job_pods pods, each Job with its own
+    controller-uid and job-name values, bound (one drain) and deleted;
+    with `compact`, the compaction cadence (a virtual-clock
+    compact_interval, crossed every MEM_COMPACT_EVERY cycles) runs from
+    housekeeping. Returns (the cycles' bindings, what was seen, store,
+    scheduler)."""
+    api = mods[0]
+    store, sched, clock = resident_world(
+        mods, enc, bucket_size, n_nodes, n_resident, MEM_JOBS * job_pods,
+        device, SEED + 183,
+        compact_interval=MEM_COMPACT_S if compact else None)
+    snap = sched.snapshot
+    ups = []
+    to_device = snap.to_device
+
+    def counted(*a, **kw):
+        before = snap.upload_bytes_total
+        out = to_device(*a, **kw)
+        ups.append(snap.upload_bytes_total - before)
+        return out
+
+    snap.to_device = counted
+    comp_s = []
+    compact_fn = sched.scrubber.compact
+
+    def timed(*a, **kw):
+        t0 = time.monotonic()
+        try:
+            return compact_fn(*a, **kw)
+        finally:
+            comp_s.append(time.monotonic() - t0)
+
+    sched.scrubber.compact = timed
+    cuda = device == "cuda"
+    got, cycles = [], []
+    for c in range(MEM_CYCLES):
+        names = []
+        for j in range(MEM_JOBS):
+            job = f"job-{c}-{j}"
+            uid = f"{SEED:x}-{c:04x}-{j:04x}"
+            for k in range(job_pods):
+                store.create("pods", job_pod(api, f"{job}-{k}", job, uid))
+                names.append(f"{job}-{k}")
+        n_up = len(ups)
+        placed = sched.schedule_pending()
+        if cuda:
+            torch.cuda.synchronize()
+        if placed != len(names):
+            fail(f"memory: (b) cycle {c} placed {placed} of {len(names)}")
+        b = bindings(store)
+        got.append({n: b[n] for n in names})
+        for n in names:
+            store.delete("pods", "default", n)
+        row = {"cycle": c, "uploads": ups[n_up:],
+               "vocabs": dict(snap.vocabs.sizes()),
+               "caps": memory_caps(snap),
+               "projected": snap.projected_hbm_bytes()}
+        if cuda:
+            row["allocated"] = torch.cuda.memory_allocated()
+        n_comp = len(comp_s)
+        if compact and (c + 1) % MEM_COMPACT_EVERY == 0:
+            clock.t += MEM_COMPACT_S
+            sched._housekeep()
+            if len(comp_s) != n_comp + 1:
+                fail(f"memory: (b) the cadence did not compact after "
+                     f"cycle {c}")
+            row["compact_s"] = comp_s[-1]
+            row["after"] = dict(snap.vocabs.sizes())
+            row["caps_after"] = memory_caps(snap)
+            row["projected_after"] = snap.projected_hbm_bytes()
+            if cuda:
+                row["allocated_after"] = torch.cuda.memory_allocated()
+        cycles.append(row)
+        if log_cycles:
+            extra = ""
+            if "compact_s" in row:
+                extra = (f"; compacted in {row['compact_s']:.3f} s: "
+                         f"label_values {row['after']['label_values']}, "
+                         f"caps {row['caps_after']}, projected "
+                         f"{row['projected_after']} B, "
+                         f"memory_allocated {row.get('allocated_after')}")
+            log(f"[memory] (b) cycle {c}: {placed} Job pods bound and "
+                f"deleted; uploads {row['uploads']} B; label_values "
+                f"{row['vocabs']['label_values']}, pod_label_keys "
+                f"{row['vocabs']['pod_label_keys']}; caps {row['caps']}; "
+                f"projected {row['projected']} B; memory_allocated "
+                f"{row.get('allocated')}" + extra)
+    # the upload after the last cycle (a full one, past a compaction)
+    n_up = len(ups)
+    snap.to_device(device)
+    cycles.append({"cycle": MEM_CYCLES, "uploads": ups[n_up:]})
+    snap.to_device = to_device
+    sched.scrubber.compact = compact_fn
+    return got, cycles, store, sched
+
+
+def churn_checks(cycles, full_bytes):
+    """Row deltas engage again after every compaction (the first upload
+    after it is a full one, the next a delta) and the label-value
+    vocabulary plateaus (every compaction leaves the same size)."""
+    after = [r["after"]["label_values"] for r in cycles if "after" in r]
+    if not after or len(set(after)) != 1:
+        fail(f"memory: (b) label_values after the compactions: {after}")
+    for i, r in enumerate(cycles[:-1]):
+        if "after" not in r:
+            continue
+        first = cycles[i + 1]["uploads"]
+        if not first or first[0] < full_bytes:
+            fail(f"memory: (b) the upload after cycle {i}'s compaction "
+                 f"moved {first} B, not a full {full_bytes} B")
+        if i + 2 < len(cycles) and cycles[i + 2]["uploads"] and \
+                cycles[i + 2]["uploads"][0] * 4 >= full_bytes:
+            fail(f"memory: (b) the second upload after cycle {i}'s "
+                 f"compaction moved {cycles[i + 2]['uploads'][0]} B: no "
+                 "row delta")
+    return after[0]
+
+
+def governor_run(torch, mods, store, sched):
+    """Phase 18 (c) on (b)'s settled scheduler: a budget just above the
+    footprint, then one wave whose pods carry MEM_GOV_KEYS new label
+    keys and values: the pod-label-key bucket grows past the budget, a
+    compaction is demanded and the next housekeeping pass runs it; the
+    breaker untouched. Returns what was seen."""
+    api = mods[0]
+    snap = sched.snapshot
+    snap.hbm_budget_bytes = snap.projected_hbm_bytes() + MEM_GOV_SLACK
+    caps0 = memory_caps(snap)
+    for k in range(WAVE):
+        p = batch_pod(api, f"gov-{k}", "gov", "100m", None)
+        p.metadata.labels.update({f"gov-key-{i}": f"gov-{k}-{i}"
+                                  for i in range(MEM_GOV_KEYS)})
+        store.create("pods", p)
+    placed = sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen = {"placed": placed, "caps_before": caps0,
+            "caps_grown": memory_caps(snap),
+            "requested": snap.compaction_requested,
+            "headroom_before": snap.hbm_headroom_bytes(),
+            "budget": snap.hbm_budget_bytes}
+    t0 = time.monotonic()
+    sched._housekeep()
+    seen.update(housekeep_s=time.monotonic() - t0,
+                governor=int(sched.metrics.snapshot_compactions_total.value(
+                    trigger="governor")),
+                headroom_after=snap.hbm_headroom_bytes(),
+                caps_after=memory_caps(snap),
+                gauge=sched.metrics.hbm_headroom_bytes.value,
+                breaker=sched.breaker.state,
+                failures=sched.breaker.failures,
+                requested_after=snap.compaction_requested,
+                last=sched.scrubber.last_compaction)
+    if placed != WAVE or not seen["requested"] or seen["governor"] != 1 \
+            or seen["requested_after"]:
+        fail(f"memory: (c) the governor: {seen}")
+    if (seen["breaker"], seen["failures"]) != ("closed", 0):
+        fail(f"memory: (c) the governor touched the breaker: {seen}")
+    for k in range(WAVE):
+        store.delete("pods", "default", f"gov-{k}")
+    snap.hbm_budget_bytes = 0
+    return seen
+
+
+def corrupt_rows(sched, faultpoints, names):
+    """snapshot.write in its default corrupt mode (4 phantom cores of
+    allocatable CPU), bounded to len(names) fires, while the resource
+    rows of those nodes are refreshed."""
+    faultpoints.activate("snapshot.write", "corrupt", times=len(names))
+    for name in names:
+        sched.snapshot.refresh_node_resources(sched.cache.node_infos[name])
+    hits = faultpoints.hits("snapshot.write")
+    faultpoints.reset()
+    return hits
+
+
+def scrub_run(torch, sched, faultpoints, device, n_nodes):
+    """Phase 18 (d): MEM_CORRUPT node rows corrupted, then one scrub: it
+    must report exactly those rows (alloc) and repair them, and the next
+    upload must be row deltas. Returns what was seen."""
+    snap = sched.snapshot
+    snap.to_device(device)
+    full = snap.hbm_bytes()
+    names = [f"node-{i}" for i in range(0, n_nodes, n_nodes // MEM_CORRUPT)
+             ][:MEM_CORRUPT]
+    hits = corrupt_rows(sched, faultpoints, names)
+    t0 = time.monotonic()
+    rep = sched.scrubber.scrub()
+    scrub_s = time.monotonic() - t0
+    got = sorted((d.node, tuple(d.fields), d.repaired)
+                 for d in rep.divergences)
+    want = sorted((n, ("alloc",), True) for n in names)
+    if hits != MEM_CORRUPT or got != want:
+        fail(f"memory: (d) {hits} corruptions, the scrub reported "
+             f"{got[:10]}")
+    if not sched.scrubber.scrub().clean:
+        fail("memory: (d) a second scrub is not clean")
+    before = snap.upload_bytes_total
+    snap.to_device(device)
+    moved = snap.upload_bytes_total - before
+    if not 0 < moved * 4 < full:
+        fail(f"memory: (d) the upload after the repair moved {moved} B of "
+             f"{full} B: no row delta")
+    return {"scrub_s": scrub_s, "nodes": rep.nodes_checked,
+            "pods": rep.pods_checked, "delta": moved, "full": full}
+
+
+def scrub_parity(torch, mods, enc, bucket_size, faultpoints):
+    """Phase 18 (d) on two 500-node copies on the card: one corrupted
+    (MEM_CORRUPT rows) and scrubbed, one clean; the next drain of
+    MEM_SCRUB_PODS density pods binds alike in both."""
+    api = mods[0]
+    got = {}
+    for corrupted in (True, False):
+        store, sched, clock = resident_world(
+            mods, enc, bucket_size, MEM_SMALL_NODES, MEM_SMALL_RESIDENT,
+            MEM_SCRUB_PODS, "cuda", SEED + 185)
+        sched.snapshot.to_device("cuda")
+        if corrupted:
+            seen = scrub_run(torch, sched, faultpoints, "cuda",
+                             MEM_SMALL_NODES)
+        add_chunk(api, store, "after", 0, MEM_SCRUB_PODS)
+        n = sched.schedule_pending()
+        torch.cuda.synchronize()
+        if n != MEM_SCRUB_PODS:
+            fail(f"memory: (d) the drain after the scrub placed {n}")
+        check_bindings(api, store)
+        got[corrupted] = bindings(store)
+    if got[True] != got[False]:
+        diff = [k for k in got[False] if got[False][k] != got[True].get(k)]
+        fail(f"memory: (d) the drain after the repair differs from a clean "
+             f"run's for {len(diff)} pods, e.g. {diff[:5]}")
+    return seen
+
+
+def storm_run(torch, mods, enc, bucket_size, watermark):
+    """Phase 18 (e): tests/test_storm.py's burst at FULL_NODES nodes on a
+    virtual clock: each tick STORM_BURST priority-0 pods with one pod at
+    HIGH_PRIORITY_BAND after every STORM_EVERY of them, then one wave
+    (run_once); after STORM_LOW low pods, one wave a tick until nothing
+    is pending. The bind order and times are read from the store's
+    events. Returns what was seen."""
+    api, store_mod, Scheduler = mods[0], mods[7], mods[5]
+    from kubernetes_tpu_torch.sched.queue import HIGH_PRIORITY_BAND
+
+    store, n_bound = build_store(api, store_mod, FULL_NODES, 0, SEED + 187)
+    clock = VirtualClock()
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES,
+                          STORM_LOW + STORM_HIGH, n_bound)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device="cuda",
+                      clock=clock, shed_watermark=watermark,
+                      shed_age_s=STORM_AGE_S)
+    arrived, order, shed_order = {}, [], []
+
+    def watch(ev):
+        p = ev.obj
+        if p.spec.node_name and p.metadata.name in arrived and \
+                p.metadata.name not in bound_at:
+            bound_at[p.metadata.name] = clock.t
+            order.append(p.metadata.name)
+
+    bound_at = {}
+    store.watch("pods", watch)
+    shed_seen = set()
+    low = high = 0
+    t0 = time.monotonic()
+    ticks = 0
+    while low < STORM_LOW:
+        clock.t += 1.0
+        ticks += 1
+        for _ in range(STORM_BURST):
+            if low >= STORM_LOW:
+                break
+            name = f"low-{low}"
+            store.create("pods", batch_pod(api, name, "storm", "100m", 0))
+            arrived[name] = clock.t
+            low += 1
+            if low % STORM_EVERY == 0 and high < STORM_HIGH:
+                name = f"high-{high}"
+                store.create("pods", batch_pod(api, name, "storm", "100m",
+                                               HIGH_PRIORITY_BAND))
+                arrived[name] = clock.t
+                high += 1
+        sched.run_once()
+        for p in sched.queue.shed_pods():
+            if p.metadata.name not in shed_seen:
+                shed_seen.add(p.metadata.name)
+                shed_order.append(p.metadata.name)
+    storm_s = time.monotonic() - t0
+    # the storm is over: one wave a tick until the backlog is gone
+    t1 = time.monotonic()
+    placed = drain_ticks = 0
+    while sched.pending_count() and drain_ticks < STORM_DRAIN_TICKS:
+        clock.t += 1.0
+        drain_ticks += 1
+        placed += sched.run_once()
+    torch.cuda.synchronize()
+    drain_s = time.monotonic() - t1
+    if len(bound_at) != len(arrived):
+        fail(f"memory: (e) {len(arrived) - len(bound_at)} of "
+             f"{len(arrived)} storm pods never bound (watermark "
+             f"{watermark})")
+    lat = {"high": [], "low": []}
+    for name, t in arrived.items():
+        lat[name.split("-")[0]].append(bound_at[name] - t)
+    m = sched.metrics
+    seen = {"ticks": ticks, "storm_s": storm_s, "drain_s": drain_s,
+            "drain_ticks": drain_ticks,
+            "placed": placed, "shed": shed_order,
+            "shed_total": {c.name: c.value for c in m.shed_total.children()},
+            "p99": {k: p99(v) for k, v in lat.items()},
+            "p99_hist": m.pod_scheduling_latency.quantile(0.99)}
+    if shed_order:
+        pos = {n: i for i, n in enumerate(order)}
+        first_shed = min(pos[n] for n in shed_order)
+        last_high = max(pos[n] for n in order if n.startswith("high-"))
+        if last_high > first_shed:
+            fail(f"memory: (e) a high pod bound after a shed pod "
+                 f"(positions {last_high} > {first_shed})")
+        if sorted(shed_order, key=pos.get) != shed_order:
+            fail("memory: (e) the shed area did not drain oldest first")
+        if m.shed_total.value(**{"class": "high"}):
+            fail("memory: (e) a high pod was shed")
+    check_bindings(api, store)
+    return seen
+
+
+def p99(values):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(0.99 * len(v)))] if v else 0.0
+
+
+def memory_phase(torch, mods, enc, bucket_size, faultpoints):
+    """Phase 18: (a) the capacity-fault ladder, (b) churn and compaction,
+    (c) the budget governor, (d) the scrubber, (e) the storm."""
+    tp, pre = mods[1], mods[2]
+    t_phase = time.monotonic()
+    # both kernels' counts from 0 over the whole phase (the what-if OOM
+    # run wraps the scheduler's what-if entry; the wrapper counts alone)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    # (a) the OOM ladder
+    t0 = time.monotonic()
+    clean, cs = oom_run(torch, mods, enc, bucket_size, faultpoints,
+                        MEM_OOM_PODS, 0)
+    faulted, fs = oom_run(torch, mods, enc, bucket_size, faultpoints,
+                          MEM_OOM_PODS, 1)
+    torch.cuda.empty_cache()
+    want = {"capacity_faults": 1, "oom_compactions": 1,
+            "breaker": "closed", "trips": 0, "convictions": 0,
+            "quarantined": 0, "strikes": 0, "wave_cap": WAVE}
+    if {k: fs[k] for k in want} != want or fs["path"] != "cuda":
+        fail(f"memory: (a) one device.oom: {fs}")
+    if faulted != clean:
+        diff = [k for k in clean if clean[k] != faulted.get(k)]
+        fail(f"memory: (a) one device.oom: bindings differ from the "
+             f"fault-free run's for {len(diff)} pods, e.g. {diff[:5]}")
+    log(f"[memory] (a) {MEM_OOM_PODS} density pods, device.oom once in the "
+        f"first round: strike 1 compacted in {fs['compact_s'][0]:.3f} s and "
+        f"retried, {fs['placed']} placed in {fs['wall']:.3f} s (fault-free "
+        f"{cs['wall']:.3f} s); capacity_faults 1, breaker CLOSED, no "
+        "conviction; bindings == the fault-free run's")
+    t1 = time.monotonic()
+    salvaged, ss = oom_run(torch, mods, enc, bucket_size, faultpoints,
+                           MEM_STRIKE_PODS, 3)
+    per_wave, ws = oom_run(torch, mods, enc, bucket_size, faultpoints,
+                           MEM_STRIKE_PODS, 0, per_wave=True)
+    torch.cuda.empty_cache()
+    want = {"capacity_faults": 3, "oom_compactions": 3,
+            "breaker": "closed", "trips": 0, "convictions": 0,
+            "quarantined": 0, "strikes": 3, "wave_cap": WAVE // 4}
+    if {k: ss[k] for k in want} != want or ss["path"] != "host":
+        fail(f"memory: (a) three device.oom: {ss}")
+    if salvaged != per_wave:
+        diff = [k for k in per_wave if per_wave[k] != salvaged.get(k)]
+        fail(f"memory: (a) the strike-3 salvage differs from the per-wave "
+             f"drain on the card for {len(diff)} pods, e.g. {diff[:5]}")
+    log(f"[memory] (a) {MEM_STRIKE_PODS} density pods, device.oom three "
+        f"times: strikes 1-3 compacted ({', '.join(f'{s:.3f}' for s in ss['compact_s'])} s), "
+        f"strikes 2 and 3 halved the wave cap (to {ss['wave_cap']}), "
+        f"strike 3 salvaged the round through the twin ({ss['twin_waves']} twin "
+        f"waves) in {ss['wall']:.3f} s; bindings == the per-wave drain on "
+        f"the card ({ws['wall']:.3f} s); breaker CLOSED, "
+        f"{time.monotonic() - t1:.1f} s")
+    t1 = time.monotonic()
+    wi = whatif_oom_run(torch, mods, enc, bucket_size, faultpoints)
+    torch.cuda.empty_cache()
+    log(f"[memory] (a) the preempt world ({FULL_NODES} nodes full of hogs, "
+        f"{MEM_VIPS} vips): device.oom at the first what-if chunk: charged "
+        f"to the breaker once (scheduling_errors{{stage=wave}} "
+        f"{wi['device_failures']}, breaker {wi['breaker']}), the chunk "
+        f"salvaged on the twin; {wi['chunks']} chunks, "
+        f"{wi['whatif_launches']} what-if launches, {wi['evicted']} "
+        f"evictions, all {wi['placed']} vips bound in {wi['wall']:.3f} s; "
+        f"{time.monotonic() - t1:.1f} s")
+    log(f"[memory] (a) {time.monotonic() - t0:.1f} s")
+    # (b) churn and compaction at full size
+    t0 = time.monotonic()
+    got_full, cycles, store, sched = churn_run(
+        torch, mods, enc, bucket_size, FULL_NODES, MEM_RESIDENT,
+        MEM_JOB_PODS, "cuda", True, True)
+    full_bytes = sched.snapshot.hbm_bytes()
+    lv = churn_checks(cycles, full_bytes)
+    comp = [r["compact_s"] for r in cycles if "compact_s" in r]
+    freed = [r["allocated"] - r["allocated_after"] for r in cycles
+             if "allocated_after" in r]
+    if not freed or min(freed) <= 0:
+        fail(f"memory: (b) a compaction freed no device memory: {freed}")
+    log(f"[memory] (b) {FULL_NODES} nodes, {MEM_RESIDENT} resident pods, "
+        f"{MEM_CYCLES} cycles of {MEM_JOBS} Jobs x {MEM_JOB_PODS} pods: "
+        f"{len(comp)} compactions ({', '.join(f'{s:.3f}' for s in comp)} "
+        f"s), label_values {lv} after each; device memory freed by each "
+        f"{freed} B; full upload {full_bytes} B, the last re-upload "
+        f"{cycles[-1]['uploads']} B; {time.monotonic() - t0:.1f} s")
+    # (c) the governor on the settled scheduler
+    t1 = time.monotonic()
+    gov = governor_run(torch, mods, store, sched)
+    log(f"[memory] (c) budget {gov['budget']} B (the footprint + "
+        f"{MEM_GOV_SLACK} B); a wave of {WAVE} pods with {MEM_GOV_KEYS} new "
+        f"label keys grew caps {gov['caps_before']} -> {gov['caps_grown']}, "
+        f"headroom {gov['headroom_before']} B, compaction demanded; "
+        f"housekeeping ran it (trigger governor, {gov['housekeep_s']:.3f} "
+        f"s, shrunk {gov['last']['shrunk']}): caps {gov['caps_after']}, "
+        f"headroom {gov['headroom_after']} B (gauge {gov['gauge']}); "
+        f"breaker {gov['breaker']}, failures {gov['failures']}; "
+        f"{time.monotonic() - t1:.1f} s")
+    # (d) the scrubber at full size, then card drains at 500 nodes
+    t1 = time.monotonic()
+    sd = scrub_run(torch, sched, faultpoints, "cuda", FULL_NODES)
+    log(f"[memory] (d) {MEM_CORRUPT} node rows corrupted by snapshot.write "
+        f"(corrupt): the scrub of {sd['nodes']} nodes and {sd['pods']} "
+        f"bound pods took {sd['scrub_s']:.3f} s, reported exactly those "
+        f"rows (alloc) and repaired them; the next upload {sd['delta']} B "
+        f"of {sd['full']} B (row deltas)")
+    del store, sched
+    torch.cuda.empty_cache()
+    scrub_parity(torch, mods, enc, bucket_size, faultpoints)
+    log(f"[memory] (d) {MEM_SMALL_NODES} nodes: the drain of "
+        f"{MEM_SCRUB_PODS} pods after the repair == a clean run's on the "
+        f"card; {time.monotonic() - t1:.1f} s")
+    # (b) card == CPU and compaction on == off at 500 nodes
+    t1 = time.monotonic()
+    small = {}
+    for device in ("cuda", "cpu"):
+        for on in (True, False):
+            small[device, on], cyc, _, _ = churn_run(
+                torch, mods, enc, bucket_size, MEM_SMALL_NODES,
+                MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS, device, on, False)
+            if device == "cuda" and not on:
+                grown = [r["vocabs"]["label_values"] for r in cyc[:-1]]
+    if len({repr(v) for v in small.values()}) != 1:
+        fail("memory: (b) the 500-node cycles bind differently across "
+             "card/CPU and compaction on/off")
+    log(f"[memory] (b) {MEM_SMALL_NODES} nodes, {MEM_SMALL_RESIDENT} "
+        f"resident pods, {MEM_CYCLES} cycles of {MEM_JOBS} Jobs x "
+        f"{MEM_SMALL_JOB_PODS} pods: card == CPU and compaction on == off "
+        f"(bindings of every cycle); without compaction label_values grew "
+        f"{grown[0]} -> {grown[-1]}; {time.monotonic() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    # (e) the storm, shedding on and off
+    t0 = time.monotonic()
+    storms = {}
+    for wm in (STORM_WATERMARK, 0):
+        storms[wm] = storm_run(torch, mods, enc, bucket_size, wm)
+        s = storms[wm]
+        log(f"[memory] (e) shed_watermark {wm}: {STORM_LOW} low and "
+            f"{STORM_HIGH} high pods over {s['ticks']} ticks of one wave "
+            f"({s['storm_s']:.3f} s), then {s['drain_ticks']} ticks placing "
+            f"{s['placed']} ({s['drain_s']:.3f} s); shed {len(s['shed'])} "
+            f"({s['shed_total']}), every pod bound; p99 latency on the "
+            f"virtual clock: high {s['p99']['high']:.1f} s, low "
+            f"{s['p99']['low']:.1f} s (pod_scheduling_latency p99 "
+            f"{s['p99_hist']:.1f} s)")
+        torch.cuda.empty_cache()
+    if not storms[STORM_WATERMARK]["shed"] or storms[0]["shed"]:
+        fail("memory: (e) shedding did not engage with the watermark, or "
+             "did without it")
+    log(f"[memory] (e) every high pod bound before any shed pod, the shed "
+        f"area drained oldest first; {time.monotonic() - t0:.1f} s")
+    launches = tp.taint_ports_masks.launches
+    whatif_launches = pre.preempt_whatif.launches
+    if launches < 1:
+        fail("memory: the taint/port kernel never launched")
+    log(f"[memory] taint/port launches {launches}, what-if launches "
+        f"{whatif_launches}; phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "whatif_launches": whatif_launches}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -4364,13 +5114,19 @@ def main() -> None:
     t0 = time.monotonic()
     faults = faults_phase(torch, phase_mods, enc, bucket_size, lbl, ctl,
                           hostwave, faultpoints, featurize_mod)
-    ladder.made = []
+    ladder.check_capacity("faults")
     t_faults = time.monotonic() - t0
+
+    # 18. the memory plane and load shedding
+    t0 = time.monotonic()
+    memory = memory_phase(torch, phase_mods, enc, bucket_size, faultpoints)
+    ladder.made = []
+    t_memory = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
-              "faults": faults}
+              "faults": faults, "memory": memory}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -4380,7 +5136,8 @@ def main() -> None:
         + f"; phases multikey, trickle, paced and preempt_host "
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
-        f"faults {t_faults:.1f} s; total {time.monotonic() - t_start:.1f} s")
+        f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; total "
+        f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "taint_ports_masks",

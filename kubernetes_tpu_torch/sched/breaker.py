@@ -2,8 +2,8 @@
 
 A copy of kubernetes_tpu/sched/breaker.py's DevicePathBreaker, its
 states and STATE_CODES, DeviceLost with lost_device_fault (the
-`device.lost` fault point's per-device action), ResourceExhausted and
-is_capacity_error. MeshFaultManager is left out: the port has no mesh
+`device.lost` fault point's per-device action), ResourceExhausted with
+oom_fault (the `device.oom` point's action) and is_capacity_error. MeshFaultManager is left out: the port has no mesh
 yet. The port's Scheduler carries one (sched/scheduler.py: its ladder of
 device faults drains the backlog through the numpy twin while the
 breaker is open), and the node-lifecycle controller's zone tally takes
@@ -160,6 +160,24 @@ class ResourceExhausted(RuntimeError):
     into by is_capacity_error. NOT a device fault: no device is sick,
     the working set is too big — the remedy is compaction, a smaller
     wave, or the host twin, never quarantine or a mesh reform."""
+
+
+def oom_fault(message: str = "RESOURCE_EXHAUSTED: out of memory "
+                             "while trying to allocate"):
+    """corrupt-mode fn for the `device.oom` fault point: raises
+    ResourceExhausted at the dispatch seam (ops/kernel.py record_dispatch
+    passes the registered device-name tuple as payload); a None payload
+    (no device registered) is a no-op, as with lost_device_fault:
+
+        faultpoints.activate("device.oom", "corrupt", fn=oom_fault())
+    """
+
+    def fn(payload):
+        if payload is None:
+            return
+        raise ResourceExhausted(message)
+
+    return fn
 
 
 # markers an allocation failure embeds in its message: the gRPC status

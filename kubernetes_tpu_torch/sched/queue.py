@@ -27,6 +27,32 @@ minMember members exist; the whole gang then releases at once, and
 pop_wave never splits a gang across waves. The `gang_lookup` hook is
 wired by the scheduler; when it is None none of this code runs.
 
+Overload control (priority-aware load shedding,
+kubernetes_tpu/sched/queue.py:39-62): every pending pod is accounted to
+a priority CLASS (QUEUE_CLASSES: system / high / normal / low, banded
+from pod priority), and a configurable high watermark (`shed_watermark`,
+0 = disabled) bounds the non-shed pending depth. Past the watermark,
+newly arriving (and event-flushed) pods whose priority sits below
+`shed_priority_threshold` are PARKED in a shed area instead of the
+active heap — the queue stops growing the working set a 5x burst would
+otherwise balloon without bound, while system/high-priority pods are
+never shed. Shedding is starvation-proof: a shed pod ages back into the
+active heap after `shed_age_s` seconds with a one-wave exemption from
+re-shedding, and the whole shed area drains (oldest first) as soon as
+the non-shed depth falls back under the watermark. Within a wave,
+above-threshold pods always drain before any sub-threshold pod (the
+heap is strict priority-first), and during a storm sub-threshold pods
+are not in the heap at all — so a storm of low-priority pods can never
+starve a system/high-priority wave. Gang members are never shed (their
+admission gate is the gang waiting area; shedding a member would
+deadlock the gang against its own queue). `hold_admissions`, a
+predicate the store plane wires (None until then), parks every
+sheddable arrival in the shed area regardless of the watermark.
+
+The `queue.shed` fault point (drop mode) forces the shed decision for
+every sheddable pod regardless of watermark — the chaos rig for
+storm-survival tests that want shedding without a real 5x backlog.
+
 Poison-work quarantine (sched/scheduler.py input-fault isolation): pods
 CONVICTED of poisoning the batched scheduling pass — a spec that
 crashes the featurizer, non-finite planes the kernel sentinel flagged,
@@ -46,9 +72,8 @@ The `queue.quarantine` fault point (drop mode) refuses quarantine
 admissions — a lost conviction; the scheduler then falls back to a
 plain backoff park.
 
-The JAX queue's load shedding area (overload control) and its FIFO
-order for clusters with pod priority off are not carried: the port's
-scheduler has no overload control yet, and always orders by priority.
+With the PodPriority gate off every pod sorts at priority 0 (FIFO), as
+in the JAX queue.
 """
 
 from __future__ import annotations
@@ -62,6 +87,27 @@ from typing import Callable, Dict, List, Optional
 
 from ..api import types as api
 from ..utils import faultpoints
+
+# Priority-class bands for queue depth accounting and shed decisions.
+# `system` matches the reference's system-critical band (priorities at
+# or above 2e9: system-cluster-critical / system-node-critical);
+# `high` is anything at or above HIGH_PRIORITY_BAND; `normal` is any
+# remaining positive priority; `low` is zero (the unprioritized
+# default) and below — exactly the class a burst of bulk pods lands in.
+QUEUE_CLASSES = ("system", "high", "normal", "low")
+SYSTEM_PRIORITY_BAND = 2_000_000_000
+HIGH_PRIORITY_BAND = 1000
+
+
+def pod_class(priority: int) -> str:
+    """Priority-class band of a pod priority value."""
+    if priority >= SYSTEM_PRIORITY_BAND:
+        return "system"
+    if priority >= HIGH_PRIORITY_BAND:
+        return "high"
+    if priority > 0:
+        return "normal"
+    return "low"
 
 
 def _matches_affinity_term(unsched: api.Pod, assigned: api.Pod) -> bool:
@@ -84,10 +130,33 @@ def _matches_affinity_term(unsched: api.Pod, assigned: api.Pod) -> bool:
 
 class SchedulingQueue:
     def __init__(self, clock: Callable[[], float] = time.monotonic,
-                 pod_priority_enabled: bool = True):
+                 pod_priority_enabled: bool = True,
+                 shed_watermark: int = 0,
+                 shed_priority_threshold: int = HIGH_PRIORITY_BAND,
+                 shed_age_s: float = 30.0):
         self.clock = clock
         # the PodPriority gate: off, every pod sorts at priority 0
         self.pod_priority = pod_priority_enabled
+        # overload control (module docstring "Overload control"):
+        # watermark 0 disables shedding entirely — the default, so
+        # deployments that never configure it see the pre-shed queue
+        self.shed_watermark = int(shed_watermark)
+        self.shed_priority_threshold = int(shed_priority_threshold)
+        self.shed_age_s = float(shed_age_s)
+        # uid -> pod parked by load shedding; _shed_at drives aging,
+        # _shed_exempt (dict-as-ordered-set) marks aged-back pods that
+        # get one un-sheddable pass through the active heap
+        self._shed: Dict[str, api.Pod] = {}
+        self._shed_at: Dict[str, float] = {}
+        self._shed_exempt: Dict[str, None] = {}
+        # fired (class_name) on every shed decision — feeds
+        # scheduler_shed_total{class}
+        self.on_shed: Optional[Callable[[str], None]] = None
+        # admission hold: when this predicate returns True, every
+        # sheddable arrival parks in the shed area regardless of the
+        # watermark (the store plane's outage hold wires it; None until
+        # then). Same exemptions and aging as overload shedding
+        self.hold_admissions: Optional[Callable[[], bool]] = None
         self._lock = threading.Lock()
         self._heap: List = []  # (-priority, seq, uid)
         self._items: Dict[str, api.Pod] = {}  # uid -> pod (active)
@@ -126,6 +195,110 @@ class SchedulingQueue:
         self._quarantine: Dict[str, api.Pod] = {}
         self._quarantine_until: Dict[str, float] = {}
 
+    # -- overload control (priority-aware shedding) ---------------------------
+
+    def _depth_locked(self) -> int:
+        """Total pending depth across every area incl. shed and
+        quarantine — the number an operator's backlog dashboard sums."""
+        return (len(self._items) + len(self._unschedulable)
+                + len(self._backoff) + len(self._shed)
+                + len(self._quarantine)
+                + sum(len(w) for w in self._gang_waiting.values()))
+
+    def _working_depth_locked(self) -> int:
+        """Depth the scheduler actually works: everything pending MINUS
+        the shed and quarantine areas. This is what the watermark
+        bounds."""
+        return (self._depth_locked() - len(self._shed)
+                - len(self._quarantine))
+
+    def _should_shed_locked(self, pod: api.Pod) -> bool:
+        """Shed decision for one arriving/flushed pod: only
+        sub-threshold-priority pods, only past the high watermark, never
+        an aged-back exempt pod. The queue.shed fault point (drop mode)
+        forces the decision for any sheddable pod."""
+        # the admission hold works even where shedding proper is
+        # disabled (watermark 0): it parks pods in the shed area on the
+        # hold predicate alone, priority/exemption rules unchanged
+        hold = self.hold_admissions is not None and self.hold_admissions()
+        if self.shed_watermark <= 0 and not hold:
+            return False
+        if api.pod_priority(pod) >= self.shed_priority_threshold:
+            return False
+        if pod.uid in self._shed_exempt:
+            return False
+        if hold:
+            return True
+        if faultpoints.fire("queue.shed", payload=pod):
+            return True
+        return self._working_depth_locked() >= self.shed_watermark
+
+    def _shed_locked(self, pod: api.Pod) -> None:
+        self._shed[pod.uid] = pod
+        self._shed_at[pod.uid] = self.clock()
+        # first-enqueue time survives the shed: per-pod e2e latency
+        # counts the time load shedding cost this pod
+        self.added_at.setdefault(pod.uid, self.clock())
+        if self.on_shed is not None:
+            self.on_shed(pod_class(api.pod_priority(pod)))
+
+    def _flush_shed_locked(self):
+        """Aging + watermark release. Aged pods (shed longer than
+        shed_age_s) re-enter the active heap UNCONDITIONALLY with a
+        one-wave re-shed exemption — no pod sheds forever, however long
+        the storm. Separately, once the working depth is back under the
+        watermark the shed area drains oldest first until the watermark
+        is reached again."""
+        if not self._shed:
+            return
+        now = self.clock()
+        aged = [uid for uid, t in self._shed_at.items()
+                if now - t >= self.shed_age_s]
+        for uid in aged:
+            pod = self._shed.pop(uid)
+            self._shed_at.pop(uid, None)
+            self._shed_exempt[uid] = None
+            self._items[uid] = pod
+            heapq.heappush(self._heap, self._key(pod))
+        # oldest-first release under the watermark: dict order IS shed
+        # order. An armed queue.shed fault suppresses the release (aging
+        # above still ran), and so does an active admission hold;
+        # is_armed, not fire(): the probe must not consume a
+        # times-bounded fault's per-pod shed budget
+        if not faultpoints.is_armed("queue.shed", "drop") and not (
+                self.hold_admissions is not None and self.hold_admissions()):
+            while (self._shed
+                   and self._working_depth_locked() < self.shed_watermark):
+                uid = next(iter(self._shed))
+                pod = self._shed.pop(uid)
+                self._shed_at.pop(uid, None)
+                self._items[uid] = pod
+                heapq.heappush(self._heap, self._key(pod))
+
+    def shed_count(self) -> int:
+        with self._lock:
+            return len(self._shed)
+
+    def shed_pods(self) -> List[api.Pod]:
+        """The shed area's pods, oldest shed first."""
+        with self._lock:
+            return list(self._shed.values())
+
+    def class_counts(self) -> Dict[str, int]:
+        """Pending depth per priority class across every area (active,
+        backoff, unschedulable, shed, quarantine, gang-waiting) —
+        scheduler_queue_class_pods{class=...}."""
+        counts = {c: 0 for c in QUEUE_CLASSES}
+        with self._lock:
+            for area in (self._items, self._unschedulable, self._backoff,
+                         self._shed, self._quarantine):
+                for pod in area.values():
+                    counts[pod_class(api.pod_priority(pod))] += 1
+            for waiting in self._gang_waiting.values():
+                for pod in waiting.values():
+                    counts[pod_class(api.pod_priority(pod))] += 1
+        return counts
+
     # -- poison-work quarantine ------------------------------------------------
 
     def quarantine(self, pod: api.Pod, until: float) -> bool:
@@ -141,6 +314,9 @@ class SchedulingQueue:
             self._items.pop(pod.uid, None)
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
+            self._shed.pop(pod.uid, None)
+            self._shed_at.pop(pod.uid, None)
+            self._shed_exempt.pop(pod.uid, None)
             key = self._gang_of.get(pod.uid)
             if key is not None:
                 waiting = self._gang_waiting.get(key)
@@ -192,14 +368,15 @@ class SchedulingQueue:
 
     def gang_pending_pods(self, key: str) -> List[api.Pod]:
         """Every member of gang `key` currently held in a pending area
-        (active/backoff/unschedulable/gang-waiting) — the conviction
-        plane quarantines them ATOMICALLY with a poisoned member."""
+        (active/backoff/unschedulable/shed/gang-waiting) — the
+        conviction plane quarantines them ATOMICALLY with a poisoned
+        member."""
         out: List[api.Pod] = []
         with self._lock:
             waiting = self._gang_waiting.get(key, {})
             for uid in self._gang_members.get(key, ()):
                 for area in (self._items, self._backoff,
-                             self._unschedulable, waiting):
+                             self._unschedulable, self._shed, waiting):
                     p = area.get(uid)
                     if p is not None:
                         out.append(p)
@@ -215,12 +392,18 @@ class SchedulingQueue:
     def add(self, pod: api.Pod):
         released = None
         with self._lock:
-            if pod.uid in self._items or pod.uid in self._quarantine:
+            if (pod.uid in self._items or pod.uid in self._shed
+                    or pod.uid in self._quarantine):
                 return
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
             info = (self.gang_lookup(pod) if self.gang_lookup is not None
                     else None)
+            # load shedding gates ONLY non-gang pods (a shed gang member
+            # would deadlock its gang's admission against the queue)
+            if info is None and self._should_shed_locked(pod):
+                self._shed_locked(pod)
+                return
             if info is not None:
                 key, min_member = info
                 self._gang_of[pod.uid] = key
@@ -314,7 +497,7 @@ class SchedulingQueue:
     def add_if_not_present(self, pod: api.Pod):
         with self._lock:
             if (pod.uid in self._items or pod.uid in self._unschedulable
-                    or pod.uid in self._backoff
+                    or pod.uid in self._backoff or pod.uid in self._shed
                     or pod.uid in self._quarantine
                     or self._gang_waiting_has_locked(pod.uid)):
                 return
@@ -339,7 +522,7 @@ class SchedulingQueue:
         schedulable again); the backoff gate still applies."""
         with self._lock:
             if (pod.uid in self._items or pod.uid in self._unschedulable
-                    or pod.uid in self._backoff
+                    or pod.uid in self._backoff or pod.uid in self._shed
                     or pod.uid in self._quarantine
                     or self._gang_waiting_has_locked(pod.uid)):
                 return
@@ -356,6 +539,12 @@ class SchedulingQueue:
         until = self._backoff_until.get(pod.uid, 0.0)
         if until > self.clock():
             self._backoff[pod.uid] = pod
+        elif (pod.uid not in self._gang_of
+                and self._should_shed_locked(pod)):
+            # event-driven flushes respect the watermark too: a storm's
+            # move_all_to_active must not balloon the active heap with
+            # the very pods admission just shed
+            self._shed_locked(pod)
         else:
             self._items[pod.uid] = pod
             heapq.heappush(self._heap, self._key(pod))
@@ -376,6 +565,9 @@ class SchedulingQueue:
             if pod is not None:
                 self._current_cycle += 1
                 self._cycle[uid] = self._current_cycle
+                # an aged-back pod's re-shed exemption is consumed by
+                # reaching a wave
+                self._shed_exempt.pop(uid, None)
                 return pod
         return None
 
@@ -405,6 +597,7 @@ class SchedulingQueue:
         out: List[api.Pod] = []
         with self._lock:
             self._flush_backoff_locked()
+            self._flush_shed_locked()
             self._flush_quarantine_locked()
             first = self._pop_locked()
             if first is None:
@@ -511,6 +704,9 @@ class SchedulingQueue:
             if new.uid in self._backoff:
                 self._backoff[new.uid] = new
                 return
+            if new.uid in self._shed:
+                self._shed[new.uid] = new
+                return
             if self._gang_waiting_has_locked(new.uid):
                 self._gang_waiting[self._gang_of[new.uid]][new.uid] = new
                 return
@@ -530,6 +726,9 @@ class SchedulingQueue:
             self._unschedulable.pop(pod.uid, None)
             self._backoff.pop(pod.uid, None)
             self._backoff_until.pop(pod.uid, None)
+            self._shed.pop(pod.uid, None)
+            self._shed_at.pop(pod.uid, None)
+            self._shed_exempt.pop(pod.uid, None)
             self._quarantine.pop(pod.uid, None)
             self._quarantine_until.pop(pod.uid, None)
             self.added_at.pop(pod.uid, None)
@@ -557,9 +756,7 @@ class SchedulingQueue:
 
     def pending_count(self) -> int:
         with self._lock:
-            return (len(self._items) + len(self._unschedulable)
-                    + len(self._backoff) + len(self._quarantine)
-                    + sum(len(w) for w in self._gang_waiting.values()))
+            return self._depth_locked()
 
     def unschedulable_pods(self) -> List[api.Pod]:
         """Snapshot of the unschedulable map: the pods that failed on
@@ -582,6 +779,7 @@ class SchedulingQueue:
     def active_count(self) -> int:
         with self._lock:
             self._flush_backoff_locked()
+            self._flush_shed_locked()
             self._flush_quarantine_locked()
             return len(self._items)
 

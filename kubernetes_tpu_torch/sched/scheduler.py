@@ -148,14 +148,47 @@ kernel to its plain version is not copied: a failed kernel launch is one
 device failure like any other. A sticky CUDA error keeps the scheduler
 on the twin until the process restarts (sched/breaker.py).
 
-Left out with no stand-in: capacity faults (a torch out-of-memory error
-in a round propagates and is not fed to the breaker), the mesh and its
-reform, the store-path breaker, the bind journal and the reconciler's
-retries, extenders (a profile with extenders raises
-NotImplementedError), the memory governor, load shedding and the
-golden-pass conviction (a crash of the exact host path still re-queues
-the popped pods and raises); the series of that machinery (store, mesh,
-HBM, shedding, spool) stay at zero in `metrics`.
+A pod whose spec crashes the exact host path's golden pass is convicted
+(reason golden) and the batch drains on; a batch whose every pod
+crashed is parked as a systemic fault
+(kubernetes_tpu/sched/scheduler.py:3334-3388).
+
+The memory plane (kubernetes_tpu/sched/scheduler.py:1297-1310,
+:2551-2627) is the JAX scheduler's, without the mesh:
+
+  * `scrubber` (state/scrubber.py `SnapshotScrubber`) audits the
+    snapshot against the host cache on SIGUSR2 (`install_signal`),
+    `request()` or every `scrub_interval` seconds, repairs divergent
+    rows, and is the breaker's recovery action (`rebuild`);
+  * compaction (`scrubber.compact`: a vocabulary mark-and-sweep and a
+    bucket shrink, Snapshot._compact) runs from housekeeping every
+    `compact_interval` seconds when rows were removed since the last
+    one, or when the budget governor (`hbm_budget_bytes`, a byte count
+    of the snapshot's host arrays, as JAX's) demanded it; it drops the
+    device tensors of the old arrays;
+  * a capacity fault — a torch out-of-memory error or a MemoryError in
+    a round, per-wave or gang dispatch or at featurize — climbs the
+    strike ladder (`_capacity_fault`): compact and retry, then also halve
+    the wave cap, then the twin; a gang compacts and takes the twin's
+    all-or-nothing plane; a what-if's is a device failure salvaged on
+    the twin, as in the JAX scheduler. The breaker is charged only when
+    the budget's headroom stays negative after the sweep; no pod is
+    convicted (`capacity_faults`, `snapshot_compactions_total{trigger}`,
+    the `memory` record of a traced round's ledger).
+
+Load shedding (sched/queue.py "Overload control"): with
+`shed_watermark` > 0, pods below `shed_priority_threshold` (default the
+high band) that arrive past the watermark wait in the queue's shed area,
+age back after `shed_age_s`, and drain oldest first once the working
+depth is back under the watermark (`shed_total{class}`,
+`pending_pods{queue="shed"}`, `queue_class_pods{class}`).
+
+Left out with no stand-in: the mesh and its reform, the store-path
+breaker, the bind journal and the reconciler's retries, the queue's
+admission hold (`hold_admissions` stays None until the store plane
+wires it), and extenders (a profile with extenders raises
+NotImplementedError); the series of that machinery (store, mesh, spool)
+stay at zero in `metrics`.
 """
 
 from __future__ import annotations
@@ -187,6 +220,7 @@ from ..plugins.registry import Profile, default_profile
 from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectStore
 from ..state.cache import SchedulerCache
 from ..state.featurize import PodFeaturizeError, PodFeaturizer
+from ..state.scrubber import SnapshotScrubber
 from ..state.snapshot import Snapshot
 from ..utils import faultpoints, tracing
 from ..utils.backoff import PodBackoff
@@ -204,7 +238,7 @@ from .preemption import (GangGuard, PreemptionResult,
                          get_lower_priority_nominated_pods,
                          pod_eligible_to_preempt_others, pick_one_node,
                          preempt, select_victims_on_node)
-from .queue import SchedulingQueue
+from .queue import HIGH_PRIORITY_BAND, SchedulingQueue
 from .volume_binder import VolumeBinder
 from .weights import WeightBook, gate_weights
 
@@ -302,7 +336,11 @@ class Scheduler:
     arguments of the same names; disable_preemption=True turns
     preemption off as the profile's switch of the same name does.
     shadow_exact_interval > 0 replays the first wave of every Nth
-    traced round under each candidate WeightProfile."""
+    traced round under each candidate WeightProfile.
+    hbm_budget_bytes, scrub_interval and compact_interval configure the
+    memory plane, shed_watermark, shed_priority_threshold and shed_age_s
+    the queue's load shedding, as the JAX scheduler's arguments of the
+    same names do (0 / None: off)."""
 
     # idle backoff entries are swept on this cadence (2x the backoff
     # ceiling matches the reference Gc()'s retention window)
@@ -317,7 +355,13 @@ class Scheduler:
                  shadow_exact_interval: int = 0,
                  breaker_threshold: int = 3, breaker_cooldown: float = 30.0,
                  wave_deadline_s: float = 0.0,
-                 poison_backoff_s: float = 5.0):
+                 poison_backoff_s: float = 5.0,
+                 hbm_budget_bytes: int = 0,
+                 scrub_interval: Optional[float] = None,
+                 compact_interval: Optional[float] = None,
+                 shed_watermark: int = 0,
+                 shed_priority_threshold: Optional[int] = None,
+                 shed_age_s: float = 30.0):
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -341,6 +385,11 @@ class Scheduler:
         self._mu = threading.RLock()
         self.cache = SchedulerCache(clock=clock)
         self.snapshot = Snapshot(caps=caps)
+        # the device-memory budget governor: 0 = unlimited. When set, a
+        # _grow that would push the projected footprint of the device
+        # mirror over the budget demands a compaction instead of letting
+        # the card's allocator fail mid-round
+        self.snapshot.hbm_budget_bytes = int(hbm_budget_bytes)
         self.featurizer = PodFeaturizer(self.snapshot, GroupLister(store))
         self.metrics = Metrics()
         # dispatches are counted into this registry by program and shape
@@ -349,9 +398,21 @@ class Scheduler:
         # (resources, (zone, resource) pairs) the telemetry gauges last
         # exported, so a vanished one is removed
         self._tele_exported = (set(), set())
+        # overload control: the queue's priority-aware shed plane
+        # (sched/queue.py "Overload control") — watermark 0 keeps it off
         self.queue = SchedulingQueue(
             clock=clock,
-            pod_priority_enabled=self.features.enabled("PodPriority"))
+            pod_priority_enabled=self.features.enabled("PodPriority"),
+            shed_watermark=shed_watermark,
+            shed_priority_threshold=(HIGH_PRIORITY_BAND
+                                     if shed_priority_threshold is None
+                                     else shed_priority_threshold),
+            shed_age_s=shed_age_s)
+        self.queue.on_shed = self._pod_shed
+        # the class gauges' export cadence and the upload bytes already
+        # counted into snapshot_upload_bytes_total
+        self._next_class_export = 0.0
+        self._upload_bytes_seen = 0
         self.queue.on_gang_released = self._gang_released
         # gang (PodGroup) coscheduling: the queue parks incomplete gangs
         # and the pipeline routes complete ones through ops/gang.py
@@ -390,12 +451,29 @@ class Scheduler:
             maximum=max(float(poison_backoff_s), 0.001) * 64,
             clock=clock)
         self.poison_convictions = 0
+        # the snapshot scrubber (state/scrubber.py): audits the device
+        # mirror against the host cache on SIGUSR2 / the periodic
+        # cadence and repairs divergent rows in place, and compacts it on
+        # its cadence or on demand. Shares _mu so a scrub can never
+        # interleave with a round's upload.
+        self.scrubber = SnapshotScrubber(
+            self.cache, self.snapshot, metrics=self.metrics, clock=clock,
+            period=scrub_interval, lock=self._mu,
+            compact_period=compact_interval)
+        # the capacity-fault strike ladder (an out-of-memory error or a
+        # MemoryError at the device boundary — never a device fault,
+        # never a conviction): strike 1 compacts and retries, strikes 2+
+        # also halve the adaptive wave cap, strike 3 salvages the round
+        # through the numpy twin. Reset by any successful dispatch.
+        self._capacity_strikes = 0
         # the device-path circuit breaker: consecutive device failures
         # send whole waves through the numpy twin until a half-open probe
-        # succeeds; recovery re-uploads the whole device mirror
+        # succeeds; recovery rebuilds every row of the mirror from host
+        # truth and re-uploads it whole (nothing incremental is trusted
+        # across a device fault)
         self.breaker = DevicePathBreaker(
             threshold=breaker_threshold, cooldown=breaker_cooldown,
-            clock=clock, on_recover=self.snapshot.invalidate_device,
+            clock=clock, on_recover=self.scrubber.rebuild,
             on_trip=lambda: self.metrics.device_path_trips.inc(),
             on_state=self._breaker_state_changed)
         self.metrics.breaker_state.set(STATE_CODES[self.breaker.state])
@@ -695,15 +773,45 @@ class Scheduler:
 
     def export_queue_gauges(self) -> None:
         """Refresh scheduler_pending_pods{queue=...} for the areas the
-        port's queue has (kubernetes_tpu/sched/scheduler.py:1315):
-        active, backoff, unschedulable, gang_waiting and quarantine.
-        Called from housekeeping and after a drain settles."""
+        port's queue has (kubernetes_tpu/sched/scheduler.py:1315-1370):
+        active, backoff, unschedulable, gang_waiting, shed and
+        quarantine; the depth banded by priority class (a 1 s cadence:
+        the class walk is O(total pending) under the queue lock); and
+        the memory plane's gauges: the device mirror's bytes, the budget
+        headroom (with a budget set), the vocabulary sizes and the
+        upload bytes since the last export. Called from housekeeping and
+        after a drain settles."""
         g = self.metrics.pending_pods
         g.labels(queue="active").set(self.queue.active_count())
         g.labels(queue="backoff").set(self.queue.backoff_count())
         g.labels(queue="unschedulable").set(self.queue.unschedulable_count())
         g.labels(queue="gang_waiting").set(self.queue.gang_waiting_count())
+        g.labels(queue="shed").set(self.queue.shed_count())
         g.labels(queue="quarantine").set(self.queue.quarantine_count())
+        now = self.clock()
+        if now >= self._next_class_export:
+            self._next_class_export = now + 1.0
+            for cls, n in self.queue.class_counts().items():
+                self.metrics.queue_class_pods.labels(**{"class": cls}).set(n)
+        self.metrics.snapshot_hbm_bytes.set(self.snapshot.hbm_bytes())
+        headroom = self.snapshot.hbm_headroom_bytes()
+        if headroom is not None:
+            self.metrics.hbm_headroom_bytes.set(headroom)
+        for vocab, size in self.snapshot.vocabs.sizes().items():
+            self.metrics.snapshot_vocab_size.labels(vocab=vocab).set(size)
+        up = self.snapshot.upload_bytes_total
+        if up > self._upload_bytes_seen:
+            self.metrics.snapshot_upload_bytes.inc(up - self._upload_bytes_seen)
+            self._upload_bytes_seen = up
+
+    def _pod_shed(self, cls: str) -> None:
+        """Queue shed hook: one increment a shed decision, labelled by
+        priority class (sheds of system/high are what the storm gates
+        hold at zero), and a `pod_shed` event when tracing."""
+        self.metrics.shed_total.labels(**{"class": cls}).inc()
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("pod_shed", cls=cls)
 
     def _note_path(self, launches0: int) -> None:
         self._last_path = ("cuda" if taint_ports_masks.launches > launches0
@@ -1079,7 +1187,11 @@ class Scheduler:
 
     def _housekeep(self) -> None:
         """Expire assumed pods, sweep idle backoff entries (PodBackoff.gc,
-        reference backoff_utils.go Gc) and refresh the queue gauges."""
+        reference backoff_utils.go Gc), refresh the queue gauges, run
+        the snapshot scrubber if its signal or cadence fired, and compact
+        the snapshot when the budget governor demanded it or the cadence
+        elapsed with removals outstanding
+        (kubernetes_tpu/sched/scheduler.py:1272-1310)."""
         with self._mu:
             self.cache.cleanup_expired()
         now = self.clock()
@@ -1088,6 +1200,16 @@ class Scheduler:
             self.backoff.gc()
             self.poison_backoff.gc()
         self.export_queue_gauges()
+        self.scrubber.maybe_scrub()
+        # a compaction crash (the snapshot.compact fault point) costs
+        # the compaction, never the housekeeping pass: the live snapshot
+        # only swaps in after the scratch rebuild fully succeeds
+        try:
+            self.scrubber.maybe_compact()
+        except Exception as ce:
+            logging.getLogger(__name__).error(
+                "housekeeping compaction failed (live snapshot "
+                "unchanged): %s: %s", type(ce).__name__, ce)
 
     def run_once(self) -> int:
         """Schedule one wave through the per-wave path. Returns the pods
@@ -1264,6 +1386,16 @@ class Scheduler:
                         rec.end_round(rt, outcome="input_fault")
                     return 0
                 waves = [pods[i:i + W] for i in range(0, len(pods), W)]
+            except Exception as e:
+                # an allocation-site MemoryError (state/featurize.py
+                # propagates it raw: environmental, not spec-caused) is a
+                # CAPACITY fault at the round boundary: compact and retry
+                # rather than crash the loop or convict the pod that was
+                # featurizing when memory ran out
+                if not is_capacity_error(e):
+                    raise
+                return self._capacity_fault(pods, e, rt, rec,
+                                            self._run_pipeline)
         for wv, pb in zip(waves, pbs):
             P = pb.req.shape[0]
             if (not self._host_plugin_mask(wv, P).all()
@@ -1358,16 +1490,20 @@ class Scheduler:
         except Exception as e:
             for p in pods:
                 self.snapshot.unstage(p)
-            if isinstance(e, KernelBuildError) or is_capacity_error(e):
-                # a kernel that cannot be built is not a device fault,
-                # and a capacity fault is the memory plane's (a later
-                # slice): neither feeds the breaker
+            if isinstance(e, KernelBuildError):
+                # a kernel that cannot be built is not a device fault
                 for p in pods:
                     self.queue.add_if_not_present(p)
                 if rt is not None:
                     rec.end_round(rt, outcome="error",
                                   error=type(e).__name__)
                 raise
+            # capacity-fault attribution FIRST: a device OOM replays
+            # clean on the twin, so the input-fault verdict would
+            # misclassify it as a device fault
+            if is_capacity_error(e):
+                return self._capacity_fault(pods, e, rt, rec,
+                                            self._run_pipeline)
             # input-fault attribution BEFORE breaker accounting: bad work
             # must never blame the device
             verdict = self._input_fault_verdict(pods, e)
@@ -1390,6 +1526,7 @@ class Scheduler:
                 self.queue.add_if_not_present(p)
             return 0
         self.breaker.record_success()
+        self._capacity_strikes = 0
         self._note_path(launches0)
         fetched = chosen_all.nbytes + fin_all.nbytes
         if deco_all is not None:
@@ -1446,8 +1583,8 @@ class Scheduler:
         try:
             handled = self._pipeline_preempt(retry) if retry else set()
         except Exception:
-            # a what-if that raises (KernelBuildError, a capacity fault)
-            # leaves the round's failures in the queue
+            # a what-if that raises (KernelBuildError) leaves the round's
+            # failures in the queue
             for pod in retry:
                 self.queue.add_if_not_present(pod)
             raise
@@ -1718,7 +1855,15 @@ class Scheduler:
             self._trace_queue_waits(rt, pods)
             if golden:
                 rt.ledger["golden"] = golden
-        pb, pods = self._featurize_guarded(pods)
+        try:
+            pb, pods = self._featurize_guarded(pods)
+        except Exception as e:
+            # an allocation-site MemoryError goes to the capacity ladder
+            # (see _run_pipeline's featurize loop)
+            if not is_capacity_error(e):
+                raise
+            return placed_gang + self._capacity_fault(pods, e, rt, rec,
+                                                      self._run_wave)
         if not pods:
             # the whole wave was convicted at featurize time
             if rt is not None:
@@ -1783,14 +1928,18 @@ class Scheduler:
             chosen = res.chosen.cpu().numpy()
             fin = res.finite.cpu().numpy()
         except Exception as e:
-            if isinstance(e, KernelBuildError) or is_capacity_error(e):
-                # neither is a device fault (see _run_pipeline)
+            if isinstance(e, KernelBuildError):
+                # not a device fault (see _run_pipeline)
                 for p in pods:
                     self.queue.add_if_not_present(p)
                 if rt is not None:
                     rec.end_round(rt, outcome="error",
                                   error=type(e).__name__)
                 raise
+            # capacity-fault attribution FIRST (see _run_pipeline)
+            if is_capacity_error(e):
+                return placed_gang + self._capacity_fault(
+                    pods, e, rt, rec, self._run_wave)
             # input-fault attribution BEFORE breaker accounting
             verdict = self._input_fault_verdict(pods, e)
             if verdict is not None:
@@ -1809,6 +1958,7 @@ class Scheduler:
                               error=type(e).__name__)
             return placed_gang + self._schedule_degraded(pods)
         self.breaker.record_success()
+        self._capacity_strikes = 0
         self._note_path(launches0)
         # numeric-integrity sentinel, fetched with chosen: the WHOLE wave
         # is discarded, the flagged pods convicted, the survivors re-run;
@@ -1906,6 +2056,77 @@ class Scheduler:
             self.breaker.failures, self.breaker.state,
             type(exc).__name__, exc, exc_info=exc)
         return False
+
+    def _capacity_fault(self, pods: List[api.Pod], exc: BaseException,
+                        rt, rec, retry_fn) -> int:
+        """The capacity-fault ladder (kubernetes_tpu/sched/scheduler.py:
+        2551-2597): an out-of-memory error or a MemoryError at the device
+        boundary is the scheduler's OWN footprint outgrowing the card —
+        never the card's fault and never the work's, so it convicts no
+        pod and feeds the breaker only when compaction cannot restore
+        the budget's headroom. Every strike compacts the snapshot; strike
+        1 retries; strikes 2 and later also halve the adaptive wave cap
+        (floor MIN_ADAPTIVE_WAVE); strike 3 and later salvage the round
+        through the numpy twin, which needs no device memory. Strikes
+        reset on the next successful dispatch."""
+        self._capacity_strikes += 1
+        strike = self._capacity_strikes
+        self.metrics.capacity_faults.inc()
+        logging.getLogger(__name__).warning(
+            "capacity fault (strike %d), compacting: %s: %s", strike,
+            type(exc).__name__, exc)
+        summary = self._compact_guarded(trigger="oom")
+        if strike >= 2:
+            # the floor of _account_host_overrun: a scheduler configured
+            # below the adaptive floor never has a fault RAISE its wave
+            self._wave_cap = max(self._wave_cap // 2,
+                                 min(self.MIN_ADAPTIVE_WAVE,
+                                     self.wave_size))
+            self.metrics.effective_wave_size.set(self._wave_cap)
+        headroom = self.snapshot.hbm_headroom_bytes()
+        exhausted = headroom is not None and headroom < 0
+        if exhausted:
+            # compaction could not restore headroom: only now does the
+            # fault feed the breaker
+            self.breaker.record_failure()
+        if rt is not None:
+            rec.end_round(rt, outcome="capacity_fault",
+                          error=type(exc).__name__,
+                          memory=self._memory_ledger())
+        if strike >= 3 or summary is None or exhausted:
+            # third strike, compaction deferred or failed, or the budget
+            # still exceeded: salvage the round on the host instead of
+            # burning another dispatch
+            return self._schedule_degraded(pods)
+        return retry_fn(pods)
+
+    def _compact_guarded(self, trigger: str):
+        """scrubber.compact for the scheduling loop: a crash inside the
+        compaction (the `snapshot.compact` fault point, or a real bug)
+        costs the compaction, never the round — the live snapshot is
+        untouched until the scratch rebuild fully succeeds. Returns the
+        summary, or None when the compaction failed or was deferred."""
+        try:
+            return self.scrubber.compact(trigger=trigger, force=True)
+        except Exception as ce:
+            logging.getLogger(__name__).error(
+                "snapshot compaction failed (live snapshot unchanged): "
+                "%s: %s", type(ce).__name__, ce)
+            return None
+
+    def _memory_ledger(self) -> Dict:
+        """The round ledger's `memory` record: {hbm_bytes, budget,
+        headroom, vocabs, compactions, capacity_strikes}; headroom is
+        None when no budget is configured."""
+        return {
+            "hbm_bytes": int(self.snapshot.projected_hbm_bytes()),
+            "budget": int(self.snapshot.hbm_budget_bytes),
+            "headroom": self.snapshot.hbm_headroom_bytes(),
+            "vocabs": self.snapshot.vocabs.sizes(),
+            "compactions": int(
+                self.metrics.snapshot_compactions_total.total()),
+            "capacity_strikes": int(self._capacity_strikes),
+        }
 
     def _needs_golden(self, pod: api.Pod) -> bool:
         """Must this pod take the exact golden path instead of the twin?
@@ -2724,14 +2945,28 @@ class Scheduler:
                               res.placed.reshape(1),
                               res.finite.to(torch.int32)]).cpu().numpy()
         except Exception as e:
-            if isinstance(e, KernelBuildError) or is_capacity_error(e):
-                # neither is a device fault (see _run_pipeline)
+            if isinstance(e, KernelBuildError):
+                # not a device fault (see _run_pipeline)
                 for p in members:
                     self.queue.add_if_not_present(p)
                 if rt is not None:
                     rt.ledger.update(outcome="error",
                                      error=type(e).__name__)
                 raise
+            if is_capacity_error(e):
+                # capacity-fault attribution first: compact and salvage
+                # the gang through the twin's all-or-nothing plane —
+                # never a device failure or a gang conviction for the
+                # scheduler's own footprint
+                self._capacity_strikes += 1
+                self.metrics.capacity_faults.inc()
+                self._compact_guarded(trigger="oom")
+                if rt is not None:
+                    rt.ledger.update(outcome="capacity_fault",
+                                     error=type(e).__name__,
+                                     memory=self._memory_ledger())
+                return placed + self._schedule_degraded_gang(key, members,
+                                                             rt)
             # input-fault attribution first: a poisoned member quarantines
             # its gang, never feeds the breaker
             verdict = self._input_fault_verdict(members, e)
@@ -2752,6 +2987,7 @@ class Scheduler:
                 self._park_with_backoff(p)
             return placed
         self.breaker.record_success()
+        self._capacity_strikes = 0
         G = res.chosen.shape[0]
         chosen, ok, n_placed = head[:G], bool(head[G]), int(head[G + 1])
         fin = head[G + 2:] != 0

@@ -16,8 +16,20 @@ and, within each group, per ROW: a bind/evict/heartbeat re-uploads only
 the touched node/pod/term rows (gathered host rows + an index vector,
 written with one `index_copy_` per cached tensor), so steady-state
 upload bytes scale with the churn, not the cluster. A whole-group flag
-(set by growth or cache invalidation) or a dirty fraction past
-DELTA_MAX_FRACTION falls back to the full upload.
+(set by growth, the scrubber's repairs, a compaction or cache
+invalidation) or a dirty fraction past DELTA_MAX_FRACTION falls back to
+the full upload.
+
+Memory governance (kubernetes_tpu/state/snapshot.py:148-212, :318-396):
+every resident group's byte size is kept (`hbm_bytes`), the footprint of
+the next full upload is computed from the host arrays
+(`projected_hbm_bytes`), and with `hbm_budget_bytes` set a `_grow` that
+pushes the projection past the budget demands a compaction
+(`compaction_requested`). `_compact` adopts a scratch snapshot rebuilt
+from host truth (state/scrubber.py) in place and drops every device
+tensor the old arrays backed. The budget and headroom are the JAX
+package's byte counts of the host arrays, not an allocator query, so
+both packages decide alike.
 
 The cached device tensors are updated IN PLACE by the delta path (the
 JAX mirror rebuilds them functionally): a tuple returned by an earlier
@@ -35,6 +47,7 @@ import torch
 
 from ..api import types as api
 from ..ops import encoding as enc
+from ..utils import faultpoints
 from .node_info import NodeInfo
 from .vocab import VocabSet, bucket_size
 
@@ -54,6 +67,24 @@ def _parse_label_num(v: str) -> float:
 # bookkeeping buys nothing).
 DELTA_MAX_FRACTION = 0.5
 DELTA_MIN_ROWS = 16
+
+# Caps dims the snapshot itself grows — and a compaction may shrink.
+# Every other Caps dim (P, UI, the pod-batch dims...) belongs to the
+# featurizer/wave plane and is never touched by _compact.
+SNAPSHOT_DIMS = ("N", "Z", "K", "KP", "R", "T", "PP", "NI", "M", "E",
+                 "TE", "TV", "TNS", "LV")
+
+# every numpy plane _grow pads and _compact adopts, in _grow order
+SNAPSHOT_ARRAYS = (
+    "alloc", "requested", "nonzero", "pod_count", "allowed_pods",
+    "labels", "label_nums", "taint_key", "taint_val", "taint_effect",
+    "cond", "ports", "zone_id", "rack_id", "superpod_id", "accel_gen",
+    "img_id", "img_size", "avoid", "valid",
+    "ep_labels", "ep_ns", "ep_node", "ep_valid", "ep_alive", "ep_req",
+    "ep_prio",
+    "t_kind", "t_owner", "t_node", "t_tk", "t_weight", "t_ns", "t_key",
+    "t_op", "t_vals", "t_valid")
+
 
 def _row_update(devs, updates, idx: np.ndarray, device) -> None:
     """Batched row scatter: writes the gathered host rows into every
@@ -92,7 +123,7 @@ class Snapshot:
         self._next_term = 0
         self._alloc_terms()
         # whole-group dirty flags: True forces a full re-upload of the
-        # group (set by growth and external
+        # group (set by growth, the scrubber's repairs, and external
         # invalidation). Fine-grained churn goes through _mark_rows
         # instead, so a steady-state bind re-uploads only touched rows.
         self.dirty_resources = True
@@ -103,13 +134,48 @@ class Snapshot:
         self._dirty_rows: Dict[str, set] = {
             "res": set(), "topo": set(), "pods": set(), "terms": set()}
         self._device_cache: Dict[str, object] = {}
-        # cumulative host->device upload bytes (full groups + delta rows)
+        # device telemetry: cumulative host->device upload bytes and the
+        # byte size of each resident group — the scheduler exports these
+        # as snapshot_upload_bytes_total / snapshot_hbm_bytes
         self.upload_bytes_total = 0
+        self._group_bytes: Dict[str, int] = {}
+        # the device-memory budget governor: 0 = unlimited. A _grow that
+        # pushes the projected footprint past the budget sets
+        # compaction_requested (the growth itself proceeds — the rows
+        # must land somewhere) and the scheduler's housekeeping compacts
+        # before the next round commits the bigger footprint for good.
+        self.hbm_budget_bytes = 0
+        self.compaction_requested = False
+        # node/pod row removals since the last compaction — the cadence
+        # trigger's "is there anything to reclaim" signal
+        self.removals_since_compact = 0
     def _mark_rows(self, group: str, *rows: int) -> None:
         self._dirty_rows[group].update(rows)
 
-    def _account_upload(self, arrays) -> None:
-        self.upload_bytes_total += sum(int(a.nbytes) for a in arrays)
+    def _account_upload(self, group: str, arrays) -> None:
+        nbytes = sum(int(a.nbytes) for a in arrays)
+        self.upload_bytes_total += nbytes
+        self._group_bytes[group] = nbytes
+
+    def hbm_bytes(self) -> int:
+        """Byte footprint of the device-resident mirror: the cached
+        groups' host sizes (the JAX package's unsharded count)."""
+        return sum(self._group_bytes.values())
+
+    def projected_hbm_bytes(self) -> int:
+        """What the device mirror will occupy after the next full
+        upload, computed from the HOST arrays — the governor's check
+        input. hbm_bytes() lags until an upload actually lands; a budget
+        check against it would admit one over-budget round first."""
+        return sum(int(a.nbytes) for g in ("res", "topo", "pods", "terms")
+                   for a in self._group_host(g))
+
+    def hbm_headroom_bytes(self) -> Optional[int]:
+        """Budget minus projected footprint (negative = over budget),
+        None when no budget is configured."""
+        if not self.hbm_budget_bytes:
+            return None
+        return self.hbm_budget_bytes - self.projected_hbm_bytes()
 
     # ---- allocation / growth ----------------------------------------------
 
@@ -221,6 +287,82 @@ class Snapshot:
         self.dirty_resources = self.dirty_topology = self.dirty_pods = True
         for rows in self._dirty_rows.values():
             rows.clear()
+        # the budget governor: over-budget growth demands a compaction
+        # instead of letting the next upload hit the card's allocator
+        if self.hbm_budget_bytes and \
+                self.projected_hbm_bytes() > self.hbm_budget_bytes:
+            self.compaction_requested = True
+
+    def has_staged_rows(self) -> bool:
+        """True while any pipeline-staged pod row is outstanding. A
+        compaction renumbers every row index, but a round holds staged
+        pm_rows/term_rows by INDEX — compacting under them would scatter
+        placements into the wrong rows, so callers must defer (or
+        unstage first)."""
+        return any(sig[0] == "staged" for sig in self._pod_sig.values())
+
+    def _compact(self, scratch: "Snapshot", force: bool = False
+                 ) -> Dict[str, Tuple[int, int]]:
+        """Adopt a freshly-rebuilt scratch snapshot in place — the
+        inverse of _grow (kubernetes_tpu/state/snapshot.py:336-396). The
+        scratch (built by the scrubber from host truth against a FRESH
+        VocabSet) holds the same live rows densely renumbered with
+        freshly-assigned vocab ids; this step swaps its arrays,
+        registries and vocabularies into the live snapshot.
+
+        Shrink hysteresis: a dim only shrinks when its rebuilt bucket is
+        at most HALF the current one, so a grow right after a cadence
+        compaction cannot thrash the tensor shapes. force=True
+        (governor/OOM demand) takes any smaller bucket. Dims that don't
+        shrink are re-grown on the scratch to the live bucket first.
+
+        Every device tensor the old arrays backed is dropped with the
+        device cache (nothing else in the package holds one across a
+        round), so the card's memory is freed once the caller lets go of
+        the tensors of its last to_device. Returns {dim: (old, new)} for
+        every dim that shrank. Vocab identity is preserved (adopt_all
+        rewrites contents in place) and the generation bump invalidates
+        every featurizer cache."""
+        assert not self.has_staged_rows(), \
+            "compaction with staged rows outstanding"
+        regrow: Dict[str, int] = {}
+        shrunk: Dict[str, Tuple[int, int]] = {}
+        for d in SNAPSHOT_DIMS:
+            cur = getattr(self.caps, d)
+            tgt = getattr(scratch.caps, d)
+            if tgt >= cur:
+                continue
+            if (tgt < cur) if force else (tgt * 2 <= cur):
+                shrunk[d] = (cur, tgt)
+            else:
+                regrow[d] = cur
+        if regrow:
+            scratch._grow(**regrow)
+        self.vocabs.adopt_all(scratch.vocabs)
+        for d in SNAPSHOT_DIMS:
+            setattr(self.caps, d, getattr(scratch.caps, d))
+        for name in SNAPSHOT_ARRAYS:
+            setattr(self, name, getattr(scratch, name))
+        self.node_index = dict(scratch.node_index)
+        self.node_names = list(scratch.node_names)
+        self._free_nodes = list(scratch._free_nodes)
+        self.pod_slot = dict(scratch.pod_slot)
+        self._free_slots = list(scratch._free_slots)
+        self._next_slot = scratch._next_slot
+        self.term_rows = {uid: list(rows)
+                          for uid, rows in scratch.term_rows.items()}
+        self._free_terms = list(scratch._free_terms)
+        self._next_term = scratch._next_term
+        self._pod_sig = dict(scratch._pod_sig)
+        # everything the device holds is now stale: full re-upload
+        self.dirty_resources = self.dirty_topology = self.dirty_pods = True
+        for rows in self._dirty_rows.values():
+            rows.clear()
+        self._device_cache.clear()
+        self._group_bytes.clear()
+        self.compaction_requested = False
+        self.removals_since_compact = 0
+        return shrunk
 
     # ---- resource columns ---------------------------------------------------
 
@@ -344,6 +486,10 @@ class Snapshot:
     def remove_node(self, name: str):
         idx = self.node_index.pop(name, None)
         if idx is not None:
+            # the row is freed but every label/zone/image string this
+            # node interned stays in the vocabularies until a compaction
+            # rebuilds them: count the garbage for the cadence trigger
+            self.removals_since_compact += 1
             self.valid[idx] = False
             self._free_nodes.append(idx)
             # Drop this node's rows from the pod matrix so a future node
@@ -384,6 +530,10 @@ class Snapshot:
         for i, (proto, _ip, port) in enumerate(up):
             self.ports[idx, i] = self.vocabs.port_id(proto, port)
         self._mark_rows("res", idx)
+        # chaos seam: fires AFTER the row write so a `corrupt`-mode
+        # fault leaves a silently-divergent row for the scrubber to
+        # catch; one dict check when no faults are armed
+        faultpoints.fire("snapshot.write", payload=(self, idx))
 
     # ---- existing-pod matrix ------------------------------------------------
 
@@ -505,10 +655,12 @@ class Snapshot:
         self.remove_pod_by_uid(pod.uid)
 
     def remove_pod_by_uid(self, uid: str):
-        """Row removal keyed by uid alone."""
+        """Row removal keyed by uid alone — the scrubber drops ghost
+        rows whose pod object the host cache no longer holds."""
         slot = self.pod_slot.pop(uid, None)
         self._pod_sig.pop(uid, None)
         if slot is not None:
+            self.removals_since_compact += 1
             self.ep_valid[slot] = False
             self.ep_alive[slot] = False
             self._free_slots.append(slot)
@@ -716,7 +868,7 @@ class Snapshot:
                     sum(int(u.nbytes) for u in updates) + int(idx.nbytes))
                 rows.clear()
                 return
-        self._account_upload(host)
+        self._account_upload(key, host)
         # copy=True: on a CPU device the tensor must not alias the host
         # mirror, or later host writes would leak into it unsynced
         cache[key] = tuple(
@@ -743,6 +895,7 @@ class Snapshot:
                       self.caps.E, self.caps.TE, self.caps.TV, self.caps.TNS)
         if cache.get("shapes") != shapes_key or cache.get("device") != device:
             cache.clear()
+            self._group_bytes.clear()
             cache["shapes"] = shapes_key
             cache["device"] = device
             self.dirty_resources = self.dirty_topology = self.dirty_pods = True

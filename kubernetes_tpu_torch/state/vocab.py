@@ -8,11 +8,13 @@ to powers of two to keep compiled shapes stable (SURVEY.md §7 hard
 part (e): recompilation pressure).
 
 Append-only is also a leak under node churn: every hostname/label/image
-a departed node ever contributed stays interned. The JAX package's
-compaction rebuilds the vocabularies in place through `Interner.adopt`
-(kubernetes_tpu/state/scrubber.py); that compaction is still to port,
-and `VocabSet.generation` (folded into `version()`) is kept so the
-featurizer cache contract is the same in both packages.
+a departed node ever contributed stays interned until a compaction
+(state/scrubber.py compact) rebuilds the vocabularies from live objects
+via `Interner.adopt` — in place, preserving object identity, because
+interners are shared by reference across the snapshot, the featurizer
+and the node-lifecycle controller. `VocabSet.generation` counts those
+rebuilds and is folded into `version()` so featurizer caches can never
+confuse pre- and post-compaction id spaces even when sizes coincide.
 """
 
 from __future__ import annotations

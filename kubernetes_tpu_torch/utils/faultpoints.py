@@ -8,8 +8,10 @@ fires as many times a dispatch as its JAX counterpart, so a
 times-bounded fault trips both packages alike.
 
 Internal surfaces that can fail independently of any process — a device
-dispatch, a pod spec that poisons the batched pass, the quarantine
-admission — are wired with a named fault point (the etcd `gofail`
+dispatch (an error, a hang, an out-of-memory), a pod spec that poisons
+the batched pass, the quarantine admission, the incremental snapshot
+writes that keep the device mirror honest, the compaction sweep, the
+queue's shed decision — are wired with a named fault point (the etcd `gofail`
 pattern): a test activates a point by name and the code path fails
 exactly there, deterministically.
 
@@ -34,7 +36,22 @@ Wired points (grep for `faultpoints.fire`):
   device.oom       ops/kernel.py record_dispatch, inside the guarded
                    dispatch (next to device.lost; payload: the active
                    device-name tuple). The capacity-fault seam: a
-                   `raise` models the card running out of memory
+                   `raise` (or `corrupt` with sched.breaker.oom_fault()
+                   raising ResourceExhausted) models the card running
+                   out of memory — the scheduler classifies it as a
+                   capacity fault (compact, halve the wave, host twin),
+                   NEVER a device fault or a conviction
+  snapshot.compact state/scrubber.py compact entry, BEFORE the
+                   fault-suppressed rebuild (payload: (snapshot,
+                   trigger)) — a `raise` fails the compaction; `latency`
+                   models a slow sweep holding the scheduler lock
+  snapshot.write   state/snapshot.py refresh_node_resources, AFTER the
+                   row write (payload: (snapshot, node_idx) — the
+                   `corrupt` mode's target)
+  queue.shed       sched/queue.py _should_shed_locked — `drop` forces
+                   the shed decision for every sheddable
+                   (sub-threshold-priority, non-gang) pod regardless of
+                   the watermark
   featurize.poison state/featurize.py _featurize_pod_guarded, AFTER the
                    per-pod finite validation (payload: (pod, row-dict)).
                    Arm `corrupt` with state.featurize.poison_pod_fault
@@ -76,8 +93,9 @@ Modes:
   raise    raise FaultInjected (or a caller-supplied exception factory)
   latency  time.sleep(arg seconds), then continue
   drop     fire() returns True — the call site skips the guarded action
-  corrupt  invoke the fault's fn(payload) (no default action: the port
-           carries no snapshot-row seam), then continue
+  corrupt  invoke the fault's fn(payload) — or the default snapshot-row
+           corruption (alloc[idx, CPU] += 4 cores, a silently wrong
+           capacity the scrubber must catch) — then continue
 
 Inactive cost: `fire()` is one module-global dict check. Activation is
 programmatic (activate / injected context manager) or via the
@@ -134,6 +152,18 @@ _lock = threading.Lock()
 _suppress = threading.local()  # per-thread: observers opt out of chaos
 
 
+def _default_corrupt(payload) -> None:
+    """The default silent-divergence corruption: inflate a snapshot
+    node row's allocatable CPU by 4 cores. Allocatable is a topology
+    field that no bind-path refresh overwrites, so the corruption
+    persists until a node event or a scrub."""
+    try:
+        snap, idx = payload
+        snap.alloc[idx, 0] += 4000.0  # RES_CPU column, milli-cpu
+    except (TypeError, ValueError, AttributeError, IndexError):
+        pass  # payload isn't a (snapshot, idx) pair: nothing to corrupt
+
+
 def fire(name: str, payload=None) -> bool:
     """Hot-path hook. Returns True when a `drop`-mode fault is active
     (the caller must skip the guarded action); False otherwise. With no
@@ -158,10 +188,24 @@ def fire(name: str, payload=None) -> bool:
     if f.mode == "drop":
         return True
     if f.mode == "corrupt":
-        if f.fn is not None:
-            f.fn(payload)
+        (f.fn or _default_corrupt)(payload)
         return False
     raise (f.exc() if f.exc is not None else FaultInjected(name))
+
+
+def is_armed(name: str, mode: Optional[str] = None) -> bool:
+    """Non-consuming probe: is the point armed (optionally in `mode`)
+    with budget remaining? Unlike fire(), this neither counts a hit nor
+    spends `times` (the queue's watermark release asks it without eating
+    a times-bounded shed fault's per-pod budget)."""
+    if not _active:
+        return False
+    if getattr(_suppress, "on", False):
+        return False
+    f = _active.get(name)
+    if f is None or (mode is not None and f.mode != mode):
+        return False
+    return f.times is None or f.times > 0
 
 
 def activate(name: str, mode: str = "raise", arg: float = 0.0,
@@ -209,8 +253,11 @@ def injected(name: str, mode: str = "raise", **kw):
 
 @contextmanager
 def suppressed():
-    """Disarm every fault point for the current thread inside the block
-    (for observers of faulty state)."""
+    """Disarm every fault point for the current thread inside the block,
+    for observers of faulty state: the snapshot scrubber's golden-row
+    build and repair writes go through the paths `snapshot.write`
+    instruments, and an unbounded corrupt fault would otherwise corrupt
+    the golden rows alike and re-corrupt each row as it is repaired."""
     prev = getattr(_suppress, "on", False)
     _suppress.on = True
     try:

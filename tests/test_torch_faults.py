@@ -40,7 +40,7 @@ from torch_worlds import FakeClock, bindings, plain_node, plain_pod
 TORCH = "kubernetes_tpu_torch"
 PKG_DIR = Path(tsched.__file__).resolve().parent.parent
 POINTS = ("kernel.round", "kernel.wave", "kernel.gang", "kernel.hang",
-          "device.lost")
+          "device.lost", "device.oom")
 
 
 # -- fault points ----------------------------------------------------------

@@ -166,10 +166,13 @@ class Both:
     the SCHED_METRICS. profile(pkg, store) and features(pkg), where
     given, build each package's Profile and FeatureGates; sched_kw are
     further Scheduler keywords both packages take (breaker_threshold,
-    breaker_cooldown, wave_deadline_s, poison_backoff_s)."""
+    breaker_cooldown, wave_deadline_s, poison_backoff_s, hbm_budget_bytes,
+    compact_interval, scrub_interval, shed_watermark, ...); caps (a dict
+    of Caps fields, SCHED_CAPS by default) sizes both snapshots, None
+    leaves them at the Caps defaults."""
 
     def __init__(self, n_nodes=0, wave=16, profile=None, features=None,
-                 sched_kw=None, **node_kw):
+                 sched_kw=None, caps=SCHED_CAPS, **node_kw):
         self.clock = {"jax": FakeClock(), "torch": FakeClock()}
         self.stores = {"jax": JaxStore(), "torch": TorchStore()}
         kw = {}
@@ -182,11 +185,13 @@ class Both:
         self.sched = {
             "jax": jsched.Scheduler(self.stores["jax"], wave_size=wave,
                                     clock=self.clock["jax"],
-                                    caps=jenc.Caps(**SCHED_CAPS),
+                                    caps=(jenc.Caps(**caps)
+                                          if caps is not None else None),
                                     **kw["jax"]),
             "torch": TorchScheduler(self.stores["torch"], wave_size=wave,
                                     clock=self.clock["torch"], device="cpu",
-                                    caps=tenc.Caps(**SCHED_CAPS),
+                                    caps=(tenc.Caps(**caps)
+                                          if caps is not None else None),
                                     **kw["torch"]),
         }
         for i in range(n_nodes):
