@@ -116,7 +116,7 @@ Phases (any failure exits non-zero and prints no result line):
                unbound WaitForFirstConsumer claim of 5-10 Gi against 320
                free PVs of 10, 20 and 50 Gi in three zones;
                VolumeScheduling on, the equivalence cache off. The host
-               mask of 8 of the pods projects the phase; past 150 s the
+               mask of 8 of the pods projects the phase; past 75 s the
                StatefulSet pods are halved (to 256). Every pod placed
                (check_bindings), every pod in its PV's zone, every claim
                bound to its own PV, no node over 16 GCE PDs, the kernel
@@ -266,11 +266,44 @@ Phases (any failure exits non-zero and prints no result line):
                before any shed pod, the shed area drained oldest first,
                every pod bound, no high pod shed; the p99 latency of each
                class on the virtual clock printed for both.
+  19. store_outage — the store plane (sched/reconciler.py,
+               sched/storehealth.py, state/journal.py, the scheduler's
+               bind spool) on the density world at 5 000 nodes, on a
+               virtual clock, the store breaker's cooldown 2 s and its
+               jitter pinned: a fault-free run drains 1 024 density pods,
+               then 1 024 more; (a) the same with store.outage armed
+               (raise, unbounded) for the second batch: every bind
+               spools and is journaled (fsync a record) in a temporary
+               directory; disarmed, past the probe deadline one run_once
+               drains the spool; the bindings equal the fault-free run's,
+               no pod bound twice, store.outage hit 3 + 1 times (the
+               first bind's POSTs and truth GET, then none while
+               DISCONNECTED); printed: pods/s of both batches against the
+               fault-free run's, host seconds spooling (journal append
+               with fsync, and the rest), journal bytes, the drain's
+               seconds, the breaker's state at each step; (b) the same
+               outage with the journal capped at 65 536 B (one rotation),
+               the process abandoned with its spool (watches dropped, no
+               close, no drain); a fresh Scheduler over the same store
+               and journal, the store still dark, replays every intent
+               (re-spooled under its seq; the replay's seconds printed);
+               healed and drained: bindings equal the fault-free run's,
+               every pod bound once, nothing assumed or unresolved; (c)
+               enter_dormant after the first batch: run_once and
+               schedule_pending place 0; recover_leadership (a full
+               scrubber.rebuild at 5 000 nodes, timed), then the second
+               batch's bindings equal the fault-free run's; (d)
+               spool_watermark 256 with shed_watermark 1 024: 256 pods
+               spool, 128 low arrivals are held in the shed area, 8
+               pods at HIGH_PRIORITY_BAND still schedule and spool;
+               healed, everything binds.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
-or strike (a healthy phase that leaned on a ladder fails); phase 17's
-schedulers are held to no capacity fault.
+or strike (a healthy phase that leaned on a ladder fails), no store
+trip and no spooled bind; phase 17's schedulers are held to no capacity
+fault and phases 17-18's to no store trip and no spooled bind; phase
+19's to the device checks of phases 4-16.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -332,7 +365,7 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # every StatefulSet pod and the wave the pipeline's bail-out masks again,
 # plus a per-wave dispatch a wave at the density drain's ms a pod
 SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
-SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 150.0, 8
+SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 75.0, 8
 # phase 14: the density world's backlog drained untraced and traced (32
 # waves, one round), then twice more traced after a promotion and after
 # the rollback
@@ -455,6 +488,15 @@ MEM_CORRUPT, MEM_SCRUB_PODS = 8, 512
 STORM_LOW, STORM_HIGH, STORM_EVERY = 2560, 128, 20
 STORM_BURST, STORM_WATERMARK, STORM_AGE_S = 5 * WAVE, 1024, 60.0
 STORM_DRAIN_TICKS = 200
+# phase 19 (the store plane): STORE_PODS density pods drained with the
+# store up, then STORE_PODS more during a store outage, on a virtual clock
+# with the store breaker's cooldown STORE_COOLDOWN_S (its jitter pinned);
+# the journal capped at STORE_JOURNAL_BYTES, so that (b)'s replay of
+# STORE_PODS intents (about 118 B each) crosses one rotation; (d) the
+# spool watermark STORE_WATERMARK with shed_watermark STORM_WATERMARK,
+# STORE_HELD low pods held past it and STORE_HIGH high pods spooled
+STORE_PODS, STORE_COOLDOWN_S, STORE_JOURNAL_BYTES = 1024, 2.0, 65536
+STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
 KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
@@ -3369,7 +3411,9 @@ class Ladder:
         self.made.append(s)
         return s
 
-    def check(self, phase: str) -> None:
+    def check(self, phase: str, store: bool = True) -> None:
+        """store: also hold each scheduler to no store-breaker trip and an
+        empty spool (phase 19 trips it on purpose)."""
         for s in self.made:
             wd = s.watchdog
             used = {"breaker": s.breaker.state, "trips": s.breaker.trips,
@@ -3387,10 +3431,28 @@ class Ladder:
                         "oom_compactions": 0, "strikes": 0}:
                 fail(f"{phase}: a healthy phase used the device-fault "
                      f"ladder or the capacity ladder: {used}")
+        if store:
+            self.check_store(phase, keep=True)
         log(f"[ladder] {phase}: {len(self.made)} schedulers, breaker "
             "CLOSED, no trip, no device failure, no watchdog abandonment, "
-            "no quarantined pod, no capacity fault")
+            "no quarantined pod, no capacity fault"
+            + (", no store trip, no spooled bind" if store else ""))
         self.made = []
+
+    def check_store(self, phase: str, keep: bool = False) -> None:
+        """The schedulers of a phase that does not cut the store off: no
+        store-breaker trip, nothing spooled."""
+        for s in self.made:
+            used = {"store_trips": s.storehealth.trips,
+                    "store_trip_metric": int(
+                        s.metrics.store_breaker_trips.value),
+                    "spool": s.spool_count()}
+            if any(used.values()):
+                fail(f"{phase}: the store plane tripped or spooled: {used}")
+        if not keep:
+            log(f"[ladder] {phase}: {len(self.made)} schedulers, no store "
+                "trip, no spooled bind")
+            self.made = []
 
     @staticmethod
     def capacity(s) -> dict:
@@ -3411,7 +3473,6 @@ class Ladder:
                 fail(f"{phase}: the capacity ladder ran: {used}")
         log(f"[ladder] {phase}: {len(self.made)} schedulers, no capacity "
             "fault")
-        self.made = []
 
 
 def same_planes(name, host, card, fields):
@@ -4678,6 +4739,422 @@ def memory_phase(torch, mods, enc, bucket_size, faultpoints):
     return {"launches": launches, "whatif_launches": whatif_launches}
 
 
+# -- phase 19: the store plane ------------------------------------------------------
+
+
+class OutageWorld:
+    """Phase 19's density world, built once: build_store's FULL_NODES
+    nodes with their bound port holders and 2 x STORE_PODS pending density
+    pods, in two batches. Each run gets a store of deep copies of it (a
+    store stamps the objects it holds), so every run starts alike."""
+
+    def __init__(self, api, store_mod, enc, bucket_size, seed):
+        tmpl, self.n_bound = build_store(api, store_mod, FULL_NODES,
+                                         2 * STORE_PODS, seed)
+        self.store_mod = store_mod
+        self.nodes = tmpl.list("nodes")
+        pods = tmpl.list("pods")
+        self.holders = [p for p in pods if p.spec.node_name]
+        pending = [p for p in pods if not p.spec.node_name]
+        self.batches = (pending[:STORE_PODS], pending[STORE_PODS:])
+        self.caps = scheduler_caps(enc, bucket_size, FULL_NODES,
+                                   2 * STORE_PODS, self.n_bound)
+
+    def store(self):
+        store = self.store_mod.ObjectStore()
+        for node in self.nodes:
+            store.create("nodes", copy.deepcopy(node))
+        for p in self.holders:
+            store.create("pods", copy.deepcopy(p))
+        return store
+
+    def add(self, store, batch):
+        for p in self.batches[batch]:
+            store.create("pods", copy.deepcopy(p))
+
+
+def store_sched(mods, world, store, clock, **kw):
+    """A card Scheduler of phase 19: the store breaker's cooldown
+    STORE_COOLDOWN_S, its jitter and the reconciler's pinned at 0.5 (the
+    probe exactly trip + cooldown; the reconciler's real sleeps 0.05 s
+    and 0.1 s)."""
+    sched = mods[5](store, wave_size=WAVE, caps=world.caps, device="cuda",
+                    clock=clock, store_breaker_cooldown=STORE_COOLDOWN_S,
+                    **kw)
+    sched.storehealth.jitter = lambda: 0.5
+    sched.reconciler.jitter = lambda: 0.5
+    return sched
+
+
+def bind_counter(store_mod, store):
+    """Counts each pod's binds (MODIFIED events that set nodeName)."""
+    binds = {}
+
+    def on_pod(ev):
+        if ev.type == store_mod.MODIFIED and ev.obj.spec.node_name and not (
+                ev.old is not None and ev.old.spec.node_name):
+            binds[ev.obj.metadata.name] = binds.get(ev.obj.metadata.name,
+                                                    0) + 1
+
+    store.watch("pods", on_pod)
+    return binds
+
+
+class Timer:
+    """Wall seconds spent in a wrapped callable."""
+
+    def __init__(self, fn):
+        self.fn, self.s, self.calls = fn, 0.0, 0
+
+    def __call__(self, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t
+            self.calls += 1
+
+
+def journal_bytes(journal) -> int:
+    return sum(Path(p).stat().st_size for p in journal._segments())
+
+
+def clean_run(torch, mods, world):
+    """The fault-free run: the first batch drained, then the second.
+    Returns (bindings, seen)."""
+    store = world.store()
+    sched = store_sched(mods, world, store, VirtualClock())
+    seen = {}
+    for k in (0, 1):
+        world.add(store, k)
+        t0 = time.monotonic()
+        seen[f"placed{k}"] = sched.schedule_pending()
+        torch.cuda.synchronize()
+        seen[f"s{k}"] = time.monotonic() - t0
+    if sched.storehealth.trips or sched.spool_count():
+        fail("store: the fault-free run tripped the store breaker")
+    check_bindings(mods[0], store)
+    return bindings(store), seen
+
+
+def outage_run(torch, mods, world, faultpoints, path, crash):
+    """Phase 19 (a), and (b)'s first process: the first batch drained with
+    the store up; store.outage armed (raise, unbounded) and the second
+    batch drained: every bind spools, its intent journaled at `path`.
+    crash: the scheduler is abandoned there, spool and all (its watches
+    dropped, no close, no drain), and the store stays dark. Otherwise
+    disarmed, the clock moved past the probe deadline and one run_once
+    drains the spool. Returns (store, the bind counts, the scheduler,
+    what was seen)."""
+    store_mod = mods[7]
+    store = world.store()
+    binds = bind_counter(store_mod, store)
+    clock = VirtualClock()
+    n_watch = len(store._watchers)
+    sched = store_sched(mods, world, store, clock, bind_journal_path=path,
+                        bind_journal_max_bytes=STORE_JOURNAL_BYTES)
+    watches = store._watchers[n_watch:]
+    states = [("start", sched.storehealth.state)]
+    world.add(store, 0)
+    t0 = time.monotonic()
+    placed0 = sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen = {"s0": time.monotonic() - t0, "placed0": placed0}
+    states.append(("first batch", sched.storehealth.state))
+    spool = sched._spool_bind = Timer(sched._spool_bind)
+    append = sched.journal.append_intent = Timer(sched.journal.append_intent)
+    reconcile = sched.reconciler.reconcile = Timer(sched.reconciler.reconcile)
+    hits0 = faultpoints.hits("store.outage")
+    faultpoints.activate("store.outage", "raise", times=10 ** 9)
+    world.add(store, 1)
+    t0 = time.monotonic()
+    seen["placed1"] = sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen["s1"] = time.monotonic() - t0
+    states.append(("outage", sched.storehealth.state))
+    seen.update(spool_s=spool.s, append_s=append.s, appends=append.calls,
+                reconcile_s=reconcile.s, reconciles=reconcile.calls,
+                spooled=sched.spool_count(),
+                journal_bytes=journal_bytes(sched.journal),
+                rotations=sched.journal.rotations,
+                hits=faultpoints.hits("store.outage") - hits0,
+                binds_spooled=int(sched.metrics.binds_spooled.value),
+                retry_in=sched.storehealth.retry_at - clock.t)
+    if (seen["spooled"] != STORE_PODS or seen["placed1"] != STORE_PODS
+            or sched.storehealth.state != "disconnected"
+            or seen["binds_spooled"] != STORE_PODS
+            or sched.storehealth.trips != 1):
+        fail(f"store: the outage did not spool every bind: {seen}, breaker "
+             f"{sched.storehealth.state} with {sched.storehealth.trips} trips")
+    # the first bind: three POSTs and its truth GET; then none
+    if seen["hits"] != 4:
+        fail(f"store: store.outage hit {seen['hits']} times, not 3 + 1")
+    if any(n != 1 for n in binds.values()) or len(binds) != STORE_PODS:
+        fail(f"store: {len(binds)} pods bound before the outage's drain")
+    seen["states"] = states
+    if crash:
+        for _, fn in watches:
+            store.unwatch(fn)
+        return store, binds, sched, seen
+    faultpoints.deactivate("store.outage")
+    clock.t += STORE_COOLDOWN_S + 1.0
+    resolve = sched.journal.resolve = Timer(sched.journal.resolve)
+    t0 = time.monotonic()
+    sched.run_once()
+    torch.cuda.synchronize()
+    seen.update(drain_s=time.monotonic() - t0, resolve_s=resolve.s,
+                resolves=resolve.calls)
+    states.append(("healed", sched.storehealth.state))
+    if (sched.spool_count() or sched.journal.unresolved()
+            or sched.cache.assumed_pods()
+            or sched.storehealth.state != "connected"):
+        fail(f"store: (a) after the heal: spool {sched.spool_count()}, "
+             f"{len(sched.journal.unresolved())} unresolved, "
+             f"{len(sched.cache.assumed_pods())} assumed, breaker "
+             f"{sched.storehealth.state}")
+    return store, binds, sched, seen
+
+
+def replay_run(torch, mods, world, faultpoints, path, clean):
+    """Phase 19 (b): outage_run's process abandoned with its spool; a
+    fresh Scheduler over the same store and journal, the store still
+    dark: its construction replays every intent (timed alone), each
+    re-spooled under its seq; healed, one run_once drains them."""
+    sched_mod = mods[4]
+    store, binds, old, seen = outage_run(torch, mods, world, faultpoints,
+                                         path, crash=True)
+    seqs = [e[4] for e in old._spool]
+    if old.journal.rotations != 1:
+        fail(f"store: (b) the journal rotated {old.journal.rotations} times "
+             f"over {STORE_PODS} intents, not once")
+    replay = Timer(sched_mod.Scheduler.recover_from_journal)
+    sched_mod.Scheduler.recover_from_journal = (
+        lambda self: replay(self))
+    clock = VirtualClock()
+    t0 = time.monotonic()
+    try:
+        fresh = store_sched(mods, world, store, clock, bind_journal_path=path,
+                            bind_journal_max_bytes=STORE_JOURNAL_BYTES)
+    finally:
+        sched_mod.Scheduler.recover_from_journal = replay.fn
+    seen.update(construct_s=time.monotonic() - t0, replay_s=replay.s,
+                respooled=fresh.spool_count(),
+                state_replayed=fresh.storehealth.state)
+    if [e[4] for e in fresh._spool] != seqs or fresh.queue.pending_count():
+        fail(f"store: (b) the replay re-spooled {fresh.spool_count()} of "
+             f"{len(seqs)} intents (seqs kept: "
+             f"{[e[4] for e in fresh._spool] == seqs}), "
+             f"{fresh.queue.pending_count()} pods left pending")
+    faultpoints.deactivate("store.outage")
+    clock.t += STORE_COOLDOWN_S + 1.0
+    resolve = fresh.journal.resolve = Timer(fresh.journal.resolve)
+    t0 = time.monotonic()
+    fresh.run_once()
+    torch.cuda.synchronize()
+    seen.update(drain_s=time.monotonic() - t0, resolve_s=resolve.s,
+                resolves=resolve.calls)
+    if (fresh.spool_count() or fresh.journal.unresolved()
+            or fresh.cache.assumed_pods()
+            or fresh.storehealth.state != "connected"):
+        fail(f"store: (b) after the heal: spool {fresh.spool_count()}, "
+             f"{len(fresh.journal.unresolved())} unresolved, "
+             f"{len(fresh.cache.assumed_pods())} assumed, breaker "
+             f"{fresh.storehealth.state}")
+    twice = sorted(k for k, n in binds.items() if n != 1)
+    if twice or len(binds) != 2 * STORE_PODS:
+        fail(f"store: (b) {len(binds)} pods bound, {len(twice)} of them "
+             f"more than once, e.g. {twice[:5]}")
+    got = bindings(store)
+    if got != clean:
+        diff = [k for k in clean if clean[k] != got.get(k)]
+        fail(f"store: (b) bindings differ from the fault-free run's for "
+             f"{len(diff)} pods, e.g. {diff[:5]}")
+    check_bindings(mods[0], store)
+    return seen
+
+
+def dormant_run(torch, mods, world, clean):
+    """Phase 19 (c): the first batch drained, enter_dormant, the second
+    batch created: run_once and schedule_pending place nothing;
+    recover_leadership (its full scrubber.rebuild at FULL_NODES nodes
+    timed), then the second batch drains to the fault-free run's
+    bindings."""
+    store = world.store()
+    sched = store_sched(mods, world, store, VirtualClock())
+    world.add(store, 0)
+    sched.schedule_pending()
+    sched.enter_dormant()
+    world.add(store, 1)
+    idle = (sched.run_once(), sched.schedule_pending())
+    if idle != (0, 0) or sched.queue.active_count() != STORE_PODS:
+        fail(f"store: (c) placed {idle} while dormant, "
+             f"{sched.queue.active_count()} active")
+    t0 = time.monotonic()
+    stats = sched.recover_leadership()
+    torch.cuda.synchronize()
+    seen = {"recover_s": time.monotonic() - t0, "stats": stats}
+    t0 = time.monotonic()
+    seen["placed"] = sched.schedule_pending()
+    torch.cuda.synchronize()
+    seen["s1"] = time.monotonic() - t0
+    got = bindings(store)
+    if got != clean or sched.dormant:
+        diff = [k for k in clean if clean[k] != got.get(k)]
+        fail(f"store: (c) bindings after the dormant spell differ from the "
+             f"fault-free run's for {len(diff)} pods, e.g. {diff[:5]}")
+    return seen
+
+
+def hold_run(torch, mods, world, faultpoints, path):
+    """Phase 19 (d): spool_watermark STORE_WATERMARK with shed_watermark
+    STORM_WATERMARK and the store dark: STORE_WATERMARK priority-0 pods
+    spool; STORE_HELD more are held in the shed area; STORE_HIGH pods at
+    HIGH_PRIORITY_BAND still schedule and spool; healed, one wave a tick
+    until nothing is pending or spooled: every pod bound."""
+    api = mods[0]
+    from kubernetes_tpu_torch.sched.queue import HIGH_PRIORITY_BAND
+
+    store = world.store()
+    clock = VirtualClock()
+    sched = store_sched(mods, world, store, clock, bind_journal_path=path,
+                        spool_watermark=STORE_WATERMARK,
+                        shed_watermark=STORM_WATERMARK,
+                        shed_age_s=STORM_AGE_S)
+    faultpoints.activate("store.outage", "raise", times=10 ** 9)
+    add_singles(api, store, "low", STORE_WATERMARK, "100m", 0)
+    sched.schedule_pending()
+    seen = {"spool": sched.spool_count(), "held_on": sched._admissions_held()}
+    add_singles(api, store, "late", STORE_HELD, "100m", 0)
+    seen["shed"] = sched.queue.shed_count()
+    add_singles(api, store, "high", STORE_HIGH, "100m", HIGH_PRIORITY_BAND)
+    seen["high_placed"] = sched.schedule_pending()
+    seen["spool_high"] = sched.spool_count()
+    seen["shed_high"] = sched.queue.shed_count()
+    want = {"spool": STORE_WATERMARK, "held_on": True, "shed": STORE_HELD,
+            "high_placed": STORE_HIGH,
+            "spool_high": STORE_WATERMARK + STORE_HIGH,
+            "shed_high": STORE_HELD}
+    if seen != want:
+        fail(f"store: (d) the admission hold: {seen}, want {want}")
+    faultpoints.deactivate("store.outage")
+    clock.t += STORE_COOLDOWN_S + 1.0
+    t0 = time.monotonic()
+    ticks = 0
+    while (sched.pending_count() or sched.spool_count()) and ticks < 20:
+        sched.run_once()
+        clock.t += 1.0
+        ticks += 1
+    torch.cuda.synchronize()
+    seen.update(heal_s=time.monotonic() - t0, ticks=ticks)
+    n = STORE_WATERMARK + STORE_HELD + STORE_HIGH
+    if (sched.pending_count() or sched.spool_count()
+            or sched.queue.shed_count() or sched.journal.unresolved()
+            or check_bindings(api, store) != n + world.n_bound):
+        fail(f"store: (d) after the heal: {sched.pending_count()} pending, "
+             f"{sched.spool_count()} spooled, {sched.queue.shed_count()} "
+             f"shed, {len(sched.journal.unresolved())} unresolved")
+    return seen
+
+
+def store_phase(torch, mods, enc, bucket_size, faultpoints):
+    """Phase 19: the store plane at FULL_NODES nodes: (a) an outage against
+    a fault-free run, (b) a crash and a restart that replays the journal,
+    (c) a dormant spell, (d) the admission hold."""
+    import tempfile
+
+    tp, pre = mods[1], mods[2]
+    t_phase = time.monotonic()
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    faultpoints.reset()
+    world = OutageWorld(mods[0], mods[7], enc, bucket_size, SEED + 191)
+    log(f"[store] the world: {FULL_NODES} nodes, {world.n_bound} bound port "
+        f"holders, 2 x {STORE_PODS} density pods; "
+        f"{time.monotonic() - t_phase:.1f} s")
+    clean, cs = clean_run(torch, mods, world)
+    tmp = tempfile.mkdtemp(prefix="store-phase-")
+    try:
+        t0 = time.monotonic()
+        store, binds, sched, a = outage_run(
+            torch, mods, world, faultpoints, f"{tmp}/a.journal", crash=False)
+        got = bindings(store)
+        if got != clean:
+            diff = [k for k in clean if clean[k] != got.get(k)]
+            fail(f"store: (a) bindings differ from the fault-free run's "
+                 f"for {len(diff)} pods, e.g. {diff[:5]}")
+        if any(n != 1 for n in binds.values()):
+            fail("store: (a) a pod was bound twice")
+        check_bindings(mods[0], store)
+        del store, sched
+        rest = a["spool_s"] - a["append_s"]
+        log(f"[store] (a) {STORE_PODS} pods with the store up "
+            f"({STORE_PODS / a['s0']:.1f} pods/s; fault-free "
+            f"{STORE_PODS / cs['s0']:.1f}), then {STORE_PODS} with "
+            f"store.outage armed: {STORE_PODS / a['s1']:.1f} pods/s "
+            f"(fault-free {STORE_PODS / cs['s1']:.1f}), every bind spooled; "
+            f"host seconds spooling {a['spool_s']:.4f} = journal append with "
+            f"fsync {a['append_s']:.4f} ({a['appends']} appends, "
+            f"{1e3 * a['append_s'] / max(a['appends'], 1):.4f} ms each) + "
+            f"the rest {rest:.4f}; the reconciler {a['reconcile_s']:.4f} s "
+            f"({a['reconciles']} call: the tripping bind, its real sleeps "
+            f"included); journal {a['journal_bytes']} B "
+            f"({a['rotations']} rotation); store.outage hits {a['hits']} "
+            f"(3 POSTs and the truth GET of the first bind, then none); "
+            f"the heal's drain of the spool {a['drain_s']:.4f} s, of it "
+            f"{a['resolve_s']:.4f} s in {a['resolves']} fsync'd resolved "
+            f"records; breaker "
+            + ", ".join(f"{k} {v}" for k, v in a["states"])
+            + "; bindings == the fault-free run's, no pod bound twice; "
+            f"{time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        b = replay_run(torch, mods, world, faultpoints, f"{tmp}/b.journal",
+                       clean)
+        log(f"[store] (b) the process abandoned with {b['spooled']} spooled "
+            f"intents ({b['journal_bytes']} B of journal, {b['rotations']} "
+            f"rotation); a fresh Scheduler over the same store and journal, "
+            f"the store still dark: constructed in {b['construct_s']:.3f} s, "
+            f"the replay of {b['respooled']} intents {b['replay_s']:.4f} s "
+            f"(breaker {b['state_replayed']}), every intent re-spooled "
+            f"under its seq; healed, the drain {b['drain_s']:.4f} s (of it "
+            f"{b['resolve_s']:.4f} s in {b['resolves']} resolved records); "
+            f"bindings == the fault-free run's, every pod bound once, "
+            f"nothing assumed or unresolved; {time.monotonic() - t0:.1f} s")
+    finally:
+        faultpoints.reset()
+        for p in Path(tmp).iterdir():
+            p.unlink()
+        Path(tmp).rmdir()
+    t0 = time.monotonic()
+    c = dormant_run(torch, mods, world, clean)
+    log(f"[store] (c) dormant after the first batch: run_once and "
+        f"schedule_pending placed 0; recover_leadership {c['recover_s']:.3f} "
+        f"s ({c['stats']}, the full rebuild at {FULL_NODES} nodes); the "
+        f"second batch {STORE_PODS / c['s1']:.1f} pods/s; bindings == the "
+        f"fault-free run's; {time.monotonic() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="store-phase-")
+    t0 = time.monotonic()
+    try:
+        d = hold_run(torch, mods, world, faultpoints, f"{tmp}/d.journal")
+    finally:
+        faultpoints.reset()
+        for p in Path(tmp).iterdir():
+            p.unlink()
+        Path(tmp).rmdir()
+    log(f"[store] (d) spool_watermark {STORE_WATERMARK}, shed_watermark "
+        f"{STORM_WATERMARK}, the store dark: {d['spool']} pods spooled, "
+        f"{d['shed']} arrivals held in the shed area, {d['high_placed']} "
+        f"high pods scheduled and spooled past the hold; healed, "
+        f"{d['ticks']} ticks of one wave in {d['heal_s']:.3f} s bound "
+        f"everything; {time.monotonic() - t0:.1f} s")
+    launches = tp.taint_ports_masks.launches
+    whatif_launches = pre.preempt_whatif.launches
+    if launches < 1:
+        fail("store: the taint/port kernel never launched")
+    log(f"[store] taint/port launches {launches}, what-if launches "
+        f"{whatif_launches}; phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "whatif_launches": whatif_launches}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -4718,7 +5195,8 @@ def main() -> None:
     from kubernetes_tpu_torch.utils.metrics import Metrics
 
     # every Scheduler the phases build, held to no use of the fault
-    # ladder after each healthy phase (4-16)
+    # ladder after each healthy phase (4-16), and to no store trip and an
+    # empty spool after each of phases 4-18
     ladder = Ladder(Scheduler)
     Scheduler = ladder
     mods = (api, tp, pre, kernel_mod, sched_mod, Scheduler)
@@ -5115,18 +5593,26 @@ def main() -> None:
     faults = faults_phase(torch, phase_mods, enc, bucket_size, lbl, ctl,
                           hostwave, faultpoints, featurize_mod)
     ladder.check_capacity("faults")
+    ladder.check_store("faults")
     t_faults = time.monotonic() - t0
 
     # 18. the memory plane and load shedding
     t0 = time.monotonic()
     memory = memory_phase(torch, phase_mods, enc, bucket_size, faultpoints)
-    ladder.made = []
+    ladder.check_store("memory")
     t_memory = time.monotonic() - t0
+
+    # 19. the store plane
+    t0 = time.monotonic()
+    store_out = store_phase(torch, phase_mods, enc, bucket_size, faultpoints)
+    ladder.check("store_outage", store=False)
+    t_store = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
-              "faults": faults, "memory": memory}
+              "faults": faults, "memory": memory,
+              "store_outage": store_out}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -5136,7 +5622,8 @@ def main() -> None:
         + f"; phases multikey, trickle, paced and preempt_host "
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
-        f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; total "
+        f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
+        f"{t_store:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

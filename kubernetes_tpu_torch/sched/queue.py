@@ -46,7 +46,8 @@ are not in the heap at all — so a storm of low-priority pods can never
 starve a system/high-priority wave. Gang members are never shed (their
 admission gate is the gang waiting area; shedding a member would
 deadlock the gang against its own queue). `hold_admissions`, a
-predicate the store plane wires (None until then), parks every
+predicate the scheduler's store plane wires (`_admissions_held`: the
+store DISCONNECTED with the bind spool at its watermark), parks every
 sheddable arrival in the shed area regardless of the watermark.
 
 The `queue.shed` fault point (drop mode) forces the shed decision for
@@ -154,8 +155,8 @@ class SchedulingQueue:
         self.on_shed: Optional[Callable[[str], None]] = None
         # admission hold: when this predicate returns True, every
         # sheddable arrival parks in the shed area regardless of the
-        # watermark (the store plane's outage hold wires it; None until
-        # then). Same exemptions and aging as overload shedding
+        # watermark (the scheduler wires its store-outage hold here).
+        # Same exemptions and aging as overload shedding
         self.hold_admissions: Optional[Callable[[], bool]] = None
         self._lock = threading.Lock()
         self._heap: List = []  # (-priority, seq, uid)
@@ -719,6 +720,24 @@ class SchedulingQueue:
                 heapq.heappush(self._heap, self._key(new))
                 return
         self.add(new)
+
+    def remove_if_pending(self, uid: str):
+        """Drop a pod from the pending structures WITHOUT touching gang
+        membership or nomination state (kubernetes_tpu/sched/queue.py:
+        844) — the lost-bind-confirmation recovery path: the pod turned
+        out to be BOUND (API truth), so it must not be scheduled again,
+        but as a live member it still counts toward its gang. Stale heap
+        keys are lazily skipped by the pop path, as with delete()."""
+        with self._lock:
+            self._items.pop(uid, None)
+            self._unschedulable.pop(uid, None)
+            self._backoff.pop(uid, None)
+            self._backoff_until.pop(uid, None)
+            self._shed.pop(uid, None)
+            self._shed_at.pop(uid, None)
+            self._shed_exempt.pop(uid, None)
+            self._quarantine.pop(uid, None)
+            self._quarantine_until.pop(uid, None)
 
     def delete(self, pod: api.Pod):
         with self._lock:

@@ -97,10 +97,17 @@ are candidates, scored in shadow. `_weights_kw()` resolves the
 `shadow_exact_interval=N` replays the first wave of every Nth traced
 round under each candidate (`_shadow_exact_sample`).
 
-A bind the store refuses is resolved against the store's copy of the
-pod, as the JAX reconciler resolves it: bound there (by another writer:
+Every bind goes through the bind reconciler (sched/reconciler.py, as
+kubernetes_tpu/sched/scheduler.py:3991-4103 sends it): a transport error
+of the POST is retried `bind_max_attempts` times on a jittered ladder
+(`bind_retries_total`), a refusal (KeyError, Conflict) is not, and then
+the pod is read from the store (`_pod_truth`): bound there (the POST
+landed and only its answer was lost, or another writer bound it:
 CONFIRMED) adopts that binding; unbound (ORPHANED) forgets the
 assumption and parks the pod with backoff; gone (GONE) forgets it.
+Binds run inline on the scheduling thread: the JAX scheduler's bind
+pool serves only a store that is `async_bind_safe`, which the
+in-process ObjectStore is not.
 
 The cluster autoscaler (controllers/clusterautoscaler.py) reads the
 unschedulable map through `pending_unschedulable` and featurizes its
@@ -183,12 +190,43 @@ age back after `shed_age_s`, and drain oldest first once the working
 depth is back under the watermark (`shed_total{class}`,
 `pending_pods{queue="shed"}`, `queue_class_pods{class}`).
 
-Left out with no stand-in: the mesh and its reform, the store-path
-breaker, the bind journal and the reconciler's retries, the queue's
-admission hold (`hold_admissions` stays None until the store plane
-wires it), and extenders (a profile with extenders raises
-NotImplementedError); the series of that machinery (store, mesh, spool)
-stay at zero in `metrics`.
+The store plane (kubernetes_tpu/sched/scheduler.py:310-346, :750-785,
+:3964-4480) is the JAX scheduler's, without a RemoteStore:
+
+  * the store-path breaker (sched/storehealth.py `StorePathBreaker`,
+    `storehealth`) counts consecutive transport failures of bind POSTs
+    and truth GETs (`store_errors_total{op}`); `store_breaker_threshold`
+    of them trip it DISCONNECTED (`scheduler_store_breaker_state`,
+    `..._trips_total`), and after a jittered `store_breaker_cooldown`
+    one store op is let through as the probe;
+  * while it is dark, scheduling goes on against the cache: a bind is
+    not attempted, the pod stays assumed (no `finish_binding`, so the
+    assume TTL never expires it) and its intent spools in arrival order
+    (`_spool_bind`, `scheduler_binds_spooled_total`,
+    `pending_pods{queue="spool"}`), first appended with an fsync to the
+    durable journal (state/journal.py `BindJournal`) when
+    `bind_journal_path` is set; a bind whose retries AND truth GET both
+    failed spools the same way;
+  * housekeeping drains the spool head first through the reconciler
+    once the store answers again (`_drain_spool`), stopping at the first
+    intent still dark;
+  * construction replays the journal's unresolved intents after the
+    watches' backfill (`recover_from_journal`): a landed bind is
+    adopted, a pending pod re-assumed and re-spooled under its seq, a
+    deleted one resolved GONE;
+  * with `spool_watermark` > 0 and the spool at it while DISCONNECTED,
+    the queue holds sheddable arrivals in its shed area
+    (`queue.hold_admissions`, `_admissions_held`);
+  * `enter_dormant` stops the rounds and `recover_leadership` settles
+    every assumed pod against the store, replays the journal and
+    rebuilds the device mirror; `close()` and `wait_for_binds()` settle
+    the binds (inline here, so nothing is in flight).
+
+Left out with no stand-in: the mesh and its reform, the RemoteStore path
+(the REST client, the reflector's LIST feed to the store breaker, the
+bind pool, leader election, `/debug/store`), and extenders (a profile
+with extenders raises NotImplementedError); the mesh series stay at
+zero in `metrics`.
 """
 
 from __future__ import annotations
@@ -220,6 +258,7 @@ from ..plugins.registry import Profile, default_profile
 from ..runtime.store import ADDED, DELETED, MODIFIED, Conflict, Event, ObjectStore
 from ..state.cache import SchedulerCache
 from ..state.featurize import PodFeaturizeError, PodFeaturizer
+from ..state.journal import BindJournal
 from ..state.scrubber import SnapshotScrubber
 from ..state.snapshot import Snapshot
 from ..utils import faultpoints, tracing
@@ -239,6 +278,10 @@ from .preemption import (GangGuard, PreemptionResult,
                          pod_eligible_to_preempt_others, pick_one_node,
                          preempt, select_victims_on_node)
 from .queue import HIGH_PRIORITY_BAND, SchedulingQueue
+from .reconciler import BOUND, CONFIRMED, GONE, ORPHANED, BindReconciler
+from .storehealth import DISCONNECTED as STORE_DISCONNECTED
+from .storehealth import STATE_CODES as STORE_STATE_CODES
+from .storehealth import StorePathBreaker
 from .volume_binder import VolumeBinder
 from .weights import WeightBook, gate_weights
 
@@ -253,11 +296,6 @@ PIPELINE_MAX_WAVES_IPA = 64
 # exact victim validations a failed pod gets (its top-ranked nodes)
 PREEMPT_LEVELS = 8
 PREEMPT_HOST_CANDIDATES = 8
-# outcomes of a bind (kubernetes_tpu/sched/reconciler.py:46-49)
-BOUND = "bound"  # the POST succeeded
-CONFIRMED = "confirmed"  # refused, but the store shows the pod bound
-ORPHANED = "orphaned"  # refused, and the store shows it unbound
-GONE = "gone"  # refused, and the pod is gone from the store
 
 
 def pipeline_bucket(n_waves: int, lo: int = 4,
@@ -340,7 +378,12 @@ class Scheduler:
     hbm_budget_bytes, scrub_interval and compact_interval configure the
     memory plane, shed_watermark, shed_priority_threshold and shed_age_s
     the queue's load shedding, as the JAX scheduler's arguments of the
-    same names do (0 / None: off)."""
+    same names do (0 / None: off). store_breaker_threshold,
+    store_breaker_cooldown, bind_journal_path, bind_journal_max_bytes
+    (-1: the journal's default cap), spool_watermark (0: no admission
+    hold) and bind_max_attempts configure the store plane, with the JAX
+    scheduler's defaults; the reconciler's `sleep` and `jitter` and the
+    store breaker's `jitter` are attributes a test may pin."""
 
     # idle backoff entries are swept on this cadence (2x the backoff
     # ceiling matches the reference Gc()'s retention window)
@@ -361,7 +404,13 @@ class Scheduler:
                  compact_interval: Optional[float] = None,
                  shed_watermark: int = 0,
                  shed_priority_threshold: Optional[int] = None,
-                 shed_age_s: float = 30.0):
+                 shed_age_s: float = 30.0,
+                 store_breaker_threshold: int = 3,
+                 store_breaker_cooldown: float = 30.0,
+                 bind_journal_path: Optional[str] = None,
+                 bind_journal_max_bytes: int = -1,
+                 spool_watermark: int = 0,
+                 bind_max_attempts: int = 3):
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -477,6 +526,51 @@ class Scheduler:
             on_trip=lambda: self.metrics.device_path_trips.inc(),
             on_state=self._breaker_state_changed)
         self.metrics.breaker_state.set(STATE_CODES[self.breaker.state])
+        # an assumed-pod expiry means a bind confirmation was lost
+        self.cache.on_expired = (
+            lambda pod: self.metrics.cache_assumed_expired.inc())
+        # the bind reconciler: jittered retries of the bind POST, then
+        # the store's copy of the pod resolves what the POST did
+        # (sched/reconciler.py); its per-attempt callbacks feed the
+        # store-path breaker
+        self.reconciler = BindReconciler(
+            self._pod_truth, metrics=self.metrics,
+            max_attempts=bind_max_attempts,
+            on_transport_error=self._store_bind_failed,
+            on_transport_ok=self._store_bind_ok)
+        # dormant = leadership lost: rounds stop, the watches stay warm;
+        # recover_leadership() settles the assumed pods and resumes
+        self._dormant = False
+        # the store-path breaker (sched/storehealth.py): consecutive
+        # transport failures of bind POSTs and truth GETs trip
+        # disconnected-mode scheduling — rounds go on against the cache,
+        # binds spool into the journal, and the head intent's own POST is
+        # the jittered half-open probe
+        self.storehealth = StorePathBreaker(
+            threshold=store_breaker_threshold,
+            cooldown=store_breaker_cooldown, clock=clock,
+            on_trip=lambda: self.metrics.store_breaker_trips.inc(),
+            on_state=self._store_state_changed,
+            on_reconnect=self._store_reconnected)
+        self.metrics.store_breaker_state.set(
+            STORE_STATE_CODES[self.storehealth.state])
+        # the disconnected-mode bind spool: arrival-ordered
+        # (pod, bound, node_name, vol_rollback, journal_seq) intents whose
+        # POST waits for the store to heal. The pod STAYS assumed
+        # (capacity held, so post-heal placements equal an outage-free
+        # run's) and the journal holds the durable copy for a restart's
+        # replay. Guarded by _mu.
+        self._spool: List[tuple] = []
+        self._spool_uids: set = set()
+        self._spool_drain_due = False
+        self.spool_watermark = int(spool_watermark)
+        self.journal = (BindJournal(bind_journal_path,
+                                    max_bytes=bind_journal_max_bytes)
+                        if bind_journal_path else None)
+        # admission hold: DISCONNECTED with the spool at its watermark,
+        # sheddable arrivals park in the shed area instead of growing the
+        # assumed capacity
+        self.queue.hold_admissions = self._admissions_held
         # failed dispatches are attributed to the active device
         # (scheduling_errors{stage=dispatch, device=...})
         set_devices([self.device])
@@ -504,6 +598,10 @@ class Scheduler:
         # halve it (floor MIN_ADAPTIVE_WAVE), fast rounds grow it back
         self._wave_cap = wave_size
         self._wire()
+        # after the watches' backfill (which re-queues the Pending pods a
+        # prior process had claimed), so the replay can retire
+        # journal-claimed pods from the queue before the first round
+        self.recover_from_journal()
 
     @property
     def disable_preemption(self) -> bool:
@@ -723,6 +821,71 @@ class Scheduler:
             rec.event("breaker", state=state,
                       failures=self.breaker.failures)
 
+    # -- the store plane's hooks (kubernetes_tpu/sched/scheduler.py:720-785)
+
+    def _store_state_changed(self, state: str) -> None:
+        """Every store-breaker transition lands on the state gauge
+        (0=connected, 1=degraded, 2=disconnected) and, when tracing, as a
+        span event."""
+        self.metrics.store_breaker_state.set(STORE_STATE_CODES[state])
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("store_breaker", state=state,
+                      failures=self.storehealth.failures,
+                      spool=len(self._spool))
+
+    def _store_reconnected(self) -> None:
+        """record_success fires this from whichever call saw the heal;
+        draining inline there could re-enter the reconciler from its own
+        callback, so only flag it: the next housekeeping pass drains."""
+        self._spool_drain_due = True
+
+    def _store_bind_failed(self) -> None:
+        # reconciler on_transport_error: one failed bind POST attempt
+        self.metrics.store_errors.labels(op="bind").inc()
+        self.storehealth.record_failure()
+
+    def _store_bind_ok(self) -> None:
+        self.storehealth.record_success()
+
+    def _admissions_held(self) -> bool:
+        """The queue's hold_admissions: DISCONNECTED with the spool at
+        its watermark, sheddable arrivals park in the shed area until the
+        store heals (system and high classes are never held)."""
+        return (self.spool_watermark > 0
+                and self.storehealth.state == STORE_DISCONNECTED
+                and len(self._spool) >= self.spool_watermark)
+
+    def spool_count(self) -> int:
+        with self._mu:
+            return len(self._spool)
+
+    def spool_uids(self) -> frozenset:
+        """UIDs spooled now: the assumed-but-unbound pods an outage
+        leaves legitimately."""
+        with self._mu:
+            return frozenset(self._spool_uids)
+
+    def store_debug(self) -> Dict[str, object]:
+        """The JAX scheduler's /debug/store payload: the breaker's
+        snapshot, the spool, the journal's stats and the store errors by
+        op."""
+        out = self.storehealth.snapshot()
+        with self._mu:
+            out["spool"] = {
+                "depth": len(self._spool),
+                "watermark": self.spool_watermark,
+                "oldest_seq": self._spool[0][4] if self._spool else None,
+                "drain_due": self._spool_drain_due,
+            }
+        out["journal"] = (self.journal.stats()
+                          if self.journal is not None else None)
+        out["errors"] = {
+            op: self.metrics.store_errors.value(op=op)
+            for op in ("get", "list", "bind", "create", "update",
+                       "delete", "watch")}
+        return out
+
     def _dispatch_abandoned(self, program: str, deadline: float) -> None:
         """Watchdog abandonment hook: the overrun counter's dispatch
         stage, a span event and a log line; the dispatch itself raises
@@ -774,9 +937,10 @@ class Scheduler:
     def export_queue_gauges(self) -> None:
         """Refresh scheduler_pending_pods{queue=...} for the areas the
         port's queue has (kubernetes_tpu/sched/scheduler.py:1315-1370):
-        active, backoff, unschedulable, gang_waiting, shed and
-        quarantine; the depth banded by priority class (a 1 s cadence:
-        the class walk is O(total pending) under the queue lock); and
+        active, backoff, unschedulable, gang_waiting, shed, quarantine
+        and spool (the store plane's bind intents); the depth banded by
+        priority class (a 1 s cadence: the class walk is O(total
+        pending) under the queue lock); and
         the memory plane's gauges: the device mirror's bytes, the budget
         headroom (with a budget set), the vocabulary sizes and the
         upload bytes since the last export. Called from housekeeping and
@@ -788,6 +952,7 @@ class Scheduler:
         g.labels(queue="gang_waiting").set(self.queue.gang_waiting_count())
         g.labels(queue="shed").set(self.queue.shed_count())
         g.labels(queue="quarantine").set(self.queue.quarantine_count())
+        g.labels(queue="spool").set(self.spool_count())
         now = self.clock()
         if now >= self._next_class_export:
             self._next_class_export = now + 1.0
@@ -1163,7 +1328,7 @@ class Scheduler:
         # only hand the backlog back (kubernetes_tpu/sched/scheduler.py:
         # 1239-1245)
         allow_pipeline = not self.profile.host_scores
-        while self.queue.active_count() > 0:
+        while not self._dormant and self.queue.active_count() > 0:
             if allow_pipeline:
                 pre = self.pipeline_preemptions
                 pre_poison = self.poison_convictions
@@ -1182,11 +1347,13 @@ class Scheduler:
                 # would re-pop the whole backlog each time)
                 allow_pipeline = False
             placed += self.run_once()
+        self.wait_for_binds()
         self.export_queue_gauges()
         return placed
 
     def _housekeep(self) -> None:
-        """Expire assumed pods, sweep idle backoff entries (PodBackoff.gc,
+        """Expire assumed pods, drain the bind spool when the store path
+        allows, sweep idle backoff entries (PodBackoff.gc,
         reference backoff_utils.go Gc), refresh the queue gauges, run
         the snapshot scrubber if its signal or cadence fired, and compact
         the snapshot when the budget governor demanded it or the cadence
@@ -1194,6 +1361,14 @@ class Scheduler:
         (kubernetes_tpu/sched/scheduler.py:1272-1310)."""
         with self._mu:
             self.cache.cleanup_expired()
+        # the bind spool: drain it once the store answers again (the
+        # breaker flagged the reconnect), or let its head intent be the
+        # half-open probe once the jittered cooldown has passed (allow()
+        # admits exactly one)
+        if (self._spool
+                and (self.storehealth.state != STORE_DISCONNECTED
+                     or self.storehealth.allow())):
+            self._drain_spool()
         now = self.clock()
         if now >= self._next_backoff_gc:
             self._next_backoff_gc = now + self.BACKOFF_GC_PERIOD
@@ -1213,7 +1388,9 @@ class Scheduler:
 
     def run_once(self) -> int:
         """Schedule one wave through the per-wave path. Returns the pods
-        placed."""
+        placed (none while dormant)."""
+        if self._dormant:
+            return 0
         self._housekeep()
         pods = self.queue.pop_wave(self._wave_cap)
         if not pods:
@@ -3117,7 +3294,7 @@ class Scheduler:
                     vol_rollback()
             return False
         for pod, bound, node_name, vol_rollback in assumed:
-            self._bind(pod, bound, node_name, vol_rollback)
+            self._bind_and_finish(pod, bound, node_name, vol_rollback)
         return True
 
     def _gang_state(self):
@@ -3324,34 +3501,39 @@ class Scheduler:
             return self.volume_binder.bind_pod_volumes(pod, ni.node)
         return True, None
 
-    def _bind(self, pod: api.Pod, bound: api.Pod, node_name: str,
-              vol_rollback=None) -> bool:
-        """The bind POST and its outcome (kubernetes_tpu/sched/
-        scheduler.py:4011-4103). A bind the store refuses (KeyError,
-        Conflict) is resolved against the store's copy of the pod, as the
-        JAX reconciler resolves it after its retries:
+    def _bind_attempt(self, pod: api.Pod, node_name: str):
+        """One bind POST as a closure (kubernetes_tpu/sched/scheduler.py:
+        3964-3989), shared by the live bind and the spool drain, so both
+        go through the same fault seams. The JAX closure's extender
+        `bind_verb` branch is not here: a profile with extenders raises
+        at construction."""
 
-          * CONFIRMED — the pod is bound there (another writer bound it
-            first): the cache adopts that truth, the snapshot row moves
-            to the node truth names, and the claims bound for our node
-            are released if they cannot serve it; no requeue, no park;
-          * ORPHANED — it is unbound: the assumption and the pod's claim
-            bindings roll back and the pod parks with backoff;
-          * GONE — it was deleted: the assumption rolls back.
-
-        A bind that lands (or is confirmed) observes the pod's latency
-        from its first enqueue (the queue's added_at, consumed only
-        here, so a failed bind's requeue keeps the original time).
-        Traced as a `bind` pod span, and a `bind_resolution` event for
-        every outcome but BOUND."""
-        t0 = self.clock()
-        outcome, truth = BOUND, None
-        try:
+        def _attempt():
+            # chaos seam: a raise exercises the retries, then the
+            # resolution against the store's copy
+            faultpoints.fire("bind.post", payload=pod)
+            # the store-path outage seam, once an attempt
+            if faultpoints.fire("store.outage", payload=("bind", pod.uid)):
+                raise ConnectionError("store.outage: bind request dropped")
             self.store.bind(pod, node_name)
-        except (KeyError, Conflict):
-            truth = self.store.get("pods", pod.namespace, pod.metadata.name)
-            outcome = (GONE if truth is None else
-                       CONFIRMED if truth.spec.node_name else ORPHANED)
+
+        return _attempt
+
+    def _bind_and_finish(self, pod: api.Pod, bound: api.Pod,
+                         node_name: str, vol_rollback=None) -> bool:
+        """The bind POST through the reconciler, and its outcome
+        (kubernetes_tpu/sched/scheduler.py:3991-4031). While the store
+        breaker is dark no POST is attempted: the intent spools at once.
+        A bind whose retries and truth GET both failed — the reconciler's
+        (ORPHANED, None) — spools too: that is a store outage, not a
+        placement problem, and forgetting the pod would place it anew
+        after the heal. Traced as a `bind` pod span, and a
+        `bind_resolution` event for every outcome but BOUND."""
+        t0 = self.clock()
+        if not self.storehealth.allow():
+            return self._spool_bind(pod, bound, node_name, vol_rollback)
+        outcome, truth = self.reconciler.reconcile(
+            pod, node_name, self._bind_attempt(pod, node_name))
         rec = tracing.active()
         if rec is not None:
             rec.pod_span(pod.uid, "bind", self.clock() - t0,
@@ -3359,36 +3541,73 @@ class Scheduler:
             if outcome != BOUND:
                 rec.event("bind_resolution", pod=pod.uid, outcome=outcome,
                           node=node_name)
+        if outcome == ORPHANED and truth is None:
+            return self._spool_bind(pod, bound, node_name, vol_rollback)
+        return self._apply_bind_outcome(pod, bound, node_name, vol_rollback,
+                                        outcome, truth, t0)
+
+    def _apply_bind_outcome(self, pod: api.Pod, bound: api.Pod,
+                            node_name: str, vol_rollback,
+                            outcome: str, truth, t0: float) -> bool:
+        """What one reconciled bind does to the cache and the queue
+        (kubernetes_tpu/sched/scheduler.py:4031-4103), shared by the live
+        bind and the spool drain:
+
+          * CONFIRMED — the store shows the pod bound (our POST landed
+            and its answer was lost, or another writer bound it first):
+            the cache adopts that truth, the snapshot row moves to the
+            node truth names, and the claims bound for our node are
+            released if they cannot serve it; no requeue, no park;
+          * ORPHANED — it is unbound: the assumption and the pod's claim
+            bindings roll back and the pod parks with backoff;
+          * GONE — it was deleted: the assumption rolls back.
+
+        A bind that lands (or is confirmed) observes the pod's latency
+        from its first enqueue (the queue's added_at, consumed only
+        here, so a failed bind's requeue keeps the original time)."""
         if outcome == CONFIRMED:
-            # adopt truth instead of rolling back: add_pod confirms the
-            # assumption (and moves it if truth names another node)
-            self.cache.add_pod(truth)
-            if truth.spec.node_name != node_name:
-                # the row written at assume time still charges our node
-                self.snapshot.remove_pod(bound)
+            with self._mu:
+                # add_pod confirms the assumption (and moves it if truth
+                # names another node); a later duplicate confirmation
+                # from the watch is a no-op
+                self.cache.add_pod(truth)
+                if truth.spec.node_name != node_name:
+                    # the row written at assume time still charges our
+                    # node
+                    self.snapshot.remove_pod(bound)
+                    ni = self.cache.node_infos.get(node_name)
+                    if ni is not None:
+                        self.snapshot.refresh_node_resources(ni)
+                    nb = self.cache.node_infos.get(truth.spec.node_name)
+                    if nb is not None:
+                        self.snapshot.refresh_node_resources(nb)
+                        self.snapshot.add_pod(truth)
+                    if vol_rollback is not None and \
+                            not self.volume_binder.volumes_admit_node(
+                                pod, nb.node if nb is not None else None):
+                        # the claims were bound for the node we assumed
+                        vol_rollback()
+        elif outcome in (ORPHANED, GONE):
+            self.metrics.scheduling_errors.labels(stage="bind").inc()
+            with self._mu:
+                try:
+                    self.cache.forget_pod(bound)
+                except KeyError:
+                    # the watch confirmed it meanwhile: the bind landed
+                    return True
                 ni = self.cache.node_infos.get(node_name)
                 if ni is not None:
                     self.snapshot.refresh_node_resources(ni)
-                nb = self.cache.node_infos.get(truth.spec.node_name)
-                if nb is not None:
-                    self.snapshot.refresh_node_resources(nb)
-                    self.snapshot.add_pod(truth)
-                if vol_rollback is not None and \
-                        not self.volume_binder.volumes_admit_node(
-                            pod, nb.node if nb is not None else None):
-                    # the claims were bound for the node we assumed
-                    vol_rollback()
-        elif outcome in (ORPHANED, GONE):
-            self.metrics.scheduling_errors.labels(stage="bind").inc()
-            if not self.cache.is_assumed(bound):
-                return True  # confirmed by the informer: the bind landed
-            self._forget(bound, node_name)
+                self.snapshot.remove_pod(bound)
             if vol_rollback is not None:
                 vol_rollback()
             if outcome == ORPHANED:
-                self._park_with_backoff(truth)
+                # backoff-requeue: a bind that just failed repeatedly
+                # should not re-enter the very next wave at full speed
+                self._park_with_backoff(truth if truth is not None else pod)
             return False
-        self.cache.finish_binding(bound)
+        with self._mu:
+            self.cache.finish_binding(bound)
         self.metrics.binding_latency.observe(self.clock() - t0)
         added = self.queue.added_at.pop(pod.uid, None)
         if added is not None:
@@ -3406,12 +3625,299 @@ class Scheduler:
         """Exact int64 re-verification, the pod's claims bound when the
         VolumeScheduling gate is on, then assume and bind (reference:
         scheduler.go:268 assumeAndBindVolumes, :486 assume -> :491
-        bind)."""
+        bind). True: the pod is placed (bound, confirmed, or spooled
+        while the store is dark)."""
         ni = self.cache.node_infos.get(node_name)
         if ni is None or not ni.fits_exactly(pod):
             return False
         got, vol_rollback = self._bind_volumes(pod, ni)
         if not got:
             return False
-        return self._bind(pod, self._assume(pod, node_name), node_name,
-                          vol_rollback)
+        return self._bind_and_finish(pod, self._assume(pod, node_name),
+                                     node_name, vol_rollback)
+
+    # -- the store plane: the bind spool and the durable intent journal
+    # (kubernetes_tpu/sched/scheduler.py:4108-4293) ------------------------------
+
+    def _spool_bind(self, pod: api.Pod, bound: api.Pod, node_name: str,
+                    vol_rollback=None, seq: Optional[int] = None) -> bool:
+        """Disconnected-mode bind: keep the assumption (capacity stays
+        held, and no finish_binding: the assume TTL cannot expire it),
+        append the intent to the journal, and park the POST in the spool
+        in arrival order. Returns True — the pod IS placed; only the
+        store write waits."""
+        with self._mu:
+            if pod.uid in self._spool_uids:
+                return True
+            if seq is None and self.journal is not None:
+                try:
+                    seq = self.journal.append_intent(bound, node_name)
+                except Exception:
+                    # a full disk or an IO fault: the intent still spools
+                    # in memory (a crash now loses it)
+                    logging.getLogger(__name__).exception(
+                        "bind journal append failed; intent for %s/%s "
+                        "spools in memory only", pod.namespace, pod.name)
+            self._spool.append((pod, bound, node_name, vol_rollback, seq))
+            self._spool_uids.add(pod.uid)
+            depth = len(self._spool)
+        self.metrics.binds_spooled.inc()
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("bind_spooled", pod=pod.uid, node=node_name,
+                      seq=seq if seq is not None else -1, depth=depth)
+        return True
+
+    def _drain_spool(self) -> Dict[str, int]:
+        """Replay the spooled intents head first (arrival order) through
+        the reconciler. Stops at the first intent whose store path is
+        still dark: it stays at the head for the next probe, and the
+        breaker has re-tripped through the per-attempt callbacks. Every
+        resolved intent leaves the spool and is marked resolved in the
+        journal."""
+        stats = {"bound": 0, "confirmed": 0, "orphaned": 0, "gone": 0}
+        while True:
+            with self._mu:
+                if not self._spool:
+                    break
+                entry = self._spool[0]
+            if not self._flush_intent(entry, stats):
+                break
+        self._spool_drain_due = False
+        if any(stats.values()):
+            logging.getLogger(__name__).info(
+                "bind spool drained: %(bound)d bound, %(confirmed)d "
+                "confirmed, %(orphaned)d orphaned+requeued, "
+                "%(gone)d gone", stats)
+        return stats
+
+    def _flush_intent(self, entry, stats) -> bool:
+        """POST one spooled intent and apply its outcome. False: the
+        store is still dark (the entry stays spooled at the head)."""
+        pod, bound, node_name, vol_rollback, seq = entry
+        t0 = self.clock()
+        outcome, truth = self.reconciler.reconcile(
+            pod, node_name, self._bind_attempt(pod, node_name))
+        if outcome == ORPHANED and truth is None:
+            return False
+        with self._mu:
+            try:
+                self._spool.remove(entry)
+            except ValueError:
+                pass
+            self._spool_uids.discard(pod.uid)
+        self._apply_bind_outcome(pod, bound, node_name, vol_rollback,
+                                 outcome, truth, t0)
+        if seq is not None and self.journal is not None:
+            self.journal.resolve(
+                seq, CONFIRMED if outcome in (BOUND, CONFIRMED) else outcome)
+        stats[outcome if outcome != BOUND else "bound"] += 1
+        rec = tracing.active()
+        if rec is not None:
+            rec.event("bind_despooled", pod=pod.uid, node=node_name,
+                      outcome=outcome)
+        return True
+
+    def recover_from_journal(self) -> Dict[str, int]:
+        """Crash-restart replay: re-own every unresolved intent of the
+        journal before the first round. The store's copy decides each:
+        bound -> adopt (the crash lost only the confirmation); still
+        pending -> re-assume and re-spool under the same seq; deleted or
+        recreated under a new uid -> resolved GONE; unreachable (the
+        outage outlived the crash) -> re-assume from the local copy and
+        re-spool for the post-heal drain. Runs at construction and in
+        recover_leadership()."""
+        stats = {"adopted": 0, "respooled": 0, "requeued": 0, "gone": 0,
+                 "unreachable": 0}
+        if self.journal is None:
+            return stats
+
+        class _PodRef:
+            # pod-shaped stub for the truth GET: namespace, name and uid
+            # are all the journal recorded
+            def __init__(self, ns, name, uid):
+                self.namespace, self.name, self.uid = ns, name, uid
+                self.metadata = type("M", (), {"name": name})()
+
+        for it in self.journal.unresolved():
+            uid, node, seq = it.get("uid"), it.get("node"), it.get("seq")
+            ns, name = it.get("ns"), it.get("name")
+            with self._mu:
+                if uid in self._spool_uids:
+                    continue  # the live spool owns it
+            local = self.store.get("pods", ns, name)
+            reachable = True
+            try:
+                truth = self._pod_truth(local if local is not None
+                                        else _PodRef(ns, name, uid))
+            except Exception:
+                truth, reachable = None, False
+            if not reachable:
+                # re-own the intent from the local copy so capacity is
+                # held; without one it stays unresolved for the next
+                # replay
+                if local is not None and self._respool_local(local, node,
+                                                             seq):
+                    stats["respooled"] += 1
+                else:
+                    stats["unreachable"] += 1
+                continue
+            if truth is None or truth.uid != uid:
+                # deleted (or the name reused by a NEW pod) while down
+                self.journal.resolve(seq, GONE)
+                stats["gone"] += 1
+            elif truth.spec.node_name:
+                # the bind landed before the crash: adopt it and retire
+                # the pod the backfill re-queued
+                with self._mu:
+                    self.cache.add_pod(truth)
+                    self.queue.remove_if_pending(uid)
+                    self.queue.assigned_pod_added(truth)
+                self.journal.resolve(seq, CONFIRMED)
+                stats["adopted"] += 1
+            elif self._respool_local(truth, node, seq):
+                # still pending: the intent never landed
+                stats["respooled"] += 1
+            else:
+                # its node vanished while down: the pod stays queued and
+                # schedules afresh
+                self.journal.resolve(seq, ORPHANED)
+                stats["requeued"] += 1
+        if any(stats.values()):
+            logging.getLogger(__name__).info(
+                "bind-journal replay: %(adopted)d adopted, %(respooled)d "
+                "re-spooled, %(requeued)d requeued fresh, %(gone)d gone, "
+                "%(unreachable)d unreachable (kept for next replay)",
+                stats)
+            self.export_queue_gauges()
+        return stats
+
+    def _respool_local(self, pod: api.Pod, node_name: str,
+                       seq: Optional[int]) -> bool:
+        """Re-own one journaled intent: assume the pod onto its journaled
+        node (if that node still exists) and re-spool it."""
+        bound = api.with_node_name(pod, node_name)
+        with self._mu:
+            ni = self.cache.node_infos.get(node_name)
+            if ni is None:
+                return False
+            try:
+                self.cache.assume_pod(bound)
+            except KeyError:
+                pass  # already known: its capacity is already held
+            else:
+                self.snapshot.refresh_node_resources(
+                    self.cache.node_infos[node_name])
+                self.snapshot.add_pod(bound)
+            self.queue.remove_if_pending(bound.uid)
+        self._spool_bind(pod, bound, node_name, None, seq=seq)
+        return True
+
+    def _pod_truth(self, pod: api.Pod) -> Optional[api.Pod]:
+        """One pod from the store (kubernetes_tpu/sched/scheduler.py:
+        4444-4480): None = deleted; raises when the store cannot be
+        reached. The port has no REST client, so this reads
+        `store.get`. It is the store breaker's GET feed: a failure counts
+        on store_errors{op="get"} and the consecutive-failure ladder, an
+        answer resets it. The `store.outage` point fires here, so chaos
+        severs the truth path with the bind path."""
+        try:
+            if faultpoints.fire("store.outage", payload=("get", pod.uid)):
+                raise ConnectionError("store.outage: truth GET dropped")
+            truth = self.store.get("pods", pod.namespace, pod.name)
+        except Exception:
+            self.metrics.store_errors.labels(op="get").inc()
+            self.storehealth.record_failure()
+            raise
+        self.storehealth.record_success()
+        return truth
+
+    def wait_for_binds(self) -> None:
+        """Settle the binds in flight. Binds run inline on the scheduling
+        thread (no bind pool: the in-process store is not
+        `async_bind_safe`), so none is ever in flight on return of the
+        call that made it."""
+
+    def close(self) -> None:
+        """Settle the binds (inline, so already settled). The scheduler
+        stays queryable; the spool and the journal are left as they are,
+        for a later process's replay."""
+        self.wait_for_binds()
+
+    # -- leadership (kubernetes_tpu/sched/scheduler.py:4335-4430) ----------------
+
+    @property
+    def dormant(self) -> bool:
+        return self._dormant
+
+    def enter_dormant(self) -> None:
+        """Leadership lost: stop scheduling rounds and settle the binds;
+        the watches keep the cache warm for recover_leadership().
+        Idempotent; taking _mu orders dormancy after a round already
+        running on another thread."""
+        if self._dormant:
+            return
+        with self._mu:
+            self._dormant = True
+        self.wait_for_binds()
+        logging.getLogger(__name__).info(
+            "scheduler dormant: leadership lost; binds drained, %d assumed "
+            "pods held for reconciliation, informers stay warm",
+            len(self.cache.assumed_pods()))
+
+    def recover_leadership(self) -> Dict[str, int]:
+        """Leadership re-acquired after a dormant spell: settle every
+        assumed pod against the store (adopt a confirmed binding, forget
+        an orphan and release its capacity), replay the journal, rebuild
+        the whole device mirror (nothing incremental is trusted across a
+        leadership gap) and resume. The truth GETs run one after another
+        (the JAX scheduler fans them over its bind pool). Returns the
+        tally."""
+        self.wait_for_binds()
+        stats = {"confirmed": 0, "orphaned": 0, "unresolved": 0}
+
+        def _fetch(pod):
+            try:
+                return (pod, self._pod_truth(pod), True)
+            except Exception as e:
+                # unreachable for THIS pod: keep the assumption (holding
+                # capacity briefly beats double-placing)
+                logging.getLogger(__name__).warning(
+                    "recovery: could not resolve assumed pod %s/%s "
+                    "against API truth (%s: %s); keeping the assumption",
+                    pod.namespace, pod.name, type(e).__name__, e)
+                return (pod, None, False)
+
+        resolved = [_fetch(p) for p in self.cache.assumed_pods()]
+        with self._mu:
+            for pod, truth, ok in resolved:
+                if not self.cache.is_assumed(pod):
+                    continue  # a watch event settled it meanwhile
+                if not ok:
+                    stats["unresolved"] += 1
+                elif truth is not None and truth.spec.node_name:
+                    self.cache.add_pod(truth)  # adopt the binding
+                    self.queue.remove_if_pending(pod.uid)
+                    self.queue.assigned_pod_added(truth)
+                    stats["confirmed"] += 1
+                else:
+                    try:
+                        self.cache.forget_pod(pod)
+                    except KeyError:
+                        pass
+                    stats["orphaned"] += 1
+                    if truth is not None:
+                        # still pending in the store: schedule it afresh
+                        self.queue.add_if_not_present(truth)
+                    else:
+                        self.queue.delete(pod)
+            self.recover_from_journal()
+            self.scrubber.rebuild()
+            self._dormant = False
+        # anything another leader failed to place may fit now
+        self.queue.move_all_to_active()
+        logging.getLogger(__name__).info(
+            "scheduler resumed leadership: %(confirmed)d assumed pods "
+            "confirmed, %(orphaned)d orphans forgotten+requeued, "
+            "%(unresolved)d unresolved (TTL backstop)", stats)
+        return stats

@@ -11,8 +11,9 @@ Internal surfaces that can fail independently of any process — a device
 dispatch (an error, a hang, an out-of-memory), a pod spec that poisons
 the batched pass, the quarantine admission, the incremental snapshot
 writes that keep the device mirror honest, the compaction sweep, the
-queue's shed decision — are wired with a named fault point (the etcd `gofail`
-pattern): a test activates a point by name and the code path fails
+queue's shed decision, the bind POST and truth GET of the store path,
+the bind journal's append — are wired with a named fault point (the
+etcd `gofail` pattern): a test activates a point by name and the code path fails
 exactly there, deterministically.
 
 Wired points (grep for `faultpoints.fire`):
@@ -87,6 +88,25 @@ Wired points (grep for `faultpoints.fire`):
                    forces the per-zone health reduction onto the exact
                    host fallback (and feeds the circuit breaker when
                    one is wired)
+  bind.post        sched/scheduler.py _bind_attempt, before each bind
+                   POST attempt (the bind reconciler retries through
+                   it; payload: the pod)
+  store.outage     the store-path outage seam, fired once per
+                   control-plane round trip the scheduler depends on:
+                   sched/scheduler.py _bind_attempt (before each bind
+                   POST; payload ("bind", uid)) and _pod_truth (before
+                   each truth GET; payload ("get", uid)). A
+                   duration-armed `raise` severs the store path: the
+                   store breaker (sched/storehealth.py) trips to
+                   DISCONNECTED, binds spool into the intent journal,
+                   and the post-heal drain leaves placements equal to
+                   an outage-free run's
+  journal.append   state/journal.py _append_locked, BEFORE the write
+                   (payload: the record dict) — `raise` models a full
+                   disk / IO error at the worst moment (the intent
+                   then spools in memory only), `drop` models a write
+                   the OS acknowledged but never persisted (the
+                   crash-restart replay must tolerate the hole)
 
 Modes:
 

@@ -167,17 +167,20 @@ class Both:
     given, build each package's Profile and FeatureGates; sched_kw are
     further Scheduler keywords both packages take (breaker_threshold,
     breaker_cooldown, wave_deadline_s, poison_backoff_s, hbm_budget_bytes,
-    compact_interval, scrub_interval, shed_watermark, ...); caps (a dict
-    of Caps fields, SCHED_CAPS by default) sizes both snapshots, None
-    leaves them at the Caps defaults."""
+    compact_interval, scrub_interval, shed_watermark, ...) and
+    side_kw(side) those of one side (a journal path of its own); caps (a
+    dict of Caps fields, SCHED_CAPS by default) sizes both snapshots,
+    None leaves them at the Caps defaults."""
 
     def __init__(self, n_nodes=0, wave=16, profile=None, features=None,
-                 sched_kw=None, caps=SCHED_CAPS, **node_kw):
+                 sched_kw=None, caps=SCHED_CAPS, side_kw=None, **node_kw):
         self.clock = {"jax": FakeClock(), "torch": FakeClock()}
         self.stores = {"jax": JaxStore(), "torch": TorchStore()}
         kw = {}
         for side, store in self.stores.items():
             kw[side] = dict(sched_kw or {})
+            if side_kw is not None:
+                kw[side].update(side_kw(side))
             if profile is not None:
                 kw[side]["profile"] = profile(self.pkg(side), store)
             if features is not None:
