@@ -67,7 +67,8 @@ Phases (any failure exits non-zero and prints no result line):
                implicit host syncs of one ipa round (that round is left
                out of the per-pod and per-wave times), and
                incoming_statics timed on one full-width wave;
-  7. spread  — 5 000 nodes and 10 000 pods of 20 Deployments, each pod
+  7. spread  — 5 000 nodes and 5 000 pods (cut from 10 000 for the
+               script's time limit) of 20 Deployments, each pod
                with a hard zone spread (maxSkew 1) and a soft hostname
                spread: every Deployment's zone counts differ by at most 1,
                every round runs with topology spread; the same timing
@@ -83,9 +84,9 @@ Phases (any failure exits non-zero and prints no result line):
                seconds by phase, each kernel's launches; the what-if
                timed on the drain's chunk (P = 16) as in phase 9;
   9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
-               priority-1 hogs of 8 cores (two a node), then 5 000
+               priority-1 hogs of 8 cores (two a node), then 2 500
                priority-100 vips of 8 cores, each placing only by
-               evicting a hog. 5 000 placed, 5 000 evicted, every
+               evicting a hog. 2 500 placed, 2 500 evicted, every
                preemption done by the pipeline. Printed: vip pods/s,
                what-if chunks and launches, host validation seconds; on
                the largest chunk, the what-if by CUDA events as a whole
@@ -99,8 +100,8 @@ Phases (any failure exits non-zero and prints no result line):
                Printed: pods/s, the p99 of pod_scheduling_latency and of
                e2e_scheduling_latency, rounds, launches, and the implicit
                host syncs of one more chunk's round;
-  11. paced  — bench.py paced at its own shape: 5 000 nodes, 4 000 pods
-               offered at 200 pods/s in chunks of 100 on the wall clock,
+  11. paced  — bench.py paced at 5 000 nodes, 2 000 pods (cut from 4 000
+               for the script's time limit) offered at 200 pods/s in chunks of 100 on the wall clock,
                then bench.py's stalled-drain loop (a stall fails the
                phase). Printed: the p99 of pod_scheduling_latency against
                the 5 s SLO and the offered rate achieved;
@@ -116,8 +117,8 @@ Phases (any failure exits non-zero and prints no result line):
                unbound WaitForFirstConsumer claim of 5-10 Gi against 320
                free PVs of 10, 20 and 50 Gi in three zones;
                VolumeScheduling on, the equivalence cache off. The host
-               mask of 8 of the pods projects the phase; past 75 s the
-               StatefulSet pods are halved (to 256). Every pod placed
+               mask of 8 of the pods projects the phase; past 40 s the
+               StatefulSet pods are halved (to 128). Every pod placed
                (check_bindings), every pod in its PV's zone, every claim
                bound to its own PV, no node over 16 GCE PDs, the kernel
                == plain on the per-wave dispatches' inputs. Printed:
@@ -239,7 +240,8 @@ Phases (any failure exits non-zero and prints no result line):
                once at the first what-if chunk of the preempt world (5 000
                nodes full of bound hogs, 256 vips): the chunk salvaged on
                the twin, the drain complete; (b) 30 000 bound density
-               pods, 12 cycles of 32 Jobs x 8 pods (their own
+               pods, 6 cycles (cut from 12 for the script's time limit)
+               of 32 Jobs x 8 pods (their own
                controller-uid and job-name values) bound and deleted, the
                compaction cadence crossed every 3 cycles on the virtual
                clock: per cycle the vocabulary sizes, caps, projected
@@ -297,13 +299,37 @@ Phases (any failure exits non-zero and prints no result line):
                spool, 128 low arrivals are held in the shed area, 8
                pods at HIGH_PRIORITY_BAND still schedule and spool;
                healed, everything binds.
+  20. extender — HTTP extenders (sched/extender.py) through a Policy
+               that lists one, served in this process by a stdlib
+               ThreadingHTTPServer on 127.0.0.1 that bans a seventh of
+               the nodes by name, gives 10 at weight 2 to zone-1's nodes,
+               records each bind and drops the first candidate node of
+               each preemption: (a) the density world at 5 000 nodes, 512
+               pods in waves of 128 with nodeCacheCapable false (the
+               labels of every node in each filter POST): no pod on a
+               banned node, the extender's binds == the store's bindings,
+               one a pod, the taint/port kernel launched, no breaker
+               trip; printed: pods/s, the POSTs per verb, the bytes of one
+               filter request and the share of the drain in extender
+               calls (the pods halved when the first wave projects the
+               phase past 90 s); (b) the same backlog at 500 nodes:
+               card == CPU bindings and request logs byte for byte; (c)
+               500 nodes full of priority-1 hogs and 16 priority-100
+               vips (not 64: with an extender the POSTs grow with the
+               square of the vips, and extender_vips.py times this world
+               at 16, 32 and 64 vips): card == CPU, no victim from a
+               node the extender dropped; (d) 128 pods
+               with the extender on a closed port: required, every pod
+               parked and scheduling_errors{stage="extender"} 1;
+               ignorable, the bindings of the same per-wave drain with
+               no extender.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
 or strike (a healthy phase that leaned on a ladder fails), no store
 trip and no spooled bind; phase 17's schedulers are held to no capacity
 fault and phases 17-18's to no store trip and no spooled bind; phase
-19's to the device checks of phases 4-16.
+19's to the device checks of phases 4-16, phase 20's to both.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -330,7 +356,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
-SPREAD_PODS, SPREAD_APPS = 10000, 20
+# phases 7, 9, 11, 13 and 18 (b) run at half their earlier depth (the
+# same shapes, fewer pods, vips or cycles): the whole script with them
+# at full depth took 1 441.8 s on an H100, past the 1 200 s limit
+# (PERF.md section 4)
+SPREAD_PODS, SPREAD_APPS = 5000, 20
 SMALL_NODES, SMALL_PODS = 500, 1000
 # phase 8 (bench.py gangstorm, scaled to 5 000 nodes): gangs of 8 pods at
 # priority 1 fill 96% of the nodes' CPU, then 4-core high pods. Cut for
@@ -340,9 +370,9 @@ SMALL_NODES, SMALL_PODS = 500, 1000
 GANGS, GANG_SIZE, GANG_HIGH, GANG_CPU = 1200, 8, 1600, 8
 GANG_P = 16
 # phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
-# half as many 8-core vips (cut for the script's time from 10 000, one a
-# hog, to 5 000)
-PREEMPT_VIPS = 5000
+# a quarter as many 8-core vips (cut for the script's time from 10 000,
+# one a hog, to 2 500)
+PREEMPT_VIPS = 2500
 # phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
@@ -354,7 +384,7 @@ MULTIKEY_PODS, MULTIKEY_GANG = 8, 4
 # phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
 # trickle at 500 nodes, paced at 5 000)
 TRICKLE_PODS, TRICKLE_CHUNK = 2048, 64
-PACED_PODS, PACED_RATE, PACED_CHUNK = 4000, 200.0, 100
+PACED_PODS, PACED_RATE, PACED_CHUNK = 2000, 200.0, 100
 PACED_SLO_S = 5.0
 # phase 12 (bench.py preempt_host, its own size)
 HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
@@ -365,7 +395,7 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # every StatefulSet pod and the wave the pipeline's bail-out masks again,
 # plus a per-wave dispatch a wave at the density drain's ms a pod
 SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
-SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 256, 75.0, 8
+SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 128, 40.0, 8
 # phase 14: the density world's backlog drained untraced and traced (32
 # waves, one round), then twice more traced after a promotion and after
 # the rollback
@@ -467,8 +497,8 @@ INT32_LANES_PER_SM = 64
 # with device.oom once and its fault-free run, MEM_STRIKE_PODS pods with
 # device.oom three times and the per-wave drain on the card, the preempt
 # world's FULL_NODES nodes full of bound hogs and MEM_VIPS vips; (b)
-# MEM_RESIDENT bound density pods and MEM_CYCLES cycles of MEM_JOBS Jobs
-# x MEM_JOB_PODS pods (cut from 32), the cadence MEM_COMPACT_S virtual
+# MEM_RESIDENT bound density pods and MEM_CYCLES cycles (cut from 12) of
+# MEM_JOBS Jobs x MEM_JOB_PODS pods (cut from 32), the cadence MEM_COMPACT_S virtual
 # seconds crossed every MEM_COMPACT_EVERY cycles; its 500-node copy with
 # MEM_SMALL_RESIDENT bound pods and MEM_SMALL_JOB_PODS pods a Job; (c) a
 # budget MEM_GOV_SLACK bytes above the footprint, a wave of pods with
@@ -480,7 +510,7 @@ INT32_LANES_PER_SM = 64
 # and shed_age_s STORM_AGE_S on the virtual clock; after the burst one
 # wave a tick (at most STORM_DRAIN_TICKS) until nothing is pending
 MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 1024, 512, 256
-MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 12, 32, 8
+MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 6, 32, 8
 MEM_COMPACT_S, MEM_COMPACT_EVERY = 60.0, 3
 MEM_SMALL_NODES, MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS = 500, 3000, 2
 MEM_GOV_SLACK, MEM_GOV_KEYS = 4096, 16
@@ -497,6 +527,21 @@ STORM_DRAIN_TICKS = 200
 # STORE_HELD low pods held past it and STORE_HIGH high pods spooled
 STORE_PODS, STORE_COOLDOWN_S, STORE_JOURNAL_BYTES = 1024, 2.0, 65536
 STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
+# phase 20 (HTTP extenders): the script's extender bans node-{i} with
+# i % EXT_BAN_MOD == EXT_BAN_MOD - 1 and gives EXT_SCORE to the nodes of
+# zone-{EXT_ZONE}, at weight EXT_WEIGHT, every call within EXT_TIMEOUT_S;
+# (a) EXT_PODS density pods at FULL_NODES nodes (halved when the first
+# wave, timed alone, projects the phase past EXT_BUDGET_S with
+# EXT_REST_S for (b)-(d)), (b) the same backlog at SMALL_NODES nodes, (c)
+# SMALL_NODES nodes full of hogs and EXT_VIPS vips (not 64: with an
+# extender the drain preempts on the host per wave, where two vips a pass
+# get a node, as in the JAX scheduler, so the filter, prioritize and
+# preempt POSTs grow with the square of the vips; extender_vips.py times
+# this world at other counts), (d) EXT_DOWN_PODS pods (one wave) with the
+# extender down
+EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 512, 7, 1, 10, 2
+EXT_TIMEOUT_S, EXT_BUDGET_S, EXT_REST_S = 30.0, 90.0, 40.0
+EXT_VIPS, EXT_DOWN_PODS = 16, 128
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
 KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
@@ -1787,8 +1832,8 @@ def trickle_phase(torch, mods, enc, bucket_size, Metrics):
 
 
 def paced_phase(torch, mods, enc, bucket_size, Metrics):
-    """Phase 11: bench.py paced (its own shape: 5 000 nodes, 4 000 pods
-    offered at 200 pods/s in chunks of 100, on the wall clock). Returns
+    """Phase 11: bench.py paced (5 000 nodes, PACED_PODS pods offered at
+    200 pods/s in chunks of 100, on the wall clock). Returns
     what it saw."""
     api, tp, pre = mods[0], mods[1], mods[2]
     t_phase = time.monotonic()
@@ -5155,6 +5200,382 @@ def store_phase(torch, mods, enc, bucket_size, faultpoints):
     return {"launches": launches, "whatif_launches": whatif_launches}
 
 
+# --- phase 20: HTTP extenders -------------------------------------------------
+
+
+class ScriptExtender:
+    """Phase 20's extender: a ThreadingHTTPServer on 127.0.0.1 (port 0) in
+    this process, standard library only, logging every request as (verb,
+    body bytes). Its filter drops the nodes node-{i} with i % EXT_BAN_MOD
+    == EXT_BAN_MOD - 1 (a seventh, by name); its prioritize gives
+    EXT_SCORE to zone-{EXT_ZONE}'s nodes (node-{i} lies in zone-{i % 3});
+    its bind records (pod, node); its preempt verb drops the first
+    candidate node and keeps the rest untouched, recording (pod, dropped,
+    kept)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.reset()
+        ext = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                raw = self.rfile.read(int(self.headers["Content-Length"]))
+                verb = self.path.rsplit("/", 1)[-1]
+                with ext.lock:
+                    ext.log.append((verb, raw))
+                    out = ext.answer(verb, json.loads(raw))
+                body = json.dumps(out).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.lock = threading.Lock()
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_port}"
+
+    def reset(self):
+        self.log, self.bound, self.preempts = [], [], []
+
+    @staticmethod
+    def banned(name: str) -> bool:
+        return int(name.rsplit("-", 1)[1]) % EXT_BAN_MOD == EXT_BAN_MOD - 1
+
+    def answer(self, verb, args):
+        if verb == "filter":
+            names = args["nodenames"]
+            return {"nodenames": [n for n in names if not self.banned(n)],
+                    "failedNodes": {n: "banned by the extender"
+                                    for n in names if self.banned(n)}}
+        if verb == "prioritize":
+            return [{"host": n, "score": EXT_SCORE
+                     if int(n.rsplit("-", 1)[1]) % 3 == EXT_ZONE else 0}
+                    for n in args["nodenames"]]
+        if verb == "bind":
+            self.bound.append((args["podName"], args["node"]))
+            return {}
+        if verb == "preempt":
+            victims = args["nodeNameToVictims"]
+            nodes = list(victims)
+            self.preempts.append((args["pod"]["name"], nodes[0], nodes[1:]))
+            return {"nodeNameToVictims": {n: victims[n] for n in nodes[1:]}}
+        return {"error": f"unknown verb {verb}"}
+
+    def verbs(self) -> dict:
+        out = {}
+        for v, _ in self.log:
+            out[v] = out.get(v, 0) + 1
+        return out
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def ext_profile(Registry, store, url, ignorable=False, every_verb=True):
+    """The Policy of phase 20: the default predicates and priorities and
+    one extender, nodeCacheCapable false (a filter POST carries every
+    node with its labels), weight EXT_WEIGHT, with every verb (or with
+    filter and prioritize only: a bind is never ignorable)."""
+    cfg = {"urlPrefix": url, "filterVerb": "filter",
+           "prioritizeVerb": "prioritize", "weight": EXT_WEIGHT,
+           "nodeCacheCapable": False, "ignorable": ignorable,
+           "httpTimeout": EXT_TIMEOUT_S}
+    if every_verb:
+        cfg.update(bindVerb="bind", preemptVerb="preempt")
+    return Registry().profile_from_policy(
+        json.dumps({"extenders": [cfg]}), store)
+
+
+def ext_sched(mods, Registry, store, caps, device, url, clock=None,
+              ignorable=False, extender=True, every_verb=True):
+    """A Scheduler of phase 20 on `device` under ext_profile (or, with
+    extender False, the same Policy without its extender)."""
+    if extender:
+        prof = ext_profile(Registry, store, url, ignorable, every_verb)
+    else:
+        prof = Registry().profile_from_policy("{}", store)
+    kw = {} if clock is None else dict(
+        clock=clock, backoff=mods[6](initial=0.001, clock=clock))
+    return mods[5](store, wave_size=WAVE, caps=caps, device=device,
+                   profile=prof, **kw)
+
+
+def ext_density_checks(ext, store, what):
+    """No pod the scheduler bound is on a banned node; the extender's bind
+    log is the store's bindings, one entry a pod. Returns the pods
+    bound."""
+    bound = {p.metadata.name: p.spec.node_name for p in store.list("pods")
+             if p.spec.node_name and not p.metadata.name.startswith(
+                 "holder-")}
+    on_banned = [n for n, node in bound.items() if ext.banned(node)]
+    if on_banned:
+        fail(f"extender: {what}: pods on banned nodes, e.g. "
+             f"{on_banned[:5]}")
+    names = [p for p, _ in ext.bound]
+    if len(names) != len(set(names)):
+        fail(f"extender: {what}: a pod was bound twice by the extender")
+    if dict(ext.bound) != bound:
+        fail(f"extender: {what}: the extender's binds ({len(ext.bound)}) "
+             f"differ from the store's bindings ({len(bound)})")
+    return len(bound)
+
+
+def extender_drain_a(torch, mods, enc, bucket_size, Registry, ext, t_phase):
+    """Phase 20 (a): EXT_PODS density pods at FULL_NODES nodes through the
+    extender, a first wave timed alone; when it projects the phase past
+    EXT_BUDGET_S the backlog is halved (its second half deleted before it
+    is popped). Returns what was seen."""
+    api, tp, store_mod = mods[0], mods[1], mods[7]
+    store, n_bound = build_store(api, store_mod, FULL_NODES, EXT_PODS,
+                                 SEED + 201)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, EXT_PODS, n_bound)
+    sched = ext_sched(mods, Registry, store, caps, "cuda", ext.url)
+    http = sched.profile.extenders[0]
+    http._send = Timer(http._send)
+    mask = Timer(sched._host_plugin_mask)
+    sched._host_plugin_mask = mask
+    scores = Timer(sched._host_score_matrix)
+    sched._host_score_matrix = scores
+    ext.reset()
+    tp.taint_ports_masks.launches = 0
+    t0 = time.monotonic()
+    placed = sched.run_once()
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t0
+    n_pods = EXT_PODS
+    projected = (time.monotonic() - t_phase
+                 + first_s * (EXT_PODS / WAVE - 1) + EXT_REST_S)
+    if projected > EXT_BUDGET_S:
+        n_pods = EXT_PODS // 2
+        for j in range(n_pods, EXT_PODS):
+            store.delete("pods", "default", f"pod-{j}")
+    placed += sched.schedule_pending()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = tp.taint_ports_masks.launches
+    check_bindings(api, store)
+    bound = ext_density_checks(ext, store, "(a)")
+    if bound != placed or sched.pending_count():
+        fail(f"extender: (a) placed {placed}, {bound} bound, "
+             f"{sched.pending_count()} pending of {n_pods}")
+    if launches < 1:
+        fail("extender: (a) the taint/port kernel never launched")
+    if sched.storehealth.trips or sched.breaker.trips:
+        fail("extender: (a) a breaker tripped")
+    filters = [raw for v, raw in ext.log if v == "filter"]
+    seen = dict(pods=n_pods, placed=placed, wall=wall, first_s=first_s,
+                projected=projected, launches=launches, verbs=ext.verbs(),
+                filter_bytes=len(filters[0]), http_s=http._send.s,
+                http_calls=http._send.calls, mask_s=mask.s,
+                scores_s=scores.s, bound=bound,
+                zone_share=sum(1 for p in store.list("pods")
+                               if p.spec.node_name
+                               and p.metadata.name.startswith("pod-")
+                               and int(p.spec.node_name.rsplit("-", 1)[1])
+                               % 3 == EXT_ZONE) / max(bound, 1))
+    del sched, store
+    return seen
+
+
+def store_copy(store_mod, template):
+    """A store holding deep copies of `template`'s nodes and pods, their
+    uids kept (a request body carries the pod's uid), so that two runs
+    over copies start alike."""
+    store = store_mod.ObjectStore()
+    for kind in ("nodes", "pods"):
+        for obj in template.list(kind):
+            store.create(kind, copy.deepcopy(obj))
+    return store
+
+
+def extender_parity(torch, mods, enc, bucket_size, Registry, ext, what,
+                    build):
+    """One world of phase 20 (b) or (c) on the card and on the CPU, each
+    over a copy of it, on a virtual clock: the same bindings and the same
+    request log, byte for byte. build() -> (store, caps). Returns device
+    -> (bindings, log, extender binds, preempt records, evicted pods,
+    seconds)."""
+    template, caps = build()
+    got = {}
+    for device in ("cuda", "cpu"):
+        store = store_copy(mods[7], template)
+        created = {p.metadata.name for p in store.list("pods")}
+        clock = VirtualClock()
+        sched = ext_sched(mods, Registry, store, caps, device, ext.url, clock)
+        ext.reset()
+        t0 = time.monotonic()
+        settle(sched, clock)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        s = time.monotonic() - t0
+        check_bindings(mods[0], store)
+        alive = bindings(store)
+        got[device] = (alive, list(ext.log), list(ext.bound),
+                       list(ext.preempts), sorted(created - set(alive)), s)
+        if sched.breaker.trips or sched.storehealth.trips:
+            fail(f"extender: {what} {device}: a breaker tripped")
+        del sched, store
+    for i, name in enumerate(("bindings", "request logs", "extender binds",
+                              "preempt records", "evicted pods")):
+        if got["cuda"][i] != got["cpu"][i]:
+            fail(f"extender: {what}: card and CPU {name} differ")
+    return got
+
+
+def ext_hog_world(api, store_mod, enc, bucket_size, n_vips):
+    """Phase 20 (c)'s world: SMALL_NODES nodes, each full with two bound
+    8-core priority-1 hogs, and n_vips pending 8-core priority-100 vips.
+    Returns (store, caps)."""
+    store = store_mod.ObjectStore()
+    add_plain_nodes(api, store, SMALL_NODES)
+    for i in range(SMALL_NODES):
+        for k in range(2):
+            p = batch_pod(api, f"hog-{i}-{k}", "hog", "8", 1)
+            p.spec.node_name = f"node-{i}"
+            store.create("pods", p)
+    add_singles(api, store, "vip", n_vips, "8", 100)
+    return store, scheduler_caps(enc, bucket_size, SMALL_NODES, n_vips,
+                                 2 * SMALL_NODES)
+
+
+def extender_phase(torch, mods, enc, bucket_size, Registry):
+    """Phase 20: HTTP extenders (sched/extender.py) on every path of the
+    drain: (a) the density world at FULL_NODES nodes, (b) its SMALL_NODES
+    copy card == CPU, (c) preemption through the preempt verb card ==
+    CPU, (d) an unreachable extender, required and ignorable."""
+    import socket
+
+    api, tp, pre, store_mod = mods[0], mods[1], mods[2], mods[7]
+    t_phase = time.monotonic()
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    ext = ScriptExtender()
+    try:
+        a = extender_drain_a(torch, mods, enc, bucket_size, Registry, ext,
+                             t_phase)
+        cut = (f"; halved: the first wave projected {a['projected']:.1f} s"
+               if a["pods"] < EXT_PODS else "")
+        log(f"[extender] (a) {FULL_NODES} nodes, {a['pods']} density pods "
+            f"in waves of {WAVE} through a Policy with one extender "
+            f"(nodeCacheCapable false, every verb, weight {EXT_WEIGHT}): "
+            f"placed {a['placed']} in {a['wall']:.3f} s = "
+            f"{a['placed'] / a['wall']:.1f} pods/s (first wave "
+            f"{a['first_s']:.3f} s{cut}); POSTs " + ", ".join(
+                f"{k} {v}" for k, v in sorted(a["verbs"].items()))
+            + f"; one filter request {a['filter_bytes']} B; extender calls "
+            f"{a['http_s']:.3f} s = {a['http_s'] / a['wall']:.1%} of the "
+            f"drain ({a['http_calls']} calls, "
+            f"{1e3 * a['http_s'] / max(a['http_calls'], 1):.3f} ms each); "
+            f"host mask {a['mask_s']:.3f} s, host scores "
+            f"{a['scores_s']:.3f} s (both with their calls); "
+            f"{a['zone_share']:.1%} of the pods in zone-{EXT_ZONE}; no pod "
+            f"on a banned node, {a['bound']} extender binds == the store's "
+            f"bindings; taint/port launches {a['launches']}")
+        t0 = time.monotonic()
+
+        def small():
+            store, n_bound = build_store(api, store_mod, SMALL_NODES,
+                                         EXT_PODS, SEED + 201)
+            return store, scheduler_caps(enc, bucket_size, SMALL_NODES,
+                                         EXT_PODS, n_bound)
+
+        b = extender_parity(torch, mods, enc, bucket_size, Registry, ext,
+                            "(b)", small)
+        store_b = {k: v for k, v in b["cuda"][0].items()
+                   if k.startswith("pod-")}
+        if sum(1 for v in store_b.values() if v) != EXT_PODS:
+            fail("extender: (b) not every pod was bound")
+        log(f"[extender] (b) {SMALL_NODES} nodes, {EXT_PODS} pods: card "
+            f"{b['cuda'][5]:.3f} s, CPU {b['cpu'][5]:.3f} s; card == CPU "
+            f"bindings and {len(b['cuda'][1])} request bodies byte for "
+            f"byte; {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+
+        c = extender_parity(torch, mods, enc, bucket_size, Registry, ext,
+                            "(c)", lambda: ext_hog_world(
+                                api, store_mod, enc, bucket_size, EXT_VIPS))
+        alive, _log, _bound, preempts, evicted, _s = c["cuda"]
+        vips = {k: v for k, v in alive.items() if k.startswith("vip-")}
+        if len(vips) != EXT_VIPS or not all(vips.values()):
+            fail(f"extender: (c) {sum(map(bool, vips.values()))} of "
+                 f"{EXT_VIPS} vips bound")
+        if any(ext.banned(v) for v in vips.values()):
+            fail("extender: (c) a vip on a banned node")
+        kept = {n for _p, _d, k in preempts for n in k}
+        dropped = {d for _p, d, _k in preempts} - kept
+        from_nodes = {"node-" + h.split("-")[1] for h in evicted}
+        if not evicted or not preempts:
+            fail("extender: (c) nothing was preempted through the verb")
+        if not from_nodes <= kept or from_nodes & dropped:
+            fail("extender: (c) a victim came from a node the extender "
+                 "dropped")
+        log(f"[extender] (c) {SMALL_NODES} nodes full of priority-1 hogs, "
+            f"{EXT_VIPS} priority-100 vips: {len(evicted)} evicted, "
+            f"{len(preempts)} preempt requests (the first candidate "
+            f"dropped each time), no victim from a dropped node; card "
+            f"{c['cuda'][5]:.3f} s, CPU {c['cpu'][5]:.3f} s; card == CPU "
+            f"bindings, victims and request logs; "
+            f"{time.monotonic() - t0:.1f} s")
+    finally:
+        ext.close()
+    t0 = time.monotonic()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    down = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    d = {}
+    for mode in ("required", "ignorable", "none"):
+        store, n_bound = build_store(api, store_mod, SMALL_NODES,
+                                     EXT_DOWN_PODS, SEED + 202)
+        caps = scheduler_caps(enc, bucket_size, SMALL_NODES, EXT_DOWN_PODS,
+                              n_bound)
+        sched = ext_sched(mods, Registry, store, caps, "cuda", down,
+                          ignorable=mode == "ignorable",
+                          extender=mode != "none", every_verb=False)
+        if mode == "none":
+            # the per-wave path the extender drains take
+            placed = drain_per_wave(sched)
+        else:
+            placed = sched.schedule_pending()
+        torch.cuda.synchronize()
+        errors = sched.metrics.scheduling_errors.value(stage="extender")
+        if sched.breaker.trips or sched.storehealth.trips:
+            fail(f"extender: (d) {mode}: a breaker tripped")
+        d[mode] = (placed, errors, sched.pending_count(), bindings(store))
+        del sched, store
+    if d["required"][:3] != (0, 1.0, EXT_DOWN_PODS):
+        fail(f"extender: (d) the required extender down: placed, "
+             f"scheduling_errors{{stage=extender}}, pending = "
+             f"{d['required'][:3]}")
+    if d["ignorable"][3] != d["none"][3] or d["ignorable"][1]:
+        fail("extender: (d) the ignorable extender down: bindings differ "
+             "from a drain with no extender")
+    log(f"[extender] (d) {EXT_DOWN_PODS} pods, the extender on a closed "
+        f"port: required: all {d['required'][2]} parked, "
+        f"scheduling_errors{{stage=\"extender\"}} {d['required'][1]:.0f}, "
+        f"no breaker tripped; ignorable: {d['ignorable'][0]} placed, "
+        f"bindings == the same drain with no extender; "
+        f"{time.monotonic() - t0:.1f} s")
+    launches = tp.taint_ports_masks.launches
+    whatif_launches = pre.preempt_whatif.launches
+    log(f"[extender] taint/port launches {launches}, what-if launches "
+        f"{whatif_launches}; phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "whatif_launches": whatif_launches}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -5607,12 +6028,18 @@ def main() -> None:
     store_out = store_phase(torch, phase_mods, enc, bucket_size, faultpoints)
     ladder.check("store_outage", store=False)
     t_store = time.monotonic() - t0
+
+    # 20. HTTP extenders
+    t0 = time.monotonic()
+    extender = extender_phase(torch, phase_mods, enc, bucket_size, Registry)
+    ladder.check("extender")
+    t_ext = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
               "faults": faults, "memory": memory,
-              "store_outage": store_out}
+              "store_outage": store_out, "extender": extender}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -5623,7 +6050,7 @@ def main() -> None:
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
         f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
-        f"{t_store:.1f} s; total "
+        f"{t_store:.1f} s; extender {t_ext:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -16,8 +16,8 @@ priority *arguments* (labelsPresence, serviceAffinity, labelPreference,
 serviceAntiAffinity — api/types.go PredicateArgument/PriorityArgument).
 
 A copy of kubernetes_tpu/plugins/registry.py whose imports point at this
-package. A Policy with `extenders` raises NotImplementedError: the port
-has no HTTP extenders yet, and a profile never drops them in silence.
+package. A Policy's `extenders` build the port's own HTTPExtender
+(sched/extender.py), one per ExtenderConfig, in the Policy's order.
 """
 
 from __future__ import annotations
@@ -207,12 +207,10 @@ class Registry:
         else:
             prof.score_weights = default_profile().score_weights
         if policy.get("extenders"):
-            # HTTP extenders (kubernetes_tpu/sched/extender.py) are a later
-            # slice of the port: refuse the Policy rather than run it
-            # without them
-            raise NotImplementedError(
-                "a Policy with extenders needs the HTTP extenders, a later "
-                "slice of the port")
+            from ..sched.extender import HTTPExtender
+
+            prof.extenders = [HTTPExtender.from_config(c)
+                              for c in policy["extenders"]]
         return prof
 
 

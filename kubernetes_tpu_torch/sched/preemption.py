@@ -202,6 +202,40 @@ def pick_one_node(candidates: Dict[str, Tuple[List[api.Pod], int]]) -> Optional[
     return names[0]
 
 
+def process_preemption_with_extenders(
+        pod: api.Pod, candidates: Dict[str, Tuple[List[api.Pod], int]],
+        extenders, pdbs: Sequence[api.PodDisruptionBudget] = (),
+        ) -> Dict[str, Tuple[List[api.Pod], int]]:
+    """Reference :241 processPreemptionWithExtenders
+    (kubernetes_tpu/sched/preemption.py:206): each preemption-aware
+    extender may drop candidate nodes or trim their victim lists. A node
+    the extender does not name is dropped; a trimmed list has its PDB
+    violations counted again, so pick_one_node's first criterion stays
+    accurate. An extender that fails is skipped when ignorable; else it
+    drops every candidate of this attempt."""
+    for ext in extenders:
+        if not candidates or not ext.supports_preemption():
+            continue
+        try:
+            kept = ext.process_preemption(
+                pod, {n: vs for n, (vs, _) in candidates.items()})
+        except Exception:
+            if ext.ignorable:
+                continue
+            return {}
+        new: Dict[str, Tuple[List[api.Pod], int]] = {}
+        for n, (vs, nviol) in candidates.items():
+            if n not in kept:
+                continue
+            trimmed = [v for v in vs if v.uid in set(kept[n])]
+            if len(trimmed) != len(vs):
+                violating, _ = _pods_violating_pdb(trimmed, pdbs)
+                nviol = len(violating)
+            new[n] = (trimmed, nviol)
+        candidates = new
+    return candidates
+
+
 def vector_candidate_order(pod: api.Pod, snapshot,
                            featurizer) -> Optional[List[str]]:
     """One vectorized (1 x nodes) feasibility-after-victim-removal pass
@@ -247,7 +281,7 @@ def preempt(pod: api.Pod, cache: SchedulerCache,
             failed_predicates: Dict[str, List[str]],
             pdbs: Sequence[api.PodDisruptionBudget],
             with_affinity: bool = False,
-            extra_fit=None,
+            extenders=(), extra_fit=None,
             gang_guard: Optional[GangGuard] = None,
             snapshot=None, featurizer=None
             ) -> Optional[PreemptionResult]:
@@ -258,7 +292,9 @@ def preempt(pod: api.Pod, cache: SchedulerCache,
     clone/reprieve loop then runs only on the top
     PRUNE_HOST_CANDIDATES ranked survivors instead of every resolvable
     node — same semantics approximation as the device pipeline, which
-    also validates only its top-K device-ranked candidates."""
+    also validates only its top-K device-ranked candidates. extenders:
+    the profile's, whose preempt verbs may trim the validated
+    candidates before the pick (process_preemption_with_extenders)."""
     if not pod_eligible_to_preempt_others(pod, cache):
         return None
     # topology spread's what-if needs the cluster-wide domain counts
@@ -286,6 +322,9 @@ def preempt(pod: api.Pod, cache: SchedulerCache,
                                      gang_guard)
         if sel is not None:
             candidates[node_name] = sel
+    if extenders:
+        candidates = process_preemption_with_extenders(pod, candidates,
+                                                       extenders, pdbs)
     chosen = pick_one_node(candidates)
     # flight-recorder event (kubernetes_tpu/sched/preemption.py:329)
     tracing.event("preempt_whatif", pod=pod.uid, path="host",

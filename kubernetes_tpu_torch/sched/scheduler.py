@@ -222,11 +222,22 @@ The store plane (kubernetes_tpu/sched/scheduler.py:310-346, :750-785,
     rebuilds the device mirror; `close()` and `wait_for_binds()` settle
     the binds (inline here, so nothing is in flight).
 
-Left out with no stand-in: the mesh and its reform, the RemoteStore path
-(the REST client, the reflector's LIST feed to the store breaker, the
-bind pool, leader election, `/debug/store`), and extenders (a profile
-with extenders raises NotImplementedError); the mesh series stay at
-zero in `metrics`.
+HTTP extenders (sched/extender.py; kubernetes_tpu/sched/scheduler.py
+sites listed at each use) are the JAX scheduler's: a profile or Policy
+with extenders skips the pipeline and drains per wave on the device;
+each filter verb tightens the wave's host mask (`ExtenderFilter`), each
+prioritize verb adds into the `extra_scores` plane, the exact host path
+asks them over its feasible nodes only, a preempt verb trims the
+candidates of every preemption path, and the first bind verb binds
+inside the reconciler's attempt. An extender error parks the pod (or
+the wave, or the gang) with backoff under
+`scheduling_errors{stage="extender"}`; it never charges the device
+breaker, never moves a wave to the twin and never runs on the CPU.
+
+Left out with no stand-in: the mesh and its reform, and the RemoteStore
+path (the REST client, the reflector's LIST feed to the store breaker,
+the bind pool, leader election, `/debug/store`); the mesh series stay
+at zero in `metrics`.
 """
 
 from __future__ import annotations
@@ -272,11 +283,13 @@ from .breaker import STATE_CODES, DevicePathBreaker, is_capacity_error
 from .equivalence import EquivalenceCache, equivalence_class
 from .errors import (REASON_KEYS, REASONS, FitError, PoisonError,
                      insufficient_resource_reason)
+from .extender import ExtenderError
 from .gang import GangDirectory
 from .preemption import (GangGuard, PreemptionResult,
                          get_lower_priority_nominated_pods,
                          pod_eligible_to_preempt_others, pick_one_node,
-                         preempt, select_victims_on_node)
+                         preempt, process_preemption_with_extenders,
+                         select_victims_on_node)
 from .queue import HIGH_PRIORITY_BAND, SchedulingQueue
 from .reconciler import BOUND, CONFIRMED, GONE, ORPHANED, BindReconciler
 from .storehealth import DISCONNECTED as STORE_DISCONNECTED
@@ -414,10 +427,6 @@ class Scheduler:
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
-        if self.profile.extenders:
-            raise NotImplementedError(
-                "a profile with extenders needs the HTTP extenders, a later "
-                "slice of the port")
         self.wave_size = wave_size
         self.features = features or FeatureGates()
         self.clock = clock
@@ -1324,10 +1333,11 @@ class Scheduler:
         the per-wave loop once a pipeline pass makes no progress. Returns
         pods placed (assumed + bound)."""
         placed = 0
-        # host scores need per-wave host evaluation: the pipeline would
-        # only hand the backlog back (kubernetes_tpu/sched/scheduler.py:
-        # 1239-1245)
-        allow_pipeline = not self.profile.host_scores
+        # extenders and host scores need per-wave host evaluation: the
+        # pipeline would only hand the backlog back, after one webhook
+        # call a pod (kubernetes_tpu/sched/scheduler.py:1236-1245)
+        allow_pipeline = not (self.profile.extenders
+                              or self.profile.host_scores)
         while not self._dormant and self.queue.active_count() > 0:
             if allow_pipeline:
                 pre = self.pipeline_preemptions
@@ -1573,19 +1583,26 @@ class Scheduler:
                     raise
                 return self._capacity_fault(pods, e, rt, rec,
                                             self._run_pipeline)
-        for wv, pb in zip(waves, pbs):
-            P = pb.req.shape[0]
-            if (not self._host_plugin_mask(wv, P).all()
-                    or self._host_score_matrix(wv, P) is not None):
-                # a host filter rejects a node, or host scores are in
-                # play: the per-wave loop evaluates them against fresh
-                # state, so the whole pass goes back to the queue
-                # (kubernetes_tpu/sched/scheduler.py:1670-1682)
-                for p in pods:
-                    self.queue.add_if_not_present(p)
-                if rt is not None:
-                    rec.end_round(rt, outcome="host_fallback")
-                return 0
+        try:
+            for wv, pb in zip(waves, pbs):
+                P = pb.req.shape[0]
+                if (not self._host_plugin_mask(wv, P).all()
+                        or self._host_score_matrix(wv, P) is not None):
+                    # a host filter or an extender rejects a node, or host
+                    # or extender scores are in play: the per-wave loop
+                    # evaluates them against fresh state, so the whole
+                    # pass goes back to the queue
+                    # (kubernetes_tpu/sched/scheduler.py:1670-1682)
+                    for p in pods:
+                        self.queue.add_if_not_present(p)
+                    if rt is not None:
+                        rec.end_round(rt, outcome="host_fallback")
+                    return 0
+        except ExtenderError:
+            # every pod of the pass parks
+            # (kubernetes_tpu/sched/scheduler.py:1684-1690)
+            self._extender_failed(pods, rt, rec)
+            return 0
         try:
             # the chaos seam, a wave at a time, while the batches are
             # still host numpy: a crash-kind poison reproduces on the
@@ -1959,6 +1976,11 @@ class Scheduler:
                     # validation failures on an UNclaimed node are pod-
                     # specific (PDB, affinity) — don't block other pods
                     exhausted[name] = len(claimed[name])
+            if self.profile.extenders:
+                # the preempt verbs trim the validated candidates
+                # (kubernetes_tpu/sched/scheduler.py:2154-2157)
+                validated = process_preemption_with_extenders(
+                    pod, validated, self.profile.extenders, pdbs)
             chosen = pick_one_node(validated)
             rec = tracing.active()
             if rec is not None:
@@ -2047,8 +2069,14 @@ class Scheduler:
                 rec.end_round(rt, outcome="input_fault")
             return placed_gang
         P = pb.req.shape[0]
-        extra = self._host_plugin_mask(pods, P)
-        extra_scores = self._host_score_matrix(pods, P)
+        try:
+            extra = self._host_plugin_mask(pods, P)
+            extra_scores = self._host_score_matrix(pods, P)
+        except ExtenderError:
+            # only this attempt fails: the wave parks
+            # (kubernetes_tpu/sched/scheduler.py:3087-3100)
+            self._extender_failed(pods, rt, rec)
+            return placed_gang
         trace.step("featurized")
         if rt is not None:
             rt.mark("featurize", pods=len(pods))
@@ -2411,8 +2439,13 @@ class Scheduler:
         if not pods:
             return 0  # the whole chunk was convicted at featurize time
         P = pb.req.shape[0]
-        extra = self._host_plugin_mask(pods, P)
-        extra_scores = self._host_score_matrix(pods, P)
+        try:
+            extra = self._host_plugin_mask(pods, P)
+            extra_scores = self._host_score_matrix(pods, P)
+        except ExtenderError:
+            # kubernetes_tpu/sched/scheduler.py:2319-2325
+            self._extender_failed(pods)
+            return 0
         trace.step("featurized")
         if rt is not None:
             rt.mark("featurize", pods=len(pods))
@@ -2529,8 +2562,13 @@ class Scheduler:
             self._gang_input_fault(members, e, rt)
             return 0
         P = pb.req.shape[0]
-        extra = self._host_plugin_mask(members, P)
-        extra_scores = self._host_score_matrix(members, P)
+        try:
+            extra = self._host_plugin_mask(members, P)
+            extra_scores = self._host_score_matrix(members, P)
+        except ExtenderError:
+            # kubernetes_tpu/sched/scheduler.py:2453-2461
+            self._extender_failed(members)
+            return 0
         nt, pm, tt = self.snapshot.host_tensors()
         gating, wvec, _wver = self._weights_kw()
         has_ipa = bool(self.snapshot.has_affinity_terms or pb.ra_has.any()
@@ -2790,11 +2828,24 @@ class Scheduler:
 
     # -- the exact host path (kubernetes_tpu/sched/scheduler.py:3334) -------------
 
+    def _extender_node_labels(self) -> Optional[Dict[str, dict]]:
+        """node -> labels of every cached node, for the filter extenders
+        that are not nodeCacheCapable; None when there is none. Built once
+        a batch and passed down (kubernetes_tpu/sched/scheduler.py:
+        3323-3332)."""
+        if not any(e.filter_verb and not e.node_cache_capable
+                   for e in self.profile.extenders):
+            return None
+        return {n: (ni.node.metadata.labels or {})
+                for n, ni in self.cache.node_infos.items()
+                if ni.node is not None}
+
     def _schedule_host_batch(self, pods: List[api.Pod]) -> int:
         """The exact host path for `pods`, one pod at a time, over one
-        ClusterView shared by the batch (it reads the live cache, so
-        commits and evictions inside the loop stay visible)
-        (kubernetes_tpu/sched/scheduler.py:3334-3388). The per-pod loop
+        ClusterView and one extender node-labels map shared by the batch
+        (both read the live cache, so commits and evictions inside the
+        loop stay visible) (kubernetes_tpu/sched/scheduler.py:3334-3388).
+        The per-pod loop
         is the fault domain: a pod whose spec crashes the golden pass is
         convicted (reason golden, into the queue's quarantine) and the
         batch drains on; an infrastructure failure parks its pod with
@@ -2804,11 +2855,12 @@ class Scheduler:
         if not pods:
             return 0
         view = golden.ClusterView(self.cache.node_infos)
+        node_labels = self._extender_node_labels()
         placed = 0
         crashed: List[tuple] = []
         for p in pods:
             try:
-                placed += self._schedule_host_path(p, view)
+                placed += self._schedule_host_path(p, view, node_labels)
             except Exception as e:
                 if self._infra_error(e):
                     # the golden pass also preempts and commits: a store
@@ -2842,27 +2894,30 @@ class Scheduler:
                           error=f"{type(e).__name__}: {e}")
         return placed
 
-    def _schedule_host_path(self, pod: api.Pod, view) -> int:
+    def _schedule_host_path(self, pod: api.Pod, view, node_labels) -> int:
         """The exact one-pod pass over plugins/golden.py for a pod the
         round cannot encode (kubernetes_tpu/sched/scheduler.py:3408-3535):
-        its predicates and the profile's host filters on every node, host
+        its predicates and the profile's host filters on every node, then
+        each filter extender over the nodes still feasible, host
         preemption when none fits, else the golden scores plus the
-        profile's host scores and a commit on the first best node.
-        Returns 1 if it placed the pod. Traced as a `host_wave` span of
-        backend "golden"."""
+        profile's host scores and the extenders' priorities over the
+        feasible nodes, and a commit on the first best node. Returns 1 if
+        it placed the pod. node_labels: the batch's
+        `_extender_node_labels`. Traced as a `host_wave` span of backend
+        "golden"."""
         self.metrics.schedule_attempts.inc()
         self.metrics.waves_total.labels(path="host").inc()
         rec = tracing.active()
         if rec is None:
-            return self._host_path_inner(pod, view)
+            return self._host_path_inner(pod, view, node_labels)
         t0 = rec.now()
         try:
-            return self._host_path_inner(pod, view)
+            return self._host_path_inner(pod, view, node_labels)
         finally:
             rec.add_span("host_wave", t0, rec.now(), cat="host",
                          pod=pod.uid, backend="golden")
 
-    def _host_path_inner(self, pod: api.Pod, view) -> int:
+    def _host_path_inner(self, pod: api.Pod, view, node_labels) -> int:
         feasible: List[str] = []
         reasons: Dict[str, int] = {}
         failed: Dict[str, List[str]] = {}
@@ -2883,6 +2938,24 @@ class Scheduler:
                 for r in rs[:1]:
                     reasons[r] = reasons.get(r, 0) + 1
                 failed[name] = rs[:1]
+        try:
+            # each filter extender over the nodes still feasible, the
+            # labels of those nodes only for a legacy one; its failure
+            # reasons count into the FitError, its nodes fail as
+            # ExtenderFilter (kubernetes_tpu/sched/scheduler.py:3453-3474)
+            for ext in self.profile.extenders:
+                if ext.filter_verb and feasible:
+                    labels_arg = None if ext.node_cache_capable else {
+                        n: node_labels[n] for n in feasible
+                        if n in node_labels}
+                    feasible, ext_failed = ext.filter(
+                        pod, feasible, node_labels=labels_arg)
+                    for n, r in ext_failed.items():
+                        reasons[r] = reasons.get(r, 0) + 1
+                        failed[n] = ["ExtenderFilter"]
+        except ExtenderError:
+            self._extender_failed([pod])
+            return 0
         if not feasible:
             self.metrics.pods_failed.inc()
             err = FitError(pod.full_name(), len(self.cache.node_infos),
@@ -2895,6 +2968,7 @@ class Scheduler:
                       for n, rs in failed.items()}
                 pr = preempt(pod, self.cache, fp, self._pdbs(),
                              with_affinity=True,
+                             extenders=self.profile.extenders,
                              extra_fit=self._host_extra_fit,
                              gang_guard=self._gang_guard(),
                              snapshot=self.snapshot,
@@ -2917,6 +2991,15 @@ class Scheduler:
         for fn, weight in self.profile.host_scores.values():
             for node, s in fn(pod, self.cache.node_infos).items():
                 host_scores[node] = host_scores.get(node, 0.0) + weight * s
+        try:
+            # the extenders' priorities over the feasible nodes
+            # (kubernetes_tpu/sched/scheduler.py:3513-3520)
+            for ext in self.profile.extenders:
+                for node, s in ext.prioritize(pod, feasible).items():
+                    host_scores[node] = host_scores.get(node, 0.0) + s
+        except ExtenderError:
+            self._extender_failed([pod])
+            return 0
         best_name, best_score = None, None
         for name in feasible:
             ni = self.cache.node_infos[name]
@@ -2954,11 +3037,15 @@ class Scheduler:
         in `_wave_host_fails` for FitError and the preemption
         unresolvable filter. With the equivalence cache on, a (class,
         node, filter) result is looked up before it is computed and
-        stored after."""
+        stored after. Then each filter extender, one POST a pod, over
+        every node of the snapshot in its order, with the labels of every
+        cached node for a legacy one: a node still admitted that it drops
+        fails as ExtenderFilter (kubernetes_tpu/sched/scheduler.py:
+        4686-4701)."""
         N = self.snapshot.caps.N
         mask = np.ones((P, N), bool)
         self._wave_host_fails = {}
-        if not self.profile.host_filters:
+        if not self.profile.host_filters and not self.profile.extenders:
             return mask
         for i, pod in enumerate(pods):
             fails: Dict[str, str] = {}
@@ -2988,6 +3075,22 @@ class Scheduler:
                             fails[name] = (REASON_KEYS.get(rs[0], pname)
                                            if rs else pname)
                             break
+            for ext in self.profile.extenders:
+                if not ext.filter_verb:
+                    continue
+                # the labels map is built again a pod, as JAX builds it
+                feasible, _failed = ext.filter(
+                    pod, list(self.snapshot.node_index),
+                    node_labels=None if ext.node_cache_capable else {
+                        n: (ni.node.metadata.labels or {})
+                        for n, ni in self.cache.node_infos.items()
+                        if ni.node is not None})
+                keep = {self.snapshot.node_index[n] for n in feasible
+                        if n in self.snapshot.node_index}
+                for name, ni_idx in self.snapshot.node_index.items():
+                    if ni_idx not in keep and mask[i, ni_idx]:
+                        mask[i, ni_idx] = False
+                        fails[name] = "ExtenderFilter"
             if fails:
                 self._wave_host_fails[i] = fails
         return mask
@@ -2995,10 +3098,13 @@ class Scheduler:
     def _host_score_matrix(self, pods: List[api.Pod],
                            P: int) -> Optional[np.ndarray]:
         """f32 [P, caps.N]: the profile's host scores, each weighted and
-        added in the order of `host_scores`; None when it has none (the
-        kernel's extra_scores input, kubernetes_tpu/sched/
-        scheduler.py:4717)."""
-        if not self.profile.host_scores:
+        added in the order of `host_scores`, then each extender's
+        prioritize over every node of the snapshot (one POST a pod and
+        extender, its scores already weighted), added in profile order;
+        None when there is neither (the kernel's extra_scores input,
+        kubernetes_tpu/sched/scheduler.py:4717-4739)."""
+        if not self.profile.host_scores and not any(
+                ext.prioritize_verb for ext in self.profile.extenders):
             return None
         out = np.zeros((P, self.snapshot.caps.N), np.float32)
         idx = self.snapshot.node_index
@@ -3008,6 +3114,11 @@ class Scheduler:
                     j = idx.get(node)
                     if j is not None:
                         out[i, j] += weight * s
+            for ext in self.profile.extenders:
+                for node, s in ext.prioritize(pod, list(idx)).items():
+                    j = idx.get(node)
+                    if j is not None:
+                        out[i, j] += s
         return out
 
     # -- gangs (kubernetes_tpu/sched/scheduler.py:3537) ---------------------------
@@ -3073,8 +3184,13 @@ class Scheduler:
             self._gang_input_fault(members, e, rt)
             return placed
         P = pb.req.shape[0]
-        extra = self._host_plugin_mask(members, P)
-        extra_scores = self._host_score_matrix(members, P)
+        try:
+            extra = self._host_plugin_mask(members, P)
+            extra_scores = self._host_score_matrix(members, P)
+        except ExtenderError:
+            # kubernetes_tpu/sched/scheduler.py:3612-3621
+            self._extender_failed(members, rt)
+            return placed
         if rt is not None:
             rt.mark("featurize", pods=len(members))
         try:
@@ -3262,6 +3378,7 @@ class Scheduler:
             pr = preempt(pod, self.cache, fp, self._pdbs(),
                          with_affinity=self.snapshot.has_affinity_terms
                          or _pod_has_ipa_terms(pod),
+                         extenders=self.profile.extenders,
                          extra_fit=self._host_extra_fit,
                          gang_guard=guard, snapshot=self.snapshot,
                          featurizer=self.featurizer)
@@ -3404,6 +3521,7 @@ class Scheduler:
                          self._pdbs(),
                          with_affinity=(self.snapshot.has_affinity_terms
                                         or pod_has_ipa),
+                         extenders=self.profile.extenders,
                          extra_fit=self._host_extra_fit,
                          gang_guard=self._gang_guard(),
                          snapshot=self.snapshot, featurizer=self.featurizer)
@@ -3415,6 +3533,24 @@ class Scheduler:
         self._park_with_backoff(pod)
         self.store.set_pod_condition(
             pod, ("PodScheduled", "False:" + err.message()))
+
+    def _extender_failed(self, pods: List[api.Pod], rt=None,
+                         rec=None) -> None:
+        """A non-ignorable extender failed: only this attempt fails. One
+        scheduling_errors{stage="extender"} and every pod parked with
+        backoff (reference scheduleOne records the error,
+        MakeDefaultErrorFunc requeues). With `rt`, the round's outcome is
+        "extender_error": ended here through `rec`, or left in the ledger
+        for the caller that ends it (a gang's round)."""
+        self.metrics.scheduling_errors.labels(stage="extender").inc()
+        for p in pods:
+            self._park_with_backoff(p)
+        if rt is None:
+            return
+        if rec is not None:
+            rec.end_round(rt, outcome="extender_error")
+        else:
+            rt.ledger["outcome"] = "extender_error"
 
     def _park_with_backoff(self, pod: api.Pod):
         """Failure-path requeue: the pod's next backoff duration, then a
@@ -3504,9 +3640,11 @@ class Scheduler:
     def _bind_attempt(self, pod: api.Pod, node_name: str):
         """One bind POST as a closure (kubernetes_tpu/sched/scheduler.py:
         3964-3989), shared by the live bind and the spool drain, so both
-        go through the same fault seams. The JAX closure's extender
-        `bind_verb` branch is not here: a profile with extenders raises
-        at construction."""
+        go through the same fault seams and the same extender routing:
+        the first extender with a bind verb binds, then the store is
+        updated, inside the reconciler's attempt (a failed extender bind
+        is retried and counted by the store breaker like a failed
+        POST)."""
 
         def _attempt():
             # chaos seam: a raise exercises the retries, then the
@@ -3515,6 +3653,13 @@ class Scheduler:
             # the store-path outage seam, once an attempt
             if faultpoints.fire("store.outage", payload=("bind", pod.uid)):
                 raise ConnectionError("store.outage: bind request dropped")
+            # reference scheduler.go:409 GetBinder: an extender with a
+            # bind verb performs the binding; the store is then updated
+            # so the informers see the placement either way
+            binder = next((e for e in self.profile.extenders if e.bind_verb),
+                          None)
+            if binder is not None:
+                binder.bind(pod, node_name)
             self.store.bind(pod, node_name)
 
         return _attempt

@@ -209,6 +209,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "kubernetes_tpu_torch.plugins.volumes",
                 "kubernetes_tpu_torch.plugins.registry",
                 "kubernetes_tpu_torch.sched.equivalence",
+                "kubernetes_tpu_torch.sched.extender",
                 "kubernetes_tpu_torch.sched.volume_binder",
                 "kubernetes_tpu_torch.sched.weights",
                 "kubernetes_tpu_torch.ops.telemetry",

@@ -22,8 +22,7 @@ from kubernetes_tpu.plugins.registry import default_profile as jax_default
 from kubernetes_tpu.runtime.store import ObjectStore as JaxStore
 from kubernetes_tpu.sched.scheduler import Scheduler as JaxScheduler
 from kubernetes_tpu_torch.ops.scores import stack_weights
-from kubernetes_tpu_torch.plugins.registry import (Profile, Registry,
-                                                   default_profile)
+from kubernetes_tpu_torch.plugins.registry import Registry, default_profile
 from kubernetes_tpu_torch.runtime.store import ObjectStore
 from kubernetes_tpu_torch.sched.errors import REASONS
 from kubernetes_tpu_torch.sched.scheduler import Scheduler
@@ -314,17 +313,6 @@ def test_default_profile_matches_jax():
         "CheckVolumeBinding"]
     assert tuple(got.weights()) == tuple(want.weights())
     assert got.scheduler_name == want.scheduler_name
-
-
-def test_extenders_are_refused():
-    """HTTP extenders are a later slice: a Policy that lists them, and a
-    profile that carries them, raise rather than run without them."""
-    with pytest.raises(NotImplementedError, match="extenders"):
-        Registry().profile_from_policy(
-            '{"extenders": [{"urlPrefix": "http://127.0.0.1:1"}]}')
-    with pytest.raises(NotImplementedError, match="extenders"):
-        Scheduler(ObjectStore(), device="cpu",
-                  profile=Profile(extenders=[object()]))
 
 
 def test_host_score_steers_placement():
