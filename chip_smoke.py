@@ -37,7 +37,7 @@ Phases (any failure exits non-zero and prints no result line):
                shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
                clock: identical bindings and victim sets; then the
                multi-key world: the reduced density world with anchor pods
-               bound first, drained, then 8 pods and a gang of 4 whose
+               bound first, drained, then 4 pods and a gang of 4 whose
                required pod affinity spans the zone and the host key (the
                exact host path, plugins/golden.py): identical bindings,
                every multi-key pod bound where both terms hold (read back
@@ -95,13 +95,15 @@ Phases (any failure exits non-zero and prints no result line):
                one call, and the plain version's ms on the CPU.
   10. trickle — bench.py trickle at 5 000 nodes (DRIVER_SUITE runs 500):
                caps as bench.py _warmed_scheduler, 64 warm pods through
-               warm_pipeline and deleted, a fresh Metrics, then 2 048
-               pods in chunks of 64 with schedule_pending() after each.
+               warm_pipeline and deleted, a fresh Metrics, then 1 024
+               pods (cut from 2 048 for the script's time) in chunks of
+               64 with schedule_pending() after each.
                Printed: pods/s, the p99 of pod_scheduling_latency and of
                e2e_scheduling_latency, rounds, launches, and the implicit
                host syncs of one more chunk's round;
-  11. paced  — bench.py paced at 5 000 nodes, 2 000 pods (cut from 4 000
-               for the script's time limit) offered at 200 pods/s in chunks of 100 on the wall clock,
+  11. paced  — bench.py paced at 5 000 nodes, 1 000 pods (cut from 4 000
+               and then from 2 000 for the script's time limit) offered
+               at 200 pods/s in chunks of 100 on the wall clock,
                then bench.py's stalled-drain loop (a stall fails the
                phase). Printed: the p99 of pod_scheduling_latency against
                the 5 s SLO and the offered rate achieved;
@@ -127,8 +129,9 @@ Phases (any failure exits non-zero and prints no result line):
                volume_bind, ...), taint/port launches, the implicit host
                syncs of one volume and one density wave, claims bound.
   14. traced — the flight recorder and the decision observatory: the
-               density world at 5 000 nodes with a 4 096-pod backlog (32
-               waves, one round) drained on two fresh schedulers from one
+               density world at 5 000 nodes with a 2 048-pod backlog (16
+               waves, one round; cut from 4 096 for the script's time)
+               drained on two fresh schedulers from one
                seed, untraced and traced (utils/tracing.py enable() with
                a ledger file, a `live` WeightProfile equal to the default
                weights, a bin-packing and a spreading candidate,
@@ -272,8 +275,9 @@ Phases (any failure exits non-zero and prints no result line):
                sched/storehealth.py, state/journal.py, the scheduler's
                bind spool) on the density world at 5 000 nodes, on a
                virtual clock, the store breaker's cooldown 2 s and its
-               jitter pinned: a fault-free run drains 1 024 density pods,
-               then 1 024 more; (a) the same with store.outage armed
+               jitter pinned: a fault-free run drains 512 density pods
+               (cut from 1 024 for the script's time), then 512 more;
+               (a) the same with store.outage armed
                (raise, unbounded) for the second batch: every bind
                spools and is journaled (fsync a record) in a temporary
                directory; disarmed, past the probe deadline one run_once
@@ -284,7 +288,7 @@ Phases (any failure exits non-zero and prints no result line):
                fault-free run's, host seconds spooling (journal append
                with fsync, and the rest), journal bytes, the drain's
                seconds, the breaker's state at each step; (b) the same
-               outage with the journal capped at 65 536 B (one rotation),
+               outage with the journal capped at 32 768 B (one rotation),
                the process abandoned with its spool (watches dropped, no
                close, no drain); a fresh Scheduler over the same store
                and journal, the store still dark, replays every intent
@@ -304,8 +308,9 @@ Phases (any failure exits non-zero and prints no result line):
                ThreadingHTTPServer on 127.0.0.1 that bans a seventh of
                the nodes by name, gives 10 at weight 2 to zone-1's nodes,
                records each bind and drops the first candidate node of
-               each preemption: (a) the density world at 5 000 nodes, 512
-               pods in waves of 128 with nodeCacheCapable false (the
+               each preemption: (a) the density world at 5 000 nodes, 256
+               pods (cut from 512 for the script's time) in waves of 128
+               with nodeCacheCapable false (the
                labels of every node in each filter POST): no pod on a
                banned node, the extender's binds == the store's bindings,
                one a pod, the taint/port kernel launched, no breaker
@@ -323,13 +328,47 @@ Phases (any failure exits non-zero and prints no result line):
                parked and scheduling_errors{stage="extender"} 1;
                ignorable, the bindings of the same per-wave drain with
                no extender.
+  21. deployed — the deployed kube-scheduler (cli/kube_scheduler.py:
+               its config, build_scheduler, the scheduling loop, the
+               HealthServer, leader election, the REST client, the
+               reflectors and RemoteStore, the bind pool) on the card
+               against the port's own APIServer (server/apiserver.py) on
+               127.0.0.1 in this process, the nodes written into the
+               server's store first: (a) 2 048 density pods (no host
+               port, see deploy_world) created over REST at 5 000 nodes,
+               one main([--server, --config cfg.json, --once,
+               --tracing]): every pod bound once over REST (read back and
+               held to check_bindings), one taint/port launch at least a
+               per-wave dispatch, the kernel == plain on their inputs, no
+               breaker trip; printed: pods/s from the first POST to the
+               last bind, host seconds (the reflectors' LIST, the build,
+               featurize, upload, the waves, commit, the pool's binds),
+               REST requests by verb, the reflector's events, the binds in
+               flight at most, the implicit host syncs of the first wave;
+               (b) just before its HealthServer stops, every endpoint:
+               /healthz, /metrics (pods_scheduled_total == the drain,
+               reflector_relists_total == its reflectors), /debug/trace
+               (Chrome JSON, text, ledger: one row a wave, path cuda),
+               /debug/score (index, one pod's decision naming its
+               binding, text), /debug/shadow, /debug/store (connected, no
+               error, empty spool), /debug/profile, /debug/autopilot
+               (404); (c) two run(--leader-elect) schedulers, leases of
+               1.5 s, 1 024 pods: the leader's elector stopped halfway,
+               the standby (held off the lease until the old leader's
+               binds settled, ROADMAP queue 3) takes the lease and
+               drains on (seconds to its first bind), then its renewals
+               fail until it is dormant and it takes its lease back
+               (recover_leadership's seconds); every pod bound once; (d)
+               500 nodes, 512 pods,
+               main(--once) on the card and on the CPU: the same bindings
+               and the same /metrics less the wall-clock readings.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
 or strike (a healthy phase that leaned on a ladder fails), no store
 trip and no spooled bind; phase 17's schedulers are held to no capacity
 fault and phases 17-18's to no store trip and no spooled bind; phase
-19's to the device checks of phases 4-16, phase 20's to both.
+19's to the device checks of phases 4-16, phases 20's and 21's to both.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -349,6 +388,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -377,14 +417,15 @@ PREEMPT_VIPS = 2500
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
 # phase 5's multi-key pods: single pods and one gang, each pod with
-# required pod affinity over the zone and the host (8 single pods, cut
-# from 16 for the script's time: each host-path pass scans every bound
-# pod for every node)
-MULTIKEY_PODS, MULTIKEY_GANG = 8, 4
+# required pod affinity over the zone and the host (4 single pods, cut
+# from 16 and then from 8 for the script's time: each host-path pass
+# scans every bound pod for every node)
+MULTIKEY_PODS, MULTIKEY_GANG = 4, 4
 # phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
-# trickle at 500 nodes, paced at 5 000)
-TRICKLE_PODS, TRICKLE_CHUNK = 2048, 64
-PACED_PODS, PACED_RATE, PACED_CHUNK = 2000, 200.0, 100
+# trickle at 500 nodes, paced at 5 000); trickle cut from 2 048 pods (32
+# chunks) to make room for phase 21
+TRICKLE_PODS, TRICKLE_CHUNK = 1024, 64
+PACED_PODS, PACED_RATE, PACED_CHUNK = 1000, 200.0, 100
 PACED_SLO_S = 5.0
 # phase 12 (bench.py preempt_host, its own size)
 HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
@@ -396,10 +437,11 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # plus a per-wave dispatch a wave at the density drain's ms a pod
 SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
 SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 128, 40.0, 8
-# phase 14: the density world's backlog drained untraced and traced (32
-# waves, one round), then twice more traced after a promotion and after
-# the rollback
-TRACED_PODS, TRACED_EXTRA = 4096, 512
+# phase 14: the density world's backlog drained untraced and traced (16
+# waves, one round; cut from 4 096 pods and 32 waves to make room for
+# phase 21), then twice more traced after a promotion and after the
+# rollback
+TRACED_PODS, TRACED_EXTRA = 2048, 512
 # phase 15 (the cluster autoscaler): AUTOSCALE_RESIDENTS replicated pods
 # of AUTOSCALE_RESIDENT_CPU bound on each real node (88% of its CPU), a
 # backlog of AUTOSCALE_BACKLOG pods of AUTOSCALE_POD_CPU cores (half
@@ -524,8 +566,10 @@ STORM_DRAIN_TICKS = 200
 # the journal capped at STORE_JOURNAL_BYTES, so that (b)'s replay of
 # STORE_PODS intents (about 118 B each) crosses one rotation; (d) the
 # spool watermark STORE_WATERMARK with shed_watermark STORM_WATERMARK,
-# STORE_HELD low pods held past it and STORE_HIGH high pods spooled
-STORE_PODS, STORE_COOLDOWN_S, STORE_JOURNAL_BYTES = 1024, 2.0, 65536
+# STORE_HELD low pods held past it and STORE_HIGH high pods spooled.
+# STORE_PODS cut from 1 024 (the journal cap from 65 536 B with it) to
+# make room for phase 21
+STORE_PODS, STORE_COOLDOWN_S, STORE_JOURNAL_BYTES = 512, 2.0, 32768
 STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 # phase 20 (HTTP extenders): the script's extender bans node-{i} with
 # i % EXT_BAN_MOD == EXT_BAN_MOD - 1 and gives EXT_SCORE to the nodes of
@@ -538,10 +582,37 @@ STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 # get a node, as in the JAX scheduler, so the filter, prioritize and
 # preempt POSTs grow with the square of the vips; extender_vips.py times
 # this world at other counts), (d) EXT_DOWN_PODS pods (one wave) with the
-# extender down
-EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 512, 7, 1, 10, 2
+# extender down. EXT_PODS cut from 512 to make room for phase 21 (the
+# halving rule above still applies)
+EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 256, 7, 1, 10, 2
 EXT_TIMEOUT_S, EXT_BUDGET_S, EXT_REST_S = 30.0, 90.0, 40.0
 EXT_VIPS, EXT_DOWN_PODS = 16, 128
+# phase 21 (the deployed kube-scheduler against the port's APIServer):
+# (a) DEPLOY_PODS density pods at FULL_NODES nodes, created over REST;
+# (c) FAILOVER_PODS pods drained by two --leader-elect schedulers with
+# leases of FAILOVER_LEASE s (renew deadline FAILOVER_RENEW s, retry
+# FAILOVER_RETRY s), each wait bounded by FAILOVER_WAIT_S; (d) card ==
+# CPU at SMALL_NODES nodes and DEPLOY_SMALL_PODS pods
+DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 2048, 1024, 512
+FAILOVER_LEASE, FAILOVER_RENEW, FAILOVER_RETRY = 1.5, 1.0, 0.2
+FAILOVER_WAIT_S = 120.0
+# the /metrics families phase 21 (d) leaves out of card == CPU: the
+# histograms of wall-clock seconds (buckets and sums; their _count lines
+# are compared), series that vary from run to run on one device (the
+# class gauges, exported on a one-second cadence; the upload bytes, which
+# depend on how many bind echoes reached the mirror before each wave),
+# and the compile-cache series (their bucket label names the device, and
+# a hit or a miss depends on what the process ran before)
+DEPLOY_TIMED = ("binding_latency", "e2e_scheduling_latency",
+                "gang_wait_seconds", "pod_scheduling_latency",
+                "scheduling_algorithm_latency",
+                "scheduling_algorithm_predicate_evaluation",
+                "scheduling_algorithm_preemption_evaluation",
+                "scheduling_algorithm_priority_evaluation",
+                "snapshot_scrub_duration_seconds")
+DEPLOY_UNTIMED = ("scheduler_queue_class_pods", "snapshot_upload_bytes_total",
+                  "device_jit_cache_events_total",
+                  "device_jit_compile_seconds")
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
 KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
@@ -2559,7 +2630,7 @@ def traced_world(mods, enc, bucket_size, Scheduler, PodBackoff, tracing,
 
 def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
                  weights_mod, stack):
-    """Phase 14: the density world (FULL_NODES nodes, TRACED_PODS pods, 32
+    """Phase 14: the density world (FULL_NODES nodes, TRACED_PODS pods, 16
     waves, one round) drained on fresh schedulers from one seed, A with
     tracing off and B traced with a ledger file, a `live` profile equal
     to the defaults, a bin-packing candidate and a spreading candidate
@@ -5576,6 +5647,629 @@ def extender_phase(torch, mods, enc, bucket_size, Registry):
     return {"launches": launches, "whatif_launches": whatif_launches}
 
 
+class CliPatch:
+    """Instruments the port's kube-scheduler module (cli/kube_scheduler.py)
+    for one phase-21 run, by its module attributes, restored by undo():
+    its HealthServer is probed once just before it stops (the run's end:
+    its scheduler closed and still queryable), each scheduler
+    build_scheduler builds is recorded with its build times and held by
+    the Ladder, its first wave's implicit host syncs counted and its
+    host phases timed, its LeaderElector can be made to fail its
+    renewals and acquisitions (`flap`; a second elector starts so), and
+    each RemoteStore it makes is recorded."""
+
+    def __init__(self, torch, ks, ladder, probe=None):
+        self.torch, self.ks, self.ladder = torch, ks, ladder
+        self.saved = {name: getattr(ks, name) for name in
+                      ("HealthServer", "build_scheduler", "LeaderElector",
+                       "RemoteStore")}
+        self.built = []  # (scheduler, t_build_start, t_build_end)
+        self.electors = []
+        self.stores = []
+        self.clock = PhaseClock()
+        self.syncs = []  # (label and thread, {file:line -> syncs})
+        self.placed = {}  # label -> pods its waves placed
+        self.recoveries = []  # (scheduler, seconds, stats)
+        patch = self
+
+        class Probing(self.saved["HealthServer"]):
+            def stop(self):
+                if probe is not None:
+                    probe(self)
+                super().stop()
+
+        def build(*a, **kw):
+            t0 = time.monotonic()
+            sched = patch.saved["build_scheduler"](*a, **kw)
+            patch.instrument(sched)
+            patch.built.append((sched, t0, time.monotonic()))
+            ladder.made.append(sched)
+            return sched
+
+        class Elector(self.saved["LeaderElector"]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                # every elector but the first starts held off the lease
+                self.flap = bool(patch.electors)
+                patch.electors.append(self)
+
+            def _try_acquire_or_renew(self):
+                if self.flap:
+                    return False  # the renewal round trip failed
+                return super()._try_acquire_or_renew()
+
+        class Store(self.saved["RemoteStore"]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                patch.stores.append(self)
+
+        ks.HealthServer = Probing
+        ks.build_scheduler = build
+        ks.LeaderElector = Elector
+        ks.RemoteStore = Store
+
+    def instrument(self, sched):
+        torch, clock = self.torch, self.clock
+        sync = torch.cuda.synchronize if sched.device.type == "cuda" else None
+        sched.featurizer.featurize = clock.wrap("featurize",
+                                                sched.featurizer.featurize)
+        sched.snapshot.to_device = clock.wrap("upload",
+                                              sched.snapshot.to_device, sync)
+        sched._commit = clock.wrap("commit", sched._commit)
+        sched._bind_and_finish = clock.wrap("bind (pool threads)",
+                                            sched._bind_and_finish)
+        run_wave = sched._run_wave
+        first = []
+
+        label = f"S{len(self.built) + 1}"
+
+        def wave(pods):
+            if first or sched.device.type != "cuda":
+                out = run_wave(pods)
+            else:
+                first.append(1)
+                out, where = count_syncs(torch, lambda: run_wave(pods))
+                self.syncs.append(
+                    (f"{label} on {threading.current_thread().name}", where))
+            self.placed[label] = self.placed.get(label, 0) + out
+            return out
+
+        sched._run_wave = clock.wrap("wave (featurize to commit)", wave,
+                                     sync)
+        recover = sched.recover_leadership
+
+        def recover_timed():
+            t0 = time.monotonic()
+            stats = recover()
+            if sync is not None:
+                sync()
+            self.recoveries.append((sched, time.monotonic() - t0, stats))
+            return stats
+
+        sched.recover_leadership = recover_timed
+
+    def undo(self):
+        for name, value in self.saved.items():
+            setattr(self.ks, name, value)
+
+
+def deploy_world(api, store_mod, n_nodes, n_pods, seed):
+    """build_store's world with no host port on a pending pod: two pods
+    of one wave asking port 8080 may pick one node (a per-wave dispatch
+    checks ports against its wave's start state), and the second, failing
+    the exact recheck, would wait out a backoff that a --once run does
+    not wait for (the JAX CLI's batch mode exits when the active queue is
+    empty). The bound holders keep theirs."""
+    template, n_bound = build_store(api, store_mod, n_nodes, n_pods, seed)
+    for p in template.list("pods"):
+        if not p.spec.node_name:
+            for c in p.spec.containers:
+                c.ports = []
+    return template, n_bound
+
+
+def deploy_server(api, store_mod, template, post=True):
+    """The port's APIServer on 127.0.0.1 (port 0) over a store of deep
+    copies of `template`'s nodes and bound pods; its pending pods created
+    over REST (post) or in the store. Returns (server, the times of each
+    pod's binds as the server took them, the first POST's time, the
+    pending pods' names)."""
+    from kubernetes_tpu_torch.client.rest import RESTClient
+    from kubernetes_tpu_torch.server import APIServer
+
+    store = store_mod.ObjectStore()
+    for node in template.list("nodes"):
+        store.create("nodes", copy.deepcopy(node))
+    pending = []
+    for p in template.list("pods"):
+        if p.spec.node_name:
+            store.create("pods", copy.deepcopy(p))
+        else:
+            pending.append(p)
+    binds = {}
+    real_bind = store.bind
+
+    def bind(pod, node_name):
+        out = real_bind(pod, node_name)
+        binds.setdefault(pod.metadata.name, []).append(time.monotonic())
+        return out
+
+    store.bind = bind
+    srv = APIServer(store).start()
+    t_post = time.monotonic()
+    if post:
+        client = RESTClient(srv.url)
+        for p in pending:
+            client.create("pods", copy.deepcopy(p))
+    else:
+        for p in pending:
+            store.create("pods", copy.deepcopy(p))
+    return srv, binds, t_post, [p.metadata.name for p in pending]
+
+
+def stop_server(srv):
+    """Ends every watch stream at once (the reflectors then exit), then
+    stops the server."""
+    for w in list(srv.broadcaster._watchers):
+        w.stop()
+    srv.stop()
+
+
+def rest_view(srv):
+    """The server's nodes and pods read back over REST, as a store-like
+    object check_bindings and bindings() read."""
+    from kubernetes_tpu_torch.client.rest import RESTClient
+
+    client = RESTClient(srv.url)
+    objs = {"nodes": client.list("nodes")[0], "pods": client.list("pods")[0]}
+
+    class View:
+        def list(self, kind):
+            return objs[kind]
+
+    return View()
+
+
+def http_get(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def untimed_metrics(text):
+    """The /metrics lines less DEPLOY_TIMED's buckets and sums and
+    DEPLOY_UNTIMED's families."""
+    out = []
+    for ln in text.splitlines():
+        name = ln.split()[2] if ln.startswith("# TYPE") else ln
+        family = name.partition("{")[0].split()[0]
+        if family.startswith(DEPLOY_UNTIMED):
+            continue
+        if any(family in (f"{h}_bucket", f"{h}_sum") for h in DEPLOY_TIMED):
+            continue
+        out.append(ln)
+    return out
+
+
+def metric_value(lines, name):
+    for ln in lines:
+        if ln.startswith(name + " "):
+            return float(ln.split()[1])
+    fail(f"deployed: /metrics has no {name}")
+
+
+def deployed_drain_a(torch, mods, ks, tracing, filters, ladder):
+    """Phase 21 (a) and (b): DEPLOY_PODS density pods at FULL_NODES nodes,
+    created over REST, one `main([--server, --config, --once,
+    --tracing])` on the card; every endpoint of its HealthServer GET just
+    before it stops."""
+    import tempfile
+
+    api, tp, store_mod = mods[0], mods[1], mods[7]
+    template, n_bound = deploy_world(api, store_mod, FULL_NODES,
+                                     DEPLOY_PODS, SEED + 211)
+    srv, binds, t_post, pending = deploy_server(api, store_mod, template)
+    post_s = time.monotonic() - t_post
+    got = {}
+
+    def probe(hs):
+        sched = hs.scheduler_ref()
+        got["sched"] = sched
+        for path in ("/healthz", "/metrics", "/debug/trace",
+                     "/debug/trace?format=text", "/debug/trace?format=ledger",
+                     "/debug/score", "/debug/shadow", "/debug/store",
+                     "/debug/autopilot", "/debug/profile", "/nope"):
+            got[path] = http_get(hs.port, path)
+        code, idx = got["/debug/score"]
+        if code == 200 and json.loads(idx):
+            uid = json.loads(idx)[0]["uid"]
+            got["uid"] = uid
+            got["/debug/score?uid="] = http_get(hs.port,
+                                                f"/debug/score?uid={uid}")
+            got["/debug/score?uid=&format=text"] = http_get(
+                hs.port, f"/debug/score?uid={uid}&format=text")
+
+    patch = CliPatch(torch, ks, ladder, probe)
+    captured = {}
+    kernel_launch = filters.taint_ports_masks
+
+    def capture(nt_, pb_, **kw):
+        rows = pb_.tol_key.shape[0]
+        if rows not in captured:
+            captured[rows] = (
+                nt_._replace(**{f: getattr(nt_, f).clone()
+                                for f in KERNEL_NODE_FIELDS}),
+                pb_._replace(**{f: getattr(pb_, f).clone()
+                                for f in KERNEL_POD_FIELDS}))
+        return kernel_launch(nt_, pb_, **kw)
+
+    events = {}
+    from kubernetes_tpu_torch.client import reflector as refl_mod
+
+    real_on_event = refl_mod.RemoteStore._on_event
+
+    def on_event(self, ev):
+        key = f"{ev.kind} {ev.type}"
+        events[key] = events.get(key, 0) + 1
+        return real_on_event(self, ev)
+
+    tmp = tempfile.mkdtemp(prefix="deployed-")
+    cfg_path = f"{tmp}/cfg.json"
+    with open(cfg_path, "w") as f:
+        json.dump({"waveSize": WAVE, "healthzPort": 0}, f)
+    filters.taint_ports_masks = capture
+    refl_mod.RemoteStore._on_event = on_event
+    tp.taint_ports_masks.launches = 0
+    try:
+        t0 = time.monotonic()
+        rc = ks.main(["--server", srv.url, "--config", cfg_path, "--once",
+                      "--tracing"])
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        launches = tp.taint_ports_masks.launches
+    finally:
+        filters.taint_ports_masks = kernel_launch
+        refl_mod.RemoteStore._on_event = real_on_event
+        patch.undo()
+        if tracing.active() is not None:
+            fail("deployed: (a) the run left its recorder enabled")
+    requests = dict(srv.request_count)
+    view = rest_view(srv)
+    stop_server(srv)
+    if rc != 0:
+        fail(f"deployed: (a) main() returned {rc}")
+    sched, t_build0, t_build1 = patch.built[0]
+    if sched.wave_path() != "cuda":
+        fail(f"deployed: (a) wave_path() {sched.wave_path()!r}")
+    bound = check_bindings(api, view)
+    placed_binds = [binds[n] for n in pending if n in binds]
+    if bound != DEPLOY_PODS + n_bound or len(placed_binds) != DEPLOY_PODS:
+        fail(f"deployed: (a) {len(placed_binds)} of {DEPLOY_PODS} pods "
+             f"bound over REST ({bound} bound in all)")
+    if any(len(b) != 1 for b in placed_binds):
+        fail("deployed: (a) a pod was bound twice")
+    t_last = max(b[0] for b in placed_binds)
+    waves = -(-DEPLOY_PODS // WAVE)
+    if launches < waves:
+        fail(f"deployed: (a) {launches} taint/port launches for {waves} "
+             "per-wave dispatches")
+    if sched.storehealth.trips or sched.breaker.trips:
+        fail("deployed: (a) a breaker tripped")
+    phases = dict(patch.clock.seconds)
+    wall = t_last - t_post
+    log(f"[deployed] (a) {FULL_NODES} nodes ({n_bound} bound port holders "
+        f"in the server's store), {DEPLOY_PODS} density pods POSTed in "
+        f"{post_s:.3f} s; main(--once --tracing) on the card: placed "
+        f"{DEPLOY_PODS} in {wall:.3f} s from the first POST to the last "
+        f"bind = {DEPLOY_PODS / wall:.1f} pods/s; from main() to the last "
+        f"bind {t_last - t0:.3f} s = {DEPLOY_PODS / (t_last - t0):.1f} "
+        f"pods/s; main() returned after {t_end - t0:.3f} s")
+    log(f"[deployed] (a) host seconds: reflectors' LIST and sync "
+        f"{t_build0 - t0:.3f}, build_scheduler {t_build1 - t_build0:.3f}, "
+        f"first wave to the last bind {t_last - t_build1:.3f}; by phase: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    log("[deployed] (a) REST requests by verb: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(requests.items())))
+    log("[deployed] (a) reflector events: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(events.items())))
+    if not patch.syncs:
+        fail("deployed: (a) no wave ran on the card")
+    thread, syncs = patch.syncs[0]
+    log(f"[deployed] (a) taint/port launches {launches} ({waves} per-wave "
+        f"dispatches); binds in flight on the pool (submitted, not done) "
+        f"at most "
+        f"{sched.bind_overlap_hwm}; implicit host syncs of the first wave "
+        f"({thread}): {sum(syncs.values())} ("
+        + ", ".join(f"{k} x{v}" for k, v in sorted(syncs.items()))
+        + "); every pod bound once, invariants hold; no breaker trip")
+    max_err = check_captured(torch, tp, "deployed", captured)
+    # (b) the endpoints, their counts against the drain
+    want = {"/healthz": 200, "/metrics": 200, "/debug/trace": 200,
+            "/debug/trace?format=text": 200,
+            "/debug/trace?format=ledger": 200, "/debug/score": 200,
+            "/debug/score?uid=": 200, "/debug/score?uid=&format=text": 200,
+            "/debug/shadow": 200, "/debug/store": 200,
+            "/debug/autopilot": 404, "/debug/profile": 200, "/nope": 404}
+    codes = {p: got.get(p, (None,))[0] for p in want}
+    if codes != want:
+        fail(f"deployed: (b) endpoint status codes {codes}")
+    if got["/healthz"][1] != "ok":
+        fail("deployed: (b) /healthz did not answer ok")
+    lines = got["/metrics"][1].splitlines()
+    scheduled = metric_value(lines, "pods_scheduled_total")
+    relists = metric_value(lines, "reflector_relists_total")
+    if scheduled != DEPLOY_PODS:
+        fail(f"deployed: (b) /metrics pods_scheduled_total {scheduled}")
+    if relists != len(sched.store._reflectors):
+        fail(f"deployed: (b) /metrics reflector_relists_total {relists} "
+             f"for {len(sched.store._reflectors)} reflectors")
+    trace = json.loads(got["/debug/trace"][1])
+    if not trace.get("traceEvents"):
+        fail("deployed: (b) /debug/trace has no events")
+    rows = [json.loads(r) for r in
+            got["/debug/trace?format=ledger"][1].splitlines() if r]
+    if len(rows) != waves or any(r.get("path") != "cuda" for r in rows):
+        fail(f"deployed: (b) {len(rows)} ledger rows for {waves} waves")
+    entry = json.loads(got["/debug/score?uid="][1])
+    pod_name = entry["pod"].split("/", 1)[1]
+    node_of = bindings(view)
+    if entry["node"] != node_of.get(pod_name):
+        fail(f"deployed: (b) /debug/score names {entry['node']} for "
+             f"{pod_name}, bound to {node_of.get(pod_name)}")
+    shadow = json.loads(got["/debug/shadow"][1])
+    store_dbg = json.loads(got["/debug/store"][1])
+    if store_dbg["state"] != "connected" or any(
+            store_dbg["errors"].values()) or store_dbg["spool"]["depth"]:
+        fail(f"deployed: (b) /debug/store {store_dbg}")
+    if got["/debug/autopilot"][1] != "no autopilot controller attached\n":
+        fail("deployed: (b) /debug/autopilot did not say no autopilot")
+    log(f"[deployed] (b) every endpoint well formed: /metrics "
+        f"pods_scheduled_total {scheduled:.0f}, reflector_relists_total "
+        f"{relists:.0f} ({len(lines)} lines); /debug/trace "
+        f"{len(trace['traceEvents'])} events; {len(rows)} ledger rows, one "
+        f"a wave, path cuda; /debug/score "
+        f"{len(json.loads(got['/debug/score'][1]))} recent decisions, "
+        f"{pod_name} -> {entry['node']} as bound; /debug/shadow "
+        f"weights_version {shadow['weights_version']}; /debug/store "
+        f"connected, no error, empty spool; /debug/autopilot 404")
+    return {"launches": launches, "max_err": max_err, "wall": wall,
+            "syncs": sum(syncs.values())}
+
+
+def failover_run(torch, mods, ks, ladder):
+    """Phase 21 (c): two `run(--leader-elect)` schedulers on the card
+    against one server, leases of FAILOVER_LEASE s, FAILOVER_PODS pods in
+    the server's store before S1 starts (its first LIST carries them all,
+    so its waves are full ones). S1 leads and drains; S2 runs as the
+    standby, its lease attempts failing (`flap`) from its start until S1
+    is dormant and S2's mirror shows every bind S1 made (in one process
+    the two electors share the interpreter with the drain: a 1.5 s lease
+    whose renewals starve would otherwise hand S2 the lease while S1
+    binds). Once S1's waves have placed half the pods its elector is
+    stopped: S1 goes dormant for good (its binds settled), S2
+    takes the lease, builds its scheduler (the CLI builds it at a first
+    leadership) and drains on. From S2's first bind its renewals fail
+    until it goes dormant (a flap: nobody else is a candidate), then
+    succeed: S2 takes its lease back, runs recover_leadership and drains
+    the rest. The hold keeps S2 from building while S1's binds are in
+    flight: a standby that queues pods the old leader then binds raises
+    on its next wave, in both packages (ROADMAP queue 3)."""
+    api, tp, store_mod = mods[0], mods[1], mods[7]
+    from kubernetes_tpu_torch.sched.config import KubeSchedulerConfiguration
+
+    template, _ = deploy_world(api, store_mod, FULL_NODES, FAILOVER_PODS,
+                               SEED + 212)
+    srv, binds, _, names = deploy_server(api, store_mod, template,
+                                         post=False)
+    patch = CliPatch(torch, ks, ladder)
+    cfg = KubeSchedulerConfiguration(wave_size=WAVE, healthz_port=-1)
+    le = cfg.leader_election
+    le.leader_elect = True
+    le.lease_duration = FAILOVER_LEASE
+    le.renew_deadline = FAILOVER_RENEW
+    le.retry_period = FAILOVER_RETRY
+    stops = [threading.Event(), threading.Event()]
+    errors = []
+
+    def runner(i):
+        try:
+            if ks.run(cfg, srv.url, stop=stops[i], device="cuda") != 0:
+                errors.append(f"S{i + 1} returned non-zero")
+        except Exception as e:  # reported below, and the phase fails
+            errors.append(f"S{i + 1}: {type(e).__name__}: {e}")
+
+    def wait(cond, what):
+        deadline = time.monotonic() + FAILOVER_WAIT_S
+        while not cond():
+            if errors or time.monotonic() > deadline:
+                fail(f"deployed: (c) waiting for {what}: "
+                     f"{errors or 'timed out'}")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    def n_bound_now():
+        return sum(1 for n in names if n in binds)
+
+    def mirrored(store):
+        """Every pod the server has bound shows bound in store's mirror."""
+        for n in [n for n in names if n in binds]:
+            pod = store.get("pods", "default", n)
+            if pod is None or not pod.spec.node_name:
+                return False
+        return True
+
+    threads = [threading.Thread(target=runner, args=(i,), daemon=True)
+               for i in range(2)]
+    tp.taint_ports_masks.launches = 0
+    t0 = time.monotonic()
+    try:
+        threads[0].start()
+        wait(lambda: patch.built and patch.electors[0].is_leader,
+             "S1 to lead and build its scheduler")
+        s1 = patch.built[0][0]
+        threads[1].start()
+        wait(lambda: len(patch.electors) == 2, "S2's elector")
+        s1_elector, s2_elector = patch.electors
+        s2_store = patch.stores[1]
+        # S1's waves outrun its binds: stop it once it has placed half
+        wait(lambda: patch.placed.get("S1", 0) >= FAILOVER_PODS // 2,
+             "S1 to place half the pods")
+        s1_elector.stop()
+        t_stop = time.monotonic()
+        # dormant is set before enter_dormant drains the binds in flight
+        t_s1_dormant = wait(lambda: s1.dormant and not s1._inflight,
+                            "S1 to go dormant with its binds settled")
+        n_s1 = n_bound_now()
+        wait(lambda: mirrored(s2_store), "S2's mirror of S1's binds")
+        s2_elector.flap = False
+        t_release = time.monotonic()
+        wait(lambda: len(patch.built) == 2, "S2 to build its scheduler")
+        s2, t_s2_build0, t_s2_build1 = patch.built[1]
+        t_s2_first = wait(lambda: n_bound_now() > n_s1, "S2's first bind")
+        s2_elector.flap = True
+        t_flap = time.monotonic()
+        wait(lambda: s2.dormant, "S2 to go dormant")
+        t_dormant = time.monotonic()
+        n_flap = n_bound_now()
+        s2_elector.flap = False
+        wait(lambda: patch.recoveries, "S2 to recover its leadership")
+        wait(lambda: n_bound_now() == FAILOVER_PODS, "every pod bound")
+        t_all = time.monotonic()
+        torch.cuda.synchronize()
+        launches = tp.taint_ports_masks.launches
+    finally:
+        for ev in stops:
+            ev.set()
+        for t in threads:
+            t.join(timeout=60)
+        patch.undo()
+    if any(t.is_alive() for t in threads):
+        fail("deployed: (c) a scheduler's run() did not return")
+    if errors:
+        fail(f"deployed: (c) {errors}")
+    view = rest_view(srv)
+    stop_server(srv)
+    check_bindings(api, view)
+    if any(len(binds[n]) != 1 for n in names):
+        fail("deployed: (c) a pod was bound twice")
+    sched, rec_s, stats = patch.recoveries[0]
+    if sched is not s2 or not s1.dormant or launches < 2:
+        fail(f"deployed: (c) the recovery ran on the wrong scheduler, S1 "
+             f"is not dormant, or the kernel launched {launches} times")
+    for s in (s1, s2):
+        if s.storehealth.trips or s.breaker.trips or s.spool_count():
+            fail("deployed: (c) a breaker tripped or a bind spooled")
+    syncs = {label: sum(w.values()) for label, w in patch.syncs}
+    log(f"[deployed] (c) {FULL_NODES} nodes, leases of {FAILOVER_LEASE} s "
+        f"(renew deadline {FAILOVER_RENEW} s, retry {FAILOVER_RETRY} s), "
+        f"{FAILOVER_PODS} pods in the server's store: S1 bound {n_s1}, its "
+        f"elector stopped {t_stop - t0:.3f} s after S1 started, S1 dormant "
+        f"(its binds settled) {t_s1_dormant - t_stop:.3f} s later; S2, held "
+        f"off the lease until then and until its mirror showed S1's binds "
+        f"(released {t_release - t_stop:.3f} s after the stop), built its "
+        f"scheduler in {t_s2_build1 - t_s2_build0:.3f} s; S2's first bind "
+        f"{t_s2_first - t_stop:.3f} s after the stop "
+        f"({t_s2_first - t_release:.3f} s after the release); from then "
+        f"S2's renewals failed and it went dormant "
+        f"{t_dormant - t_flap:.3f} s later with {n_flap} bound; it took "
+        f"its lease back and its recover_leadership took {rec_s:.3f} s "
+        f"({stats}); every pod bound once, invariants hold, "
+        f"{t_all - t0:.3f} s from S1's start to the last bind; taint/port "
+        f"launches {launches}; implicit host syncs of each scheduler's "
+        f"first wave: {syncs}; {time.monotonic() - t0:.1f} s")
+    return {"launches": launches}
+
+
+def deployed_parity(torch, mods, ks, ladder):
+    """Phase 21 (d): DEPLOY_SMALL_PODS density pods at SMALL_NODES nodes,
+    one `main(--once)` on the card and one on the CPU, each against its
+    own server over copies of one world: the same bindings over REST and
+    the same /metrics less the wall-clock readings."""
+    import tempfile
+
+    api, tp, store_mod = mods[0], mods[1], mods[7]
+    template, _ = deploy_world(api, store_mod, SMALL_NODES,
+                               DEPLOY_SMALL_PODS, SEED + 213)
+    tmp = tempfile.mkdtemp(prefix="deployed-")
+    cfg_path = f"{tmp}/cfg.json"
+    with open(cfg_path, "w") as f:
+        json.dump({"waveSize": WAVE, "healthzPort": 0}, f)
+    got = {}
+    tp.taint_ports_masks.launches = 0
+    for device in ("cuda", "cpu"):
+        srv, binds, _, _ = deploy_server(api, store_mod, template, post=False)
+        seen = {}
+
+        def probe(hs, seen=seen):
+            seen["metrics"] = http_get(hs.port, "/metrics")[1]
+
+        patch = CliPatch(torch, ks, ladder, probe)
+        t0 = time.monotonic()
+        try:
+            rc = ks.main(["--server", srv.url, "--config", cfg_path,
+                          "--once"], device=device)
+        finally:
+            patch.undo()
+        s = time.monotonic() - t0
+        view = rest_view(srv)
+        stop_server(srv)
+        if rc != 0:
+            fail(f"deployed: (d) main() on {device} returned {rc}")
+        check_bindings(api, view)
+        got[device] = (bindings(view), untimed_metrics(seen["metrics"]), s)
+        if device == "cuda":
+            syncs = sum(patch.syncs[0][1].values()) if patch.syncs else None
+    launches = tp.taint_ports_masks.launches
+    if got["cuda"][0] != got["cpu"][0]:
+        a, b = got["cuda"][0], got["cpu"][0]
+        diff = sorted(k for k in a if a[k] != b.get(k))
+        fail(f"deployed: (d) card and CPU bindings differ, e.g. {diff[:5]}")
+    if got["cuda"][1] != got["cpu"][1]:
+        diff = [ln for ln in got["cuda"][1] if ln not in got["cpu"][1]]
+        fail(f"deployed: (d) card and CPU /metrics differ: {diff[:5]}")
+    if launches < 1:
+        fail("deployed: (d) the card's run never launched the kernel")
+    log(f"[deployed] (d) {SMALL_NODES} nodes, {DEPLOY_SMALL_PODS} pods: card "
+        f"{got['cuda'][2]:.3f} s, CPU {got['cpu'][2]:.3f} s; card == CPU "
+        f"bindings ({sum(1 for v in got['cuda'][0].values() if v)} bound) "
+        f"and /metrics ({len(got['cuda'][1])} lines, less the wall-clock "
+        f"readings); taint/port launches {launches}; implicit host syncs "
+        f"of the card's first wave (untraced, on the main thread): "
+        f"{syncs}")
+    return {"launches": launches}
+
+
+def deployed_phase(torch, mods, filters, tracing, ladder):
+    """Phase 21: the deployed kube-scheduler (cli/kube_scheduler.py) on
+    the card against the port's APIServer (server/apiserver.py) in this
+    process: (a) the drain and (b) the endpoints, (c) a leader failover,
+    (d) card == CPU."""
+    from kubernetes_tpu_torch.cli import kube_scheduler as ks
+
+    pre = mods[2]
+    t_phase = time.monotonic()
+    pre.preempt_whatif.launches = 0
+    a = deployed_drain_a(torch, mods, ks, tracing, filters, ladder)
+    ladder.check("deployed (a)")
+    c = failover_run(torch, mods, ks, ladder)
+    ladder.check("deployed (c)")
+    d = deployed_parity(torch, mods, ks, ladder)
+    ladder.check("deployed (d)")
+    launches = a["launches"] + c["launches"] + d["launches"]
+    whatif_launches = pre.preempt_whatif.launches
+    log(f"[deployed] taint/port launches {launches} ((a) {a['launches']}, "
+        f"(c) {c['launches']}, (d) {d['launches']}), what-if launches "
+        f"{whatif_launches}; phase {time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "whatif_launches": whatif_launches,
+            "max_err": a["max_err"]}
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -6034,12 +6728,19 @@ def main() -> None:
     extender = extender_phase(torch, phase_mods, enc, bucket_size, Registry)
     ladder.check("extender")
     t_ext = time.monotonic() - t0
+
+    # 21. the deployed kube-scheduler
+    t0 = time.monotonic()
+    deployed = deployed_phase(torch, phase_mods, filters, tracing, ladder)
+    max_err = max(max_err, deployed.pop("max_err"))
+    t_deployed = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
               "faults": faults, "memory": memory,
-              "store_outage": store_out, "extender": extender}
+              "store_outage": store_out, "extender": extender,
+              "deployed": deployed}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -6050,7 +6751,8 @@ def main() -> None:
         f"{t_new:.1f} s; volumes, policy and statefulset {t_vol:.1f} s; "
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
         f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
-        f"{t_store:.1f} s; extender {t_ext:.1f} s; total "
+        f"{t_store:.1f} s; extender {t_ext:.1f} s; deployed "
+        f"{t_deployed:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

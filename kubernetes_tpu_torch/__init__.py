@@ -25,8 +25,13 @@ Layout (each module sits under the same path as its counterpart):
   sched/    -- the scheduler: queue, rounds, gangs, preemption, host
                plugins, the equivalence cache, claim binding, commit;
                the device-path breaker and its ladder (the twin rung,
-               poison quarantine)
-  client/   -- work queues and event recording for the controllers
+               poison quarantine); the component configuration
+  client/   -- the REST client, the reflectors and their RemoteStore,
+               leader election, work queues and event recording
+  server/   -- the API server (HTTP REST and watch over the object
+               store, admission, authentication and RBAC)
+  cli/      -- the kube-scheduler binary (the scheduling loop, leader
+               election, the HealthServer's /metrics and /debug/*)
   cloud/    -- node groups and the fake cloud the autoscaler sizes
   controllers/ -- the node-lifecycle controller (zone tally on the
                device) and the cluster autoscaler (what-ifs through the

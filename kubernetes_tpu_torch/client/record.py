@@ -1,13 +1,13 @@
 """Event recording.
 
+A copy of kubernetes_tpu/client/record.py: the involved object's kind
+is this package's api/scheme.py `kind_of`, the class name for an
+unregistered object (the node-lifecycle controller's synthetic Zone).
+
 Analog of client-go/tools/record/event.go:56 EventRecorder: components
 emit (reason, message) events about API objects; correlated duplicates
 are aggregated by bumping count/lastTimestamp instead of creating new
 objects (events_cache.go EventAggregator).
-
-The involved object's kind comes from KINDS, the types the port's
-controllers record on; any other object (the node-lifecycle controller's
-synthetic Zone) is named by its class.
 """
 
 from __future__ import annotations
@@ -15,12 +15,9 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from ..api import scheme
 from ..api import types as api
 from ..runtime.store import Conflict
-
-# object type -> API kind (kubernetes_tpu/api/scheme.py registers these
-# two under the same names)
-KINDS = {api.Pod: "Pod", api.Node: "Node"}
 
 
 class EventRecorder:
@@ -31,7 +28,7 @@ class EventRecorder:
 
     def event(self, obj, event_type: str, reason: str, message: str):
         """Record an event about obj (Normal or Warning)."""
-        kind = KINDS.get(type(obj)) or type(obj).__name__
+        kind = scheme.kind_of(obj) or type(obj).__name__
         meta = obj.metadata
         name = f"{meta.name}.{reason.lower()}.{self.source}"
         ns = meta.namespace or "default"

@@ -1,19 +1,21 @@
 """metadata.generation maintenance, shared by every store backend.
 
+A copy of kubernetes_tpu/runtime/generation.py; its fingerprint goes
+through this package's api/scheme.py `stable_hash`, as JAX's does.
+
 The reference bumps ObjectMeta.Generation in each registry strategy's
 PrepareForUpdate when the SPEC changes (status-only writes leave it);
 controllers echo it into status.observedGeneration and rollout-status
-gates on the pair. The tracker below is the implementation
-ObjectStore calls.
+gates on the pair. This logic originally lived inline in the in-process
+ObjectStore only, so persistent (--data-dir) clusters served stale
+generations and `kubectl rollout status` could never converge there —
+the tracker below is the one implementation both ObjectStore and
+NativeObjectStore now call.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import hashlib
-import json
-from collections.abc import Mapping
-from typing import Any, Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 # kinds whose metadata.generation tracks spec changes: only the kinds
 # whose controllers echo status.observedGeneration pay the fingerprint
@@ -28,52 +30,14 @@ def tracks_generation(kind: str) -> bool:
     return kind in GENERATION_KINDS
 
 
-# wire-form field names that do not follow the plain snake->camel rule
-_CAMEL_OVERRIDES = {
-    "open_api_v3_schema": "openAPIV3Schema",
-    "pod_ip": "podIP",
-    "host_ip": "hostIP",
-    "cluster_ip": "clusterIP",
-    "pod_cidr": "podCIDR",
-}
-
-
-def _camel(name: str) -> str:
-    special = _CAMEL_OVERRIDES.get(name)
-    if special is not None:
-        return special
-    parts = name.split("_")
-    return parts[0] + "".join(p.title() for p in parts[1:])
-
-
-def _encode(value) -> Any:
-    """Object -> plain JSON-able wire structure (camelCase keys, empty
-    values dropped)."""
-    if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        out = {}
-        for f in dataclasses.fields(value):
-            v = getattr(value, f.name)
-            if v is None or v == {} or v == [] or v == ():
-                continue
-            out[_camel(f.name)] = _encode(v)
-        return out
-    if isinstance(value, Mapping):
-        return {k: _encode(v) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return [_encode(v) for v in value]
-    return value
-
-
 def spec_fingerprint(obj) -> str:
-    """Stable hash (sha1 of the canonical sorted-JSON wire form) of the
-    object's spec."""
+    """Stable hash of the object's wire-form spec."""
+    from ..api import scheme
+
     spec = getattr(obj, "spec", None)
     if spec is None:
         return ""
-    enc = spec if isinstance(spec, (dict, list)) else _encode(spec)
-    return hashlib.sha1(
-        json.dumps(enc, sort_keys=True, default=str).encode()
-    ).hexdigest()[:40]
+    return scheme.stable_hash(spec)
 
 
 class GenerationTracker:

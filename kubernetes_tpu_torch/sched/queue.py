@@ -18,8 +18,10 @@ Two refinements over the 1.11 queue, both from its successors:
   unschedulable pods with a required pod-affinity term matching the
   newly-bound pod (reference scheduling_queue.go:363).
 
-`pop_wave(max_n)` drains up to a wavefront of pods in one call, in
-priority order.
+`pop_wave(max_n, timeout)` drains up to a wavefront of pods in one
+call, in priority order, after waiting up to `timeout` seconds for the
+first on the queue's condition variable (every add and every move into
+the active heap notifies it; `close()` wakes every waiter).
 
 Gang admission (coscheduling, sched/gang.py): pods carrying a pod-group
 annotation park in a gang waiting area — NOT the active heap — until
@@ -158,7 +160,9 @@ class SchedulingQueue:
         # watermark (the scheduler wires its store-outage hold here).
         # Same exemptions and aging as overload shedding
         self.hold_admissions: Optional[Callable[[], bool]] = None
-        self._lock = threading.Lock()
+        # a condition variable: a pop that waits is woken by every add
+        # and every move into the active heap
+        self._lock = threading.Condition()
         self._heap: List = []  # (-priority, seq, uid)
         self._items: Dict[str, api.Pod] = {}  # uid -> pod (active)
         self._unschedulable: Dict[str, api.Pod] = {}
@@ -195,6 +199,7 @@ class SchedulingQueue:
         # deadline
         self._quarantine: Dict[str, api.Pod] = {}
         self._quarantine_until: Dict[str, float] = {}
+        self._closed = False
 
     # -- overload control (priority-aware shedding) ---------------------------
 
@@ -242,6 +247,9 @@ class SchedulingQueue:
         self.added_at.setdefault(pod.uid, self.clock())
         if self.on_shed is not None:
             self.on_shed(pod_class(api.pod_priority(pod)))
+        # wake any blocked popper: it computed its wait bound before
+        # this pod's aging deadline existed
+        self._lock.notify()
 
     def _flush_shed_locked(self):
         """Aging + watermark release. Aged pods (shed longer than
@@ -261,6 +269,8 @@ class SchedulingQueue:
             self._shed_exempt[uid] = None
             self._items[uid] = pod
             heapq.heappush(self._heap, self._key(pod))
+        if aged:
+            self._lock.notify_all()
         # oldest-first release under the watermark: dict order IS shed
         # order. An armed queue.shed fault suppresses the release (aging
         # above still ran), and so does an active admission hold;
@@ -331,6 +341,9 @@ class SchedulingQueue:
             # first-enqueue time survives conviction: e2e latency counts
             # quarantine time for a pod that eventually recovers
             self.added_at.setdefault(pod.uid, self.clock())
+            # a blocked popper computed its wait bound before this
+            # deadline existed — wake it so the bound is recomputed
+            self._lock.notify()
         return True
 
     def _flush_quarantine_locked(self):
@@ -342,10 +355,12 @@ class SchedulingQueue:
         now = self.clock()
         due = [uid for uid, t in self._quarantine_until.items()
                if t <= now]
+        released = False
         for uid in due:
             pod = self._quarantine.pop(uid, None)
             if pod is None:
                 continue  # already released as a due mate's gangmate
+            released = True
             self._quarantine_until.pop(uid, None)
             self._items[uid] = pod
             heapq.heappush(self._heap, self._key(pod))
@@ -358,6 +373,8 @@ class SchedulingQueue:
                     self._quarantine_until.pop(muid, None)
                     self._items[muid] = mate
                     heapq.heappush(self._heap, self._key(mate))
+        if released:
+            self._lock.notify_all()
 
     def quarantine_count(self) -> int:
         with self._lock:
@@ -428,6 +445,7 @@ class SchedulingQueue:
             if pod.status.nominated_node_name:
                 self._nominated.setdefault(
                     pod.status.nominated_node_name, {})[pod.uid] = pod
+            self._lock.notify()
         if released is not None and self.on_gang_released is not None:
             self.on_gang_released(*released)
 
@@ -445,6 +463,7 @@ class SchedulingQueue:
                 self._items[uid] = p
                 self.added_at.setdefault(uid, self.clock())
                 heapq.heappush(self._heap, self._key(p))
+            self._lock.notify_all()
         if started is None:
             return None
         return key, self.clock() - started
@@ -549,6 +568,7 @@ class SchedulingQueue:
         else:
             self._items[pod.uid] = pod
             heapq.heappush(self._heap, self._key(pod))
+            self._lock.notify()
 
     def _flush_backoff_locked(self):
         now = self.clock()
@@ -558,6 +578,55 @@ class SchedulingQueue:
             pod = self._backoff.pop(uid)
             self._items[uid] = pod
             heapq.heappush(self._heap, self._key(pod))
+        if expired:
+            self._lock.notify_all()
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[api.Pod]:
+        """Blocking pop of the highest-priority pod (reference :311;
+        kubernetes_tpu/sched/queue.py:623). The condvar wait is bounded
+        by the earliest backoff, shed-aging and quarantine deadline, so a
+        pod becoming eligible wakes a blocked popper — nothing notifies
+        when a deadline merely passes. None after `timeout` seconds of
+        the queue's clock with nothing to pop, or once closed."""
+        deadline = None if timeout is None else self.clock() + timeout
+        with self._lock:
+            while True:
+                self._flush_backoff_locked()
+                self._flush_shed_locked()
+                self._flush_quarantine_locked()
+                if self._heap or self._closed:
+                    break
+                wait = None
+                if deadline is not None:
+                    wait = deadline - self.clock()
+                    if wait <= 0:
+                        return None
+                if self._backoff:
+                    nxt = min(self._backoff_until.get(u, 0.0)
+                              for u in self._backoff)
+                    until_next = nxt - self.clock()
+                    if until_next <= 0:
+                        continue  # expired while computing: reflush
+                    wait = until_next if wait is None else min(wait, until_next)
+                if self._shed:
+                    # shed aging must wake a blocked popper like backoff
+                    # deadlines do
+                    nxt = (min(self._shed_at.values()) + self.shed_age_s
+                           - self.clock())
+                    if nxt <= 0:
+                        continue  # aged while computing: reflush
+                    wait = nxt if wait is None else min(wait, nxt)
+                if self._quarantine:
+                    # quarantine re-probe deadlines bound the wait too
+                    nxt = (min(self._quarantine_until.values())
+                           - self.clock())
+                    if nxt <= 0:
+                        continue  # due while computing: reflush
+                    wait = nxt if wait is None else min(wait, nxt)
+                self._lock.wait(wait)
+            if self._closed and not self._heap:
+                return None
+            return self._pop_locked()
 
     def _pop_locked(self) -> Optional[api.Pod]:
         while self._heap:
@@ -589,21 +658,21 @@ class SchedulingQueue:
                 out.append(mate)
         return out
 
-    def pop_wave(self, max_n: int) -> List[api.Pod]:
-        """Drain up to max_n pods in priority order, without waiting.
-        Gangs are never split across the max_n boundary: a gang that
-        doesn't fit in the remaining budget is pushed back whole for the
-        next wave; a gang leading the wave may exceed max_n (it MUST be
-        evaluated in one batch to fail or place atomically)."""
+    def pop_wave(self, max_n: int,
+                 timeout: Optional[float] = None) -> List[api.Pod]:
+        """Drain up to max_n pods in priority order (blocks for the
+        first, up to `timeout` seconds; None waits until a pod arrives or
+        the queue closes). Gangs are never split across the max_n
+        boundary: a gang that doesn't fit in the remaining budget is
+        pushed back whole for the next wave; a gang leading the wave may
+        exceed max_n (it MUST be evaluated in one batch to fail or place
+        atomically)."""
         out: List[api.Pod] = []
+        first = self.pop(timeout)
+        if first is None:
+            return out
+        out.append(first)
         with self._lock:
-            self._flush_backoff_locked()
-            self._flush_shed_locked()
-            self._flush_quarantine_locked()
-            first = self._pop_locked()
-            if first is None:
-                return out
-            out.append(first)
             out.extend(self._pop_gangmates_locked(first))
             while len(out) < max_n:
                 pod = self._pop_locked()
@@ -632,6 +701,7 @@ class SchedulingQueue:
                 self._to_active_or_backoff_locked(pod)
             self._unschedulable.clear()
             self._move_request_cycle = self._current_cycle
+            self._lock.notify_all()
 
     def assigned_pod_added(self, pod: api.Pod):
         """Reference :363 — a bound pod moves only the unschedulable pods
@@ -644,6 +714,7 @@ class SchedulingQueue:
                 self._to_active_or_backoff_locked(self._unschedulable.pop(uid))
             if matching:
                 self._move_request_cycle = self._current_cycle
+                self._lock.notify_all()
 
     # -- update / delete ------------------------------------------------------
 
@@ -696,6 +767,7 @@ class SchedulingQueue:
                                 self._items[uid] = mate
                                 heapq.heappush(self._heap,
                                                self._key(mate))
+                    self._lock.notify()
                 else:
                     self._quarantine[new.uid] = new  # status-only change
                 return
@@ -718,6 +790,7 @@ class SchedulingQueue:
                 self._unschedulable.pop(new.uid)
                 self._items[new.uid] = new
                 heapq.heappush(self._heap, self._key(new))
+                self._lock.notify()
                 return
         self.add(new)
 
@@ -805,3 +878,10 @@ class SchedulingQueue:
     def active_pods(self) -> List[api.Pod]:
         with self._lock:
             return list(self._items.values())
+
+    def close(self):
+        """Wake every blocked popper; pops return None from then on
+        once the active heap is empty."""
+        with self._lock:
+            self._closed = True
+            self._lock.notify_all()

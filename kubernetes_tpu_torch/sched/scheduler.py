@@ -191,7 +191,7 @@ depth is back under the watermark (`shed_total{class}`,
 `pending_pods{queue="shed"}`, `queue_class_pods{class}`).
 
 The store plane (kubernetes_tpu/sched/scheduler.py:310-346, :750-785,
-:3964-4480) is the JAX scheduler's, without a RemoteStore:
+:3964-4480) is the JAX scheduler's:
 
   * the store-path breaker (sched/storehealth.py `StorePathBreaker`,
     `storehealth`) counts consecutive transport failures of bind POSTs
@@ -220,7 +220,21 @@ The store plane (kubernetes_tpu/sched/scheduler.py:310-346, :750-785,
   * `enter_dormant` stops the rounds and `recover_leadership` settles
     every assumed pod against the store, replays the journal and
     rebuilds the device mirror; `close()` and `wait_for_binds()` settle
-    the binds (inline here, so nothing is in flight).
+    the binds in flight.
+
+The RemoteStore path (client/rest.py, client/reflector.py,
+cli/kube_scheduler.py) is the JAX scheduler's too: a store with
+`set_health` (a RemoteStore) has its reflectors' LISTs feed the store
+breaker; a store that is `async_bind_safe` gets a bind pool of
+`bind_workers` threads, whose binds `wait_for_binds` waits on and whose
+threads `recover_leadership` fans its truth GETs over; `_pod_truth`
+GETs through the store's REST client, never its stale mirror, with
+`TRUTH_GET_TIMEOUT`, an APIStatusError answer counting as reachable and
+a 404 as deleted. `metrics` may be a registry shared with the
+reflectors; `racecheck` wraps `_mu` and the queue's lock in the
+lock-order watcher (utils/racecheck.py) under the JAX names;
+`mesh_min_devices` is kept for the configuration (one device on one
+card); `invariants=True` raises NotImplementedError.
 
 HTTP extenders (sched/extender.py; kubernetes_tpu/sched/scheduler.py
 sites listed at each use) are the JAX scheduler's: a profile or Policy
@@ -234,14 +248,14 @@ the wave, or the gang) with backoff under
 `scheduling_errors{stage="extender"}`; it never charges the device
 breaker, never moves a wave to the twin and never runs on the CPU.
 
-Left out with no stand-in: the mesh and its reform, and the RemoteStore
-path (the REST client, the reflector's LIST feed to the store breaker,
-the bind pool, leader election, `/debug/store`); the mesh series stay
-at zero in `metrics`.
+Left out with no stand-in: the mesh and its reform (the mesh gauge reads
+one device, the reform series stay at zero in `metrics`), the
+invariant checker, and the autopilot (`autopilot` stays None).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import logging
 import threading
@@ -253,6 +267,7 @@ import torch
 
 from ..api import labels as lbl
 from ..api import types as api
+from ..client.rest import APIStatusError
 from ..ops import encoding as enc
 from ..ops import hostwave
 from ..ops.cuda_build import KernelBuildError
@@ -423,7 +438,17 @@ class Scheduler:
                  bind_journal_path: Optional[str] = None,
                  bind_journal_max_bytes: int = -1,
                  spool_watermark: int = 0,
-                 bind_max_attempts: int = 3):
+                 bind_max_attempts: int = 3,
+                 metrics: Optional[Metrics] = None,
+                 bind_workers: int = 4,
+                 racecheck: bool = False,
+                 mesh_min_devices: int = 1,
+                 invariants: bool = False):
+        if invariants:
+            raise NotImplementedError(
+                "invariants=True: the chaos invariant checker "
+                "(kubernetes_tpu/chaos/invariants.py) is not ported yet "
+                "(ROADMAP.md queue 1 item 2)")
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -449,7 +474,10 @@ class Scheduler:
         # the card's allocator fail mid-round
         self.snapshot.hbm_budget_bytes = int(hbm_budget_bytes)
         self.featurizer = PodFeaturizer(self.snapshot, GroupLister(store))
-        self.metrics = Metrics()
+        # metrics may be a registry shared with the RemoteStore's
+        # reflectors (cli/kube_scheduler.py), so the control-plane series
+        # land on the same /metrics endpoint as the scheduling ones
+        self.metrics = metrics or Metrics()
         # dispatches are counted into this registry by program and shape
         # bucket (process-global, as in the JAX package)
         set_telemetry(self.metrics)
@@ -467,6 +495,18 @@ class Scheduler:
                                      else shed_priority_threshold),
             shed_age_s=shed_age_s)
         self.queue.on_shed = self._pod_shed
+        # racecheck: wrap the scheduling-plane locks in the lock-order
+        # watcher (utils/racecheck.py) under the JAX package's names
+        # (kubernetes_tpu/sched/scheduler.py:224-242), before anything
+        # below captures the raw locks (the scrubber closes over _mu)
+        self.racecheck_watcher = None
+        if racecheck:
+            from ..utils.racecheck import LockOrderWatcher, instrument
+
+            self.racecheck_watcher = LockOrderWatcher()
+            instrument(self.racecheck_watcher, self, "_mu", "Scheduler._mu")
+            instrument(self.racecheck_watcher, self.queue, "_lock",
+                       "SchedulingQueue._lock")
         # the class gauges' export cadence and the upload bytes already
         # counted into snapshot_upload_bytes_total
         self._next_class_export = 0.0
@@ -563,6 +603,11 @@ class Scheduler:
             on_reconnect=self._store_reconnected)
         self.metrics.store_breaker_state.set(
             STORE_STATE_CODES[self.storehealth.state])
+        # a RemoteStore's reflectors feed the same breaker from their
+        # LIST path (kubernetes_tpu/sched/scheduler.py:326-328)
+        set_health = getattr(store, "set_health", None)
+        if set_health is not None:
+            set_health(self.storehealth)
         # the disconnected-mode bind spool: arrival-ordered
         # (pod, bound, node_name, vol_rollback, journal_seq) intents whose
         # POST waits for the store to heal. The pod STAYS assumed
@@ -583,6 +628,29 @@ class Scheduler:
         # failed dispatches are attributed to the active device
         # (scheduling_errors{stage=dispatch, device=...})
         set_devices([self.device])
+        # one device on one card: the degradation ladder's floor is kept
+        # for the configuration, and the mesh gauge reads one device, as
+        # the JAX scheduler's does without a mesh
+        self.mesh_min_devices = max(int(mesh_min_devices), 1)
+        self.metrics.mesh_devices.set(1)
+        # the bind pool (kubernetes_tpu/sched/scheduler.py:465-480): the
+        # bind POST runs from these threads outside _mu, so the next
+        # wave's featurize and dispatch overlap this wave's binds. Only
+        # for a store that delivers its watch events outside its own lock
+        # (a RemoteStore: reflector threads); the in-process ObjectStore
+        # delivers under its lock, where a binder thread would deadlock
+        # against a wave holding _mu. bind_workers=0: inline binds. The
+        # binder threads do host work only: no tensor is touched there.
+        self._bind_pool = None
+        if bind_workers > 0 and getattr(store, "async_bind_safe", False):
+            self._bind_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=bind_workers, thread_name_prefix="binder")
+        self._inflight_mu = threading.Lock()
+        self._inflight: set = set()
+        self.bind_overlap_hwm = 0  # high-water mark of concurrent binds
+        # no autopilot controller is ported yet: /debug/autopilot answers
+        # 404 as the JAX HealthServer does with none attached
+        self.autopilot = None
         # both kernels are built now, before any dispatch runs under the
         # watchdog: a first build inside a guarded dispatch would read as
         # a hang. A failed build raises KernelBuildError here.
@@ -1396,13 +1464,15 @@ class Scheduler:
                 "housekeeping compaction failed (live snapshot "
                 "unchanged): %s: %s", type(ce).__name__, ce)
 
-    def run_once(self) -> int:
-        """Schedule one wave through the per-wave path. Returns the pods
-        placed (none while dormant)."""
+    def run_once(self, timeout: float = 0.0) -> int:
+        """Schedule one wave through the per-wave path, waiting up to
+        `timeout` seconds for the first pod (kubernetes_tpu/sched/
+        scheduler.py:1372). Returns the pods placed (with a bind pool:
+        assumed with their bind dispatched; none while dormant)."""
         if self._dormant:
             return 0
         self._housekeep()
-        pods = self.queue.pop_wave(self._wave_cap)
+        pods = self.queue.pop_wave(self._wave_cap, timeout=timeout)
         if not pods:
             return 0
         with self._mu:
@@ -1415,7 +1485,7 @@ class Scheduler:
         self._housekeep()
         all_pods: List[api.Pod] = []
         while True:
-            batch = self.queue.pop_wave(self._wave_cap)
+            batch = self.queue.pop_wave(self._wave_cap, timeout=0.0)
             if not batch:
                 break
             all_pods.extend(batch)
@@ -2664,12 +2734,12 @@ class Scheduler:
 
     @staticmethod
     def _infra_error(exc: BaseException) -> bool:
-        """An infrastructure failure (store, OS), which the pod's own
-        spec cannot cause (kubernetes_tpu/sched/scheduler.py:3390-3406;
-        the port has no REST client, so there is no APIStatusError to
-        add). Conviction paths that wrap phases with side effects
+        """An infrastructure failure (store, REST, OS), which the pod's
+        own spec cannot cause (kubernetes_tpu/sched/scheduler.py:
+        3390-3406). Conviction paths that wrap phases with side effects
         (commit, preemption) must not blame the work for these."""
-        return isinstance(exc, (OSError, TimeoutError, Conflict, KeyError))
+        return isinstance(exc, (OSError, TimeoutError, Conflict, KeyError,
+                                APIStatusError))
 
     def _input_fault_verdict(self, pods: List[api.Pod],
                              exc: BaseException):
@@ -3411,7 +3481,7 @@ class Scheduler:
                     vol_rollback()
             return False
         for pod, bound, node_name, vol_rollback in assumed:
-            self._bind_and_finish(pod, bound, node_name, vol_rollback)
+            self._dispatch_bind(pod, bound, node_name, vol_rollback)
         return True
 
     def _gang_state(self):
@@ -3778,8 +3848,36 @@ class Scheduler:
         got, vol_rollback = self._bind_volumes(pod, ni)
         if not got:
             return False
-        return self._bind_and_finish(pod, self._assume(pod, node_name),
+        return self._dispatch_bind(pod, self._assume(pod, node_name),
+                                   node_name, vol_rollback)
+
+    def _dispatch_bind(self, pod: api.Pod, bound: api.Pod, node_name: str,
+                       vol_rollback=None) -> bool:
+        """The bind of an assumed pod: inline without a bind pool, else
+        submitted to the pool (kubernetes_tpu/sched/scheduler.py:
+        3885-3943), where True means assumed with the bind dispatched — a
+        bind that fails later forgets the assumption and parks the pod."""
+        if self._bind_pool is None:
+            return self._bind_and_finish(pod, bound, node_name, vol_rollback)
+        fut = self._bind_pool.submit(self._bind_and_finish, pod, bound,
                                      node_name, vol_rollback)
+        with self._inflight_mu:
+            self._inflight.add(fut)
+            self.bind_overlap_hwm = max(self.bind_overlap_hwm,
+                                        len(self._inflight))
+        fut.add_done_callback(self._bind_done)
+        return True
+
+    def _bind_done(self, fut) -> None:
+        with self._inflight_mu:
+            self._inflight.discard(fut)
+        exc = fut.exception()
+        if exc is not None:
+            # nothing awaits these futures for a value: count the error
+            # so it reaches /metrics, not only the log
+            self.metrics.scheduling_errors.labels(stage="bind").inc()
+            logging.getLogger(__name__).error(
+                "bind worker raised", exc_info=exc)
 
     # -- the store plane: the bind spool and the durable intent journal
     # (kubernetes_tpu/sched/scheduler.py:4108-4293) ------------------------------
@@ -3958,18 +4056,40 @@ class Scheduler:
         self._spool_bind(pod, bound, node_name, None, seq=seq)
         return True
 
+    # per-attempt deadline on truth GETs: reconciliation runs on binder
+    # threads and, for the recovery pass, before the rounds resume — a
+    # hung round trip must fail fast, like the bind POST's own timeout
+    TRUTH_GET_TIMEOUT = 5.0
+
     def _pod_truth(self, pod: api.Pod) -> Optional[api.Pod]:
-        """One pod from the store (kubernetes_tpu/sched/scheduler.py:
-        4444-4480): None = deleted; raises when the store cannot be
-        reached. The port has no REST client, so this reads
-        `store.get`. It is the store breaker's GET feed: a failure counts
-        on store_errors{op="get"} and the consecutive-failure ladder, an
-        answer resets it. The `store.outage` point fires here, so chaos
-        severs the truth path with the bind path."""
+        """One pod from the store's truth (kubernetes_tpu/sched/
+        scheduler.py:4444-4480): None = deleted; raises when the store
+        cannot be reached. With a RemoteStore the GET goes through its
+        REST client: the store's own get() serves the reflector mirror,
+        whose staleness is what bind reconciliation and the recovery pass
+        must not trust. It is the store breaker's GET feed: a transport
+        failure counts on store_errors{op="get"} and the
+        consecutive-failure ladder; any answer, a 404 or 409 too, counts
+        as the store being reachable. The `store.outage` point fires
+        here, so chaos severs the truth path with the bind path."""
         try:
             if faultpoints.fire("store.outage", payload=("get", pod.uid)):
                 raise ConnectionError("store.outage: truth GET dropped")
-            truth = self.store.get("pods", pod.namespace, pod.name)
+            client = getattr(self.store, "client", None)
+            if client is not None:
+                try:
+                    truth = client.get("pods", pod.namespace,
+                                       pod.metadata.name,
+                                       timeout=self.TRUTH_GET_TIMEOUT)
+                except APIStatusError as e:
+                    self.storehealth.record_success()  # the store ANSWERED
+                    if e.code == 404:
+                        return None
+                    raise
+            else:
+                truth = self.store.get("pods", pod.namespace, pod.name)
+        except APIStatusError:
+            raise  # an answer: counted as reachable above
         except Exception:
             self.metrics.store_errors.labels(op="get").inc()
             self.storehealth.record_failure()
@@ -3978,16 +4098,26 @@ class Scheduler:
         return truth
 
     def wait_for_binds(self) -> None:
-        """Settle the binds in flight. Binds run inline on the scheduling
-        thread (no bind pool: the in-process store is not
-        `async_bind_safe`), so none is ever in flight on return of the
-        call that made it."""
+        """Drain every bind in flight on the pool (callers that need
+        settled store state: the end of schedule_pending, dormancy,
+        shutdown). Without a pool the binds ran inline and none is in
+        flight."""
+        while True:
+            with self._inflight_mu:
+                pending = list(self._inflight)
+            if not pending:
+                return
+            concurrent.futures.wait(pending)
 
     def close(self) -> None:
-        """Settle the binds (inline, so already settled). The scheduler
-        stays queryable; the spool and the journal are left as they are,
-        for a later process's replay."""
+        """Settle the binds in flight and release the bind pool's
+        threads. The scheduler stays queryable but schedules no more; the
+        spool and the journal are left as they are, for a later
+        process's replay."""
         self.wait_for_binds()
+        if self._bind_pool is not None:
+            self._bind_pool.shutdown(wait=True)
+            self._bind_pool = None
 
     # -- leadership (kubernetes_tpu/sched/scheduler.py:4335-4430) ----------------
 
@@ -4015,9 +4145,10 @@ class Scheduler:
         assumed pod against the store (adopt a confirmed binding, forget
         an orphan and release its capacity), replay the journal, rebuild
         the whole device mirror (nothing incremental is trusted across a
-        leadership gap) and resume. The truth GETs run one after another
-        (the JAX scheduler fans them over its bind pool). Returns the
-        tally."""
+        leadership gap) and resume. The truth GETs run outside _mu, fanned
+        over the bind pool when there is one (it is idle: the binds were
+        just drained), so a wave of assumed pods resolves in about one
+        round trip. Returns the tally."""
         self.wait_for_binds()
         stats = {"confirmed": 0, "orphaned": 0, "unresolved": 0}
 
@@ -4033,7 +4164,11 @@ class Scheduler:
                     pod.namespace, pod.name, type(e).__name__, e)
                 return (pod, None, False)
 
-        resolved = [_fetch(p) for p in self.cache.assumed_pods()]
+        assumed = self.cache.assumed_pods()
+        if self._bind_pool is not None and len(assumed) > 1:
+            resolved = list(self._bind_pool.map(_fetch, assumed))
+        else:
+            resolved = [_fetch(p) for p in assumed]
         with self._mu:
             for pod, truth, ok in resolved:
                 if not self.cache.is_assumed(pod):

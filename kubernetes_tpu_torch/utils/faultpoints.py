@@ -95,12 +95,23 @@ Wired points (grep for `faultpoints.fire`):
                    control-plane round trip the scheduler depends on:
                    sched/scheduler.py _bind_attempt (before each bind
                    POST; payload ("bind", uid)) and _pod_truth (before
-                   each truth GET; payload ("get", uid)). A
+                   each truth GET; payload ("get", uid)),
+                   client/reflector.py Reflector._list (before each
+                   LIST; payload ("list", plural)) and RemoteStore._guard
+                   (before each create / delete; payload the op). A
                    duration-armed `raise` severs the store path: the
                    store breaker (sched/storehealth.py) trips to
                    DISCONNECTED, binds spool into the intent journal,
                    and the post-heal drain leaves placements equal to
                    an outage-free run's
+  rest.request     client/rest.py request_bytes + watch entry — every
+                   control-plane round trip (payload: (method, path);
+                   `drop` models the request never reaching the wire)
+  reflector.relist client/reflector.py run, before each list+watch
+                   cycle (exercises the jittered relist backoff)
+  lease.renew      client/leaderelection.py _try_acquire_or_renew entry
+                   (a `raise` fails renewals -> leadership loss after
+                   renew_deadline; `latency` eats the renew budget)
   journal.append   state/journal.py _append_locked, BEFORE the write
                    (payload: the record dict) — `raise` models a full
                    disk / IO error at the worst moment (the intent

@@ -2,8 +2,10 @@
 
 A copy of kubernetes_tpu/utils/tracing.py; the recorder is this
 package's own, so enabling it leaves the JAX package's off and the
-other way round. The port has no HealthServer yet: `chrome_trace()`,
-`text_timeline()`, `ledger_rows()` and `decision()` are read directly.
+other way round. The port's kube-scheduler serves it from its
+HealthServer (cli/kube_scheduler.py): `/debug/trace` reads
+`chrome_trace()`, `text_timeline()` and `ledger_rows()`, `/debug/score`
+reads `decision()` and `recent_decisions()`.
 
 The benches say *what* regressed (pods/s, p99) but never *where*: the
 host-path preemption cliff and the mixed5k p99 are aggregate numbers

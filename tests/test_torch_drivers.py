@@ -11,8 +11,9 @@ Scheduler against the JAX Scheduler, on a virtual clock.
 After every drain both packages hold the same bindings, nominations,
 queue, pipeline preemptions and scheduler metrics (torch_parity.Both,
 SCHED_METRICS: counts, sums, buckets and label sets). Also: the port's
-Metrics renders the JAX registry's exposition text; warm_pipeline leaves
-the live state as it was; device_preemption is a switch, not a
+HealthServer renders the port's Metrics as the JAX HealthServer renders
+the JAX registry, and the two render one registry alike; warm_pipeline
+leaves the live state as it was; device_preemption is a switch, not a
 fallback.
 """
 
@@ -21,9 +22,10 @@ import types
 import numpy as np
 import pytest
 
-from kubernetes_tpu.cli.kube_scheduler import HealthServer
+from kubernetes_tpu.cli.kube_scheduler import HealthServer as JaxHealthServer
 from kubernetes_tpu.utils import metrics as jmetrics
 from kubernetes_tpu.utils.backoff import PodBackoff as JaxBackoff
+from kubernetes_tpu_torch.cli.kube_scheduler import HealthServer
 from kubernetes_tpu_torch.ops.encoding import Caps
 from kubernetes_tpu_torch.runtime.store import ObjectStore
 from kubernetes_tpu_torch.sched import scheduler as tsched
@@ -43,12 +45,13 @@ WAVE = 16
 # --- the metrics registry --------------------------------------------------------
 
 
-def _exposition(registry) -> str:
-    """The JAX scheduler's /metrics text (cli/kube_scheduler.py
-    HealthServer.metrics_text) for one registry."""
+def _exposition(registry, server=HealthServer) -> str:
+    """A kube-scheduler's /metrics text (cli/kube_scheduler.py
+    HealthServer.metrics_text; the port's unless `server` names JAX's)
+    for one registry."""
     fake = types.SimpleNamespace(
         scheduler_ref=lambda: types.SimpleNamespace(metrics=registry))
-    return HealthServer.metrics_text(fake)
+    return server.metrics_text(fake)
 
 
 def _script(m, case):
@@ -91,7 +94,9 @@ def test_metrics_exposition_matches_jax(case):
     want, got = jmetrics.Metrics(), tmetrics.Metrics()
     _script(want, case)
     _script(got, case)
-    assert _exposition(got) == _exposition(want)
+    assert _exposition(got) == _exposition(want, JaxHealthServer)
+    # the port's renderer and JAX's agree on one registry
+    assert _exposition(want) == _exposition(want, JaxHealthServer)
     for q in (0.5, 0.9, 0.99):
         assert (got.pod_scheduling_latency.quantile(q)
                 == want.pod_scheduling_latency.quantile(q))

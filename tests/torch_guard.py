@@ -30,8 +30,16 @@ integers and integer-valued floats.
 faultpoints.py, each process-global) and clears the port's dispatch
 watchdog (kubernetes_tpu_torch/ops/kernel.py `set_watchdog`) after the
 test, draining a watchdog a test armed, so that neither a fault nor a
-watchdog outlives the test that armed it.
+watchdog outlives the test that armed it. Before the test it stops the
+reflector threads (either package's client/reflector.py) that earlier
+tests on the worker left running against servers they stopped: each
+retry of theirs fires `store.outage`, `reflector.relist` and
+`rest.request` in a registry the test may arm and count (the JAX-side
+test_proxy.py leak of ROADMAP queue 3 met the port's store-plane tests
+so).
 """
+
+import threading
 
 import pytest
 import torch
@@ -58,8 +66,16 @@ def torch_one_thread():
     torch.set_num_threads(saved)
 
 
+def _stop_leaked_reflectors():
+    for t in threading.enumerate():
+        refl = getattr(getattr(t, "_target", None), "__self__", None)
+        if t.name.startswith("reflector-") and hasattr(refl, "synced"):
+            refl.stop()
+
+
 @pytest.fixture(autouse=True)
 def faults_off():
+    _stop_leaked_reflectors()
     yield
     jax_faultpoints.reset()
     torch_faultpoints.reset()
