@@ -20,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
                on the dense edge world (see phase 9);
   4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
-               30 000-pod backlog; the store's bindings must respect every
+               20 000-pod backlog (cut from 30 000 for the script's
+               time); the store's bindings must respect every
                resource, taint, host-port and nodeSelector constraint, and
                the kernel must have launched during the run, on the live
                waves' rows only (printed per round). The host time
@@ -37,7 +38,7 @@ Phases (any failure exits non-zero and prints no result line):
                shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
                clock: identical bindings and victim sets; then the
                multi-key world: the reduced density world with anchor pods
-               bound first, drained, then 4 pods and a gang of 4 whose
+               bound first, drained, then 2 pods and a gang of 2 whose
                required pod affinity spans the zone and the host key (the
                exact host path, plugins/golden.py): identical bindings,
                every multi-key pod bound where both terms hold (read back
@@ -67,8 +68,9 @@ Phases (any failure exits non-zero and prints no result line):
                implicit host syncs of one ipa round (that round is left
                out of the per-pod and per-wave times), and
                incoming_statics timed on one full-width wave;
-  7. spread  — 5 000 nodes and 5 000 pods (cut from 10 000 for the
-               script's time limit) of 20 Deployments, each pod
+  7. spread  — 5 000 nodes and 2 500 pods (cut from 10 000, then
+               from 5 000, for the script's time limit) of 20
+               Deployments, each pod
                with a hard zone spread (maxSkew 1) and a soft hostname
                spread: every Deployment's zone counts differ by at most 1,
                every round runs with topology spread; the same timing
@@ -84,9 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
                seconds by phase, each kernel's launches; the what-if
                timed on the drain's chunk (P = 16) as in phase 9;
   9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
-               priority-1 hogs of 8 cores (two a node), then 2 500
+               priority-1 hogs of 8 cores (two a node), then 1 250
                priority-100 vips of 8 cores, each placing only by
-               evicting a hog. 2 500 placed, 2 500 evicted, every
+               evicting a hog. 1 250 placed, 1 250 evicted, every
                preemption done by the pipeline. Printed: vip pods/s,
                what-if chunks and launches, host validation seconds; on
                the largest chunk, the what-if by CUDA events as a whole
@@ -95,13 +97,13 @@ Phases (any failure exits non-zero and prints no result line):
                one call, and the plain version's ms on the CPU.
   10. trickle — bench.py trickle at 5 000 nodes (DRIVER_SUITE runs 500):
                caps as bench.py _warmed_scheduler, 64 warm pods through
-               warm_pipeline and deleted, a fresh Metrics, then 1 024
+               warm_pipeline and deleted, a fresh Metrics, then 512
                pods (cut from 2 048 for the script's time) in chunks of
                64 with schedule_pending() after each.
                Printed: pods/s, the p99 of pod_scheduling_latency and of
                e2e_scheduling_latency, rounds, launches, and the implicit
                host syncs of one more chunk's round;
-  11. paced  — bench.py paced at 5 000 nodes, 1 000 pods (cut from 4 000
+  11. paced  — bench.py paced at 5 000 nodes, 500 pods (cut from 4 000
                and then from 2 000 for the script's time limit) offered
                at 200 pods/s in chunks of 100 on the wall clock,
                then bench.py's stalled-drain loop (a stall fails the
@@ -113,7 +115,7 @@ Phases (any failure exits non-zero and prints no result line):
                virtual clock: every vip placed, 100 evictions, all hogs, no
                what-if launch; the same run with device="cpu" gives the
                same bindings and victims.
-  13. statefulset — 5 000 nodes, 2 048 density pods, then 8 StatefulSets
+  13. statefulset — 5 000 nodes, 1 024 density pods, then 8 StatefulSets
                of 64 pods, each pod with its own claim: even replicas on
                a claim pre-bound to a zoned GCE PD PV, odd ones on an
                unbound WaitForFirstConsumer claim of 5-10 Gi against 320
@@ -136,9 +138,9 @@ Phases (any failure exits non-zero and prints no result line):
                a ledger file, a `live` WeightProfile equal to the default
                weights, a bin-packing and a spreading candidate,
                shadow_exact_interval=1): identical bindings; then the
-               bin-packer promoted to live and 512 more pods, then the
+               bin-packer promoted to live and 256 more pods, then the
                rollback (both live profiles deleted: the static table) and
-               512 more. Checks: every decision's chosen parts re-add by
+               256 more. Checks: every decision's chosen parts re-add by
                `_f32_totals` to its total, every top list in lax.top_k
                order, every ledger line v2 with weights_version (same@ ->
                packer@ -> static), scores, an exact shadow sample and
@@ -160,11 +162,11 @@ Phases (any failure exits non-zero and prints no result line):
                on the scheduler's card: 5 000 nodes (no instance-type
                label) each with four bound replicated pods of 3.5 cores,
                a FakeCloud with std-16, std-32 and a tainted himem-64
-               group, and 128 pending pods of 20 cores, half tolerating
+               group, and 64 pending pods of 20 cores, half tolerating
                himem's taint; preemption off, as bench.py
                run_autoscale_config runs it. Scale-up passes (run_once, the virtual
                clock past the cooldown, a drain) until nothing is
-               pending; then each himem node keeps one pod and 8
+               pending; then each himem node keeps one pod and 4
                scale-down passes run, the drained residents re-created
                and drained after each. Every pod bound, none without the
                toleration on himem, a node removed after a refit
@@ -228,8 +230,8 @@ Phases (any failure exits non-zero and prints no result line):
                nodes with the breaker forced OPEN: the autoscaler's
                what-if on backend="host" (no kernel launch) equal to the
                device branch's (chosen, feasible; refit too). (b) and
-               (d) halve their pods (to no fewer than 512) when they
-               project past 45 s.
+               (d) halve their pods (to no fewer than 256) when they
+               project past 25 s.
   18. memory — the memory plane and load shedding (state/scrubber.py,
                Snapshot._compact, the capacity-fault ladder, the queue's
                shed area) at 5 000 nodes, waves of 128: (a) device.oom
@@ -308,9 +310,9 @@ Phases (any failure exits non-zero and prints no result line):
                ThreadingHTTPServer on 127.0.0.1 that bans a seventh of
                the nodes by name, gives 10 at weight 2 to zone-1's nodes,
                records each bind and drops the first candidate node of
-               each preemption: (a) the density world at 5 000 nodes, 256
-               pods (cut from 512 for the script's time) in waves of 128
-               with nodeCacheCapable false (the
+               each preemption: (a) the density world at 5 000 nodes, 128
+               pods (cut from 512, then 256, for the script's time) in
+               waves of 128 with nodeCacheCapable false (the
                labels of every node in each filter POST): no pod on a
                banned node, the extender's binds == the store's bindings,
                one a pod, the taint/port kernel launched, no breaker
@@ -319,7 +321,7 @@ Phases (any failure exits non-zero and prints no result line):
                calls (the pods halved when the first wave projects the
                phase past 90 s); (b) the same backlog at 500 nodes:
                card == CPU bindings and request logs byte for byte; (c)
-               500 nodes full of priority-1 hogs and 16 priority-100
+               500 nodes full of priority-1 hogs and 8 priority-100
                vips (not 64: with an extender the POSTs grow with the
                square of the vips, and extender_vips.py times this world
                at 16, 32 and 64 vips): card == CPU, no victim from a
@@ -334,7 +336,7 @@ Phases (any failure exits non-zero and prints no result line):
                reflectors and RemoteStore, the bind pool) on the card
                against the port's own APIServer (server/apiserver.py) on
                127.0.0.1 in this process, the nodes written into the
-               server's store first: (a) 2 048 density pods (no host
+               server's store first: (a) 1 024 density pods (no host
                port, see deploy_world) created over REST at 5 000 nodes,
                one main([--server, --config cfg.json, --once,
                --tracing]): every pod bound once over REST (read back and
@@ -353,22 +355,58 @@ Phases (any failure exits non-zero and prints no result line):
                binding, text), /debug/shadow, /debug/store (connected, no
                error, empty spool), /debug/profile, /debug/autopilot
                (404); (c) two run(--leader-elect) schedulers, leases of
-               1.5 s, 1 024 pods: the leader's elector stopped halfway,
+               1.5 s, 512 pods: the leader's elector stopped halfway,
                the standby (held off the lease until the old leader's
                binds settled, ROADMAP queue 3) takes the lease and
                drains on (seconds to its first bind), then its renewals
                fail until it is dormant and it takes its lease back
                (recover_leadership's seconds); every pod bound once; (d)
-               500 nodes, 512 pods,
+               500 nodes, 256 pods,
                main(--once) on the card and on the CPU: the same bindings
                and the same /metrics less the wall-clock readings.
+  22. autopilot — the scheduler autopilot (autopilot/: the ledger
+               dataset, the ridge trainer, the replay CI, the promotion
+               controller) and the cluster-invariant checker
+               (chaos/invariants.py): (a) RidgeTrainer fitted on phase
+               14's round ledger (5 000 nodes), its table emitted as a
+               candidate into a traced scheduler on the density world
+               (5 000 nodes, waves of 128), a shadow window of 2 rounds
+               of 128 pods, step(): the shadow gate, then two replays on
+               the card at 5 000 nodes and waves of 128 (production and
+               candidate), the promotion and a watch of 2 rounds to
+               `completed`, with no new shape bucket of the round across
+               step, promotion and watch, and /debug/autopilot 200 ==
+               status() through a HealthServer; then a candidate forced
+               past the gates on the skewed 3-node world (on the density
+               world every margin ties at 0), rolled back in memory by
+               the watch and reconciled in the store by a later step();
+               the ledger's transition trail and the promotion counts
+               checked; printed: the table, the shadow flip rate and
+               margin delta, each replay's seconds, placed and
+               objective, the step's syncs, start to promoted, breach to
+               restored; (b) phase 14's untraced density drain (5 000
+               nodes, 2 048 pods, the same seed) on
+               Scheduler(invariants=True): the same bindings, no
+               violation; the checks' count and seconds, pods/s beside
+               the unchecked drain, the syncs of a checked and an
+               unchecked wave (checked no more); then on the drained
+               scheduler a pending pod dropped from the queue
+               (conservation at the second check) and one host row of
+               the usage plane corrupted (snapshot_usage at once); (c)
+               at 500 nodes on the card and on the CPU: a miniature of
+               phase 14's traced drain (the recorder on a virtual clock)
+               as the ledger, the trainer, the pipeline with replays at
+               500 nodes, the forced regression and a checked drain:
+               the same table bit for bit, transition trail, replays'
+               deterministic fields and bindings.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
 or strike (a healthy phase that leaned on a ladder fails), no store
 trip and no spooled bind; phase 17's schedulers are held to no capacity
 fault and phases 17-18's to no store trip and no spooled bind; phase
-19's to the device checks of phases 4-16, phases 20's and 21's to both.
+19's to the device checks of phases 4-16, phases 20's, 21's and 22's
+(the replays' too) to both.
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -396,11 +434,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
+# phase 4's backlog: the first round keeps its 16 384 pods (128 waves of
+# 128, the kernel's timed shape), the second is cut (from 30 000 pods in
+# all) to make room for phase 22
+DENSITY_PODS = 20000
 # phases 7, 9, 11, 13 and 18 (b) run at half their earlier depth (the
 # same shapes, fewer pods, vips or cycles): the whole script with them
 # at full depth took 1 441.8 s on an H100, past the 1 200 s limit
 # (PERF.md section 4)
-SPREAD_PODS, SPREAD_APPS = 5000, 20
+SPREAD_PODS, SPREAD_APPS = 2500, 20
 SMALL_NODES, SMALL_PODS = 500, 1000
 # phase 8 (bench.py gangstorm, scaled to 5 000 nodes): gangs of 8 pods at
 # priority 1 fill 96% of the nodes' CPU, then 4-core high pods. Cut for
@@ -410,22 +452,24 @@ SMALL_NODES, SMALL_PODS = 500, 1000
 GANGS, GANG_SIZE, GANG_HIGH, GANG_CPU = 1200, 8, 1600, 8
 GANG_P = 16
 # phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
-# a quarter as many 8-core vips (cut for the script's time from 10 000,
-# one a hog, to 2 500)
-PREEMPT_VIPS = 2500
+# an eighth as many 8-core vips (cut for the script's time from 10 000,
+# one a hog, to 2 500, then to 1 250)
+PREEMPT_VIPS = 1250
 # phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
 # phase 5's multi-key pods: single pods and one gang, each pod with
-# required pod affinity over the zone and the host (4 single pods, cut
-# from 16 and then from 8 for the script's time: each host-path pass
-# scans every bound pod for every node)
-MULTIKEY_PODS, MULTIKEY_GANG = 4, 4
+# required pod affinity over the zone and the host (2 single pods and a
+# gang of 2, cut from 16, then 8, then 4 single pods and a gang of 4 for
+# the script's time: each host-path pass scans every bound pod for every
+# node)
+MULTIKEY_PODS, MULTIKEY_GANG = 2, 2
 # phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
 # trickle at 500 nodes, paced at 5 000); trickle cut from 2 048 pods (32
-# chunks) to make room for phase 21
-TRICKLE_PODS, TRICKLE_CHUNK = 1024, 64
-PACED_PODS, PACED_RATE, PACED_CHUNK = 1000, 200.0, 100
+# chunks) to 1 024 to make room for phase 21 and to 512 for phase 22,
+# paced from 1 000 to 500 for phase 22
+TRICKLE_PODS, TRICKLE_CHUNK = 512, 64
+PACED_PODS, PACED_RATE, PACED_CHUNK = 500, 200.0, 100
 PACED_SLO_S = 5.0
 # phase 12 (bench.py preempt_host, its own size)
 HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
@@ -434,27 +478,37 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # (to no fewer than SS_MIN_PODS) when the phase projects past
 # SS_PHASE_BUDGET_S: the host mask timed on SS_PROBE_PODS of them, for
 # every StatefulSet pod and the wave the pipeline's bail-out masks again,
-# plus a per-wave dispatch a wave at the density drain's ms a pod
-SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 2048, 320
+# plus a per-wave dispatch a wave at the density drain's ms a pod.
+# SS_DENSITY cut from 2 048 to make room for phase 22
+SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 1024, 320
 SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 128, 40.0, 8
 # phase 14: the density world's backlog drained untraced and traced (16
 # waves, one round; cut from 4 096 pods and 32 waves to make room for
 # phase 21), then twice more traced after a promotion and after the
-# rollback
-TRACED_PODS, TRACED_EXTRA = 2048, 512
+# rollback (TRACED_EXTRA cut from 512 to make room for phase 22)
+TRACED_PODS, TRACED_EXTRA = 2048, 256
+# phase 22 (the autopilot and the invariant checker): the promotion
+# pipeline's shadow window and watch take AP_SHADOW_ROUNDS and
+# AP_WATCH_ROUNDS rounds of WAVE density pods; part (c)'s ledger comes
+# from AP_SMALL_PODS pods at SMALL_NODES nodes, then AP_SMALL_EXTRA after
+# the swap and AP_SMALL_EXTRA after the rollback
+AP_SHADOW_ROUNDS, AP_WATCH_ROUNDS = 2, 2
+AP_SMALL_PODS, AP_SMALL_EXTRA = 512, 128
 # phase 15 (the cluster autoscaler): AUTOSCALE_RESIDENTS replicated pods
 # of AUTOSCALE_RESIDENT_CPU bound on each real node (88% of its CPU), a
 # backlog of AUTOSCALE_BACKLOG pods of AUTOSCALE_POD_CPU cores (half
 # tolerating himem's taint) that no real node can host, and three node
 # groups (name, cores, price, tainted, max size) under the autoscaler's
 # defaults; at most AUTOSCALE_UP_PASSES scale-up passes, then
-# AUTOSCALE_DOWN_PASSES scale-down passes; card == CPU on a reduced copy
+# AUTOSCALE_DOWN_PASSES scale-down passes; card == CPU on a reduced copy.
+# The backlog (cut from 128) and the scale-down passes (cut from 8) are
+# halved to make room for phase 22
 AUTOSCALE_RESIDENTS, AUTOSCALE_RESIDENT_CPU = 4, "3500m"
-AUTOSCALE_BACKLOG, AUTOSCALE_POD_CPU = 128, 20
+AUTOSCALE_BACKLOG, AUTOSCALE_POD_CPU = 64, 20
 AUTOSCALE_GROUPS = (("std-16", 16, 1.0, False, 16),
                     ("std-32", 32, 2.0, False, 96),
                     ("himem-64", 64, 4.5, True, 32))
-AUTOSCALE_UP_PASSES, AUTOSCALE_DOWN_PASSES = 16, 8
+AUTOSCALE_UP_PASSES, AUTOSCALE_DOWN_PASSES = 16, 4
 AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG = 500, 32
 # phase 16 (the node-lifecycle controller at its defaults: grace 40 s,
 # the pods' 300 s default tolerations): zone A stops every heartbeat,
@@ -476,8 +530,10 @@ OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0, 542.0)
 # pods under a deadline of FAULT_DEADLINE_X healthy dispatches; (d)'s
 # NaN-spec pods (at these places of 2 048 pods, scaled to the pod count)
 # and its crash-kind pod (inside the first wave, where the attribution
-# replay reproduces the crash at once)
-FAULT_PODS, FAULT_LATE, FAULT_MIN_PODS, FAULT_BUDGET_S = 2048, 512, 512, 45.0
+# replay reproduces the crash at once). FAULT_MIN_PODS (from 512) and
+# FAULT_BUDGET_S (from 45 s) are cut to make room for phase 22: a host
+# that projects (b) and (d) past 25 s runs them at 256 pods
+FAULT_PODS, FAULT_LATE, FAULT_MIN_PODS, FAULT_BUDGET_S = 2048, 512, 256, 25.0
 FAULT_GANG, FAULT_WATCH, FAULT_DEADLINE_X = 16, 256, 3.0
 FAULT_NAN, FAULT_CRASH = (100, 700, 1300, 1900), 40
 
@@ -582,18 +638,21 @@ STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 # get a node, as in the JAX scheduler, so the filter, prioritize and
 # preempt POSTs grow with the square of the vips; extender_vips.py times
 # this world at other counts), (d) EXT_DOWN_PODS pods (one wave) with the
-# extender down. EXT_PODS cut from 512 to make room for phase 21 (the
-# halving rule above still applies)
-EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 256, 7, 1, 10, 2
+# extender down. EXT_PODS cut from 512 to 256 to make room for phase 21
+# and to 128 (one wave) for phase 22, EXT_VIPS from 16 to 8 for phase 22
+# (the halving rule above still applies)
+EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 128, 7, 1, 10, 2
 EXT_TIMEOUT_S, EXT_BUDGET_S, EXT_REST_S = 30.0, 90.0, 40.0
-EXT_VIPS, EXT_DOWN_PODS = 16, 128
+EXT_VIPS, EXT_DOWN_PODS = 8, 128
 # phase 21 (the deployed kube-scheduler against the port's APIServer):
 # (a) DEPLOY_PODS density pods at FULL_NODES nodes, created over REST;
 # (c) FAILOVER_PODS pods drained by two --leader-elect schedulers with
 # leases of FAILOVER_LEASE s (renew deadline FAILOVER_RENEW s, retry
 # FAILOVER_RETRY s), each wait bounded by FAILOVER_WAIT_S; (d) card ==
-# CPU at SMALL_NODES nodes and DEPLOY_SMALL_PODS pods
-DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 2048, 1024, 512
+# CPU at SMALL_NODES nodes and DEPLOY_SMALL_PODS pods. DEPLOY_PODS (cut
+# from 2 048), FAILOVER_PODS (cut from 1 024) and DEPLOY_SMALL_PODS
+# (cut from 512) are halved to make room for phase 22
+DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 1024, 512, 256
 FAILOVER_LEASE, FAILOVER_RENEW, FAILOVER_RETRY = 1.5, 1.0, 0.2
 FAILOVER_WAIT_S = 120.0
 # the /metrics families phase 21 (d) leaves out of card == CPU: the
@@ -1311,6 +1370,22 @@ def check_captured(torch, tp, name, captured):
         log(f"[{name}] kernel == plain on the round's inputs P={rows} "
             f"N={nt.taint_key.shape[0]}")
     return err
+
+
+def capturing(launch, seen):
+    """A taint/port launch site that keeps in `seen` a copy of the first
+    inputs of each row count (the node tensors are updated in place
+    later), for check_captured, then launches."""
+    def capture(nt_, pb_, **kw):
+        rows = pb_.tol_key.shape[0]
+        if rows not in seen:
+            seen[rows] = (
+                nt_._replace(**{f: getattr(nt_, f).clone()
+                                for f in KERNEL_NODE_FIELDS}),
+                pb_._replace(**{f: getattr(pb_, f).clone()
+                                for f in KERNEL_POD_FIELDS}))
+        return launch(nt_, pb_, **kw)
+    return capture
 
 
 def cuda_ms(torch, fn, reps=25, warm=3, runs=5) -> float:
@@ -2375,16 +2450,6 @@ def statefulset_phase(torch, mods, enc, bucket_size, lbl, filters,
         seen["rounds"] += 1
         return saved["schedule_round"](*a, **kw)
 
-    def capture(nt_, pb_, **kw):
-        rows = pb_.tol_key.shape[0]
-        if rows not in seen["captured"]:
-            seen["captured"][rows] = (
-                nt_._replace(**{f: getattr(nt_, f).clone()
-                                for f in KERNEL_NODE_FIELDS}),
-                pb_._replace(**{f: getattr(pb_, f).clone()
-                                for f in KERNEL_POD_FIELDS}))
-        return kernel_launch(nt_, pb_, **kw)
-
     run_pipeline, run_wave = sched._run_pipeline, sched._run_wave
 
     def pipeline(pods, **kw):
@@ -2406,7 +2471,7 @@ def statefulset_phase(torch, mods, enc, bucket_size, lbl, filters,
     sched._run_pipeline, sched._run_wave = pipeline, per_wave
     sched_mod.schedule_wave = clock.wrap("wave_dispatch", wave, sync)
     sched_mod.schedule_round = clock.wrap("device_round", round_, sync)
-    filters.taint_ports_masks = capture
+    filters.taint_ports_masks = capturing(kernel_launch, seen["captured"])
     tp.taint_ports_masks.launches = 0
     pre.preempt_whatif.launches = 0
     bound_before = sum(1 for c in store.list("persistentvolumeclaims")
@@ -2659,18 +2724,6 @@ def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
             (time.monotonic() - t0, int(pbs.valid.sum())))
         return out
 
-    def capturing(launch):
-        def capture(nt_, pb_, **kw):
-            rows = pb_.tol_key.shape[0]
-            if rows not in seen["captured"]:
-                seen["captured"][rows] = (
-                    nt_._replace(**{f: getattr(nt_, f).clone()
-                                    for f in KERNEL_NODE_FIELDS}),
-                    pb_._replace(**{f: getattr(pb_, f).clone()
-                                    for f in KERNEL_POD_FIELDS}))
-            return launch(nt_, pb_, **kw)
-        return capture
-
     host = {"record_decisions": 0.0, "shadow_exact": 0.0, "telemetry": 0.0}
 
     def host_timed(name, fn):
@@ -2693,8 +2746,8 @@ def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
     packer.pop("LeastRequested")
     spreader = dict(same, BalancedAllocation=3.0)
     sched_mod.schedule_round = timed_round
-    kernel_mod.taint_ports_masks = capturing(round_launch)
-    filters.taint_ports_masks = capturing(wave_launch)
+    kernel_mod.taint_ports_masks = capturing(round_launch, seen["captured"])
+    filters.taint_ports_masks = capturing(wave_launch, seen["captured"])
     tp.taint_ports_masks.launches = 0
     pre.preempt_whatif.launches = 0
     try:
@@ -2860,8 +2913,8 @@ def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
         f"exact, telemetry); {n_dec} decisions re-add to their totals and "
         "rank their top lists; 0 telemetry failures; taint/port launches "
         f"{launches}")
-    ledger.unlink()
-    ledger_dir.rmdir()
+    # the ledger stays for phase 22's trainer, which removes it
+    untraced = bindings(store_a)
     del store_a, store_b, sched_a, sched_b, nt, nt_, pm_, tt_, pbt
     torch.cuda.empty_cache()
     # card == CPU on the reduced traced world
@@ -2892,7 +2945,8 @@ def traced_phase(torch, mods, enc, bucket_size, filters, tele, tracing,
         "ledger rows, decisions, shadow report, telemetry, metrics; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return dict(launches=launches, whatif_launches=whatif_launches,
-                max_err=err)
+                max_err=err, ledger=ledger, untraced=untraced,
+                untraced_pods_s=placed_a / wall_a)
 
 
 # --- main ----------------------------------------------------------------------
@@ -5899,16 +5953,6 @@ def deployed_drain_a(torch, mods, ks, tracing, filters, ladder):
     captured = {}
     kernel_launch = filters.taint_ports_masks
 
-    def capture(nt_, pb_, **kw):
-        rows = pb_.tol_key.shape[0]
-        if rows not in captured:
-            captured[rows] = (
-                nt_._replace(**{f: getattr(nt_, f).clone()
-                                for f in KERNEL_NODE_FIELDS}),
-                pb_._replace(**{f: getattr(pb_, f).clone()
-                                for f in KERNEL_POD_FIELDS}))
-        return kernel_launch(nt_, pb_, **kw)
-
     events = {}
     from kubernetes_tpu_torch.client import reflector as refl_mod
 
@@ -5923,7 +5967,7 @@ def deployed_drain_a(torch, mods, ks, tracing, filters, ladder):
     cfg_path = f"{tmp}/cfg.json"
     with open(cfg_path, "w") as f:
         json.dump({"waveSize": WAVE, "healthzPort": 0}, f)
-    filters.taint_ports_masks = capture
+    filters.taint_ports_masks = capturing(kernel_launch, captured)
     refl_mod.RemoteStore._on_event = on_event
     tp.taint_ports_masks.launches = 0
     try:
@@ -6270,6 +6314,491 @@ def deployed_phase(torch, mods, filters, tracing, ladder):
             "max_err": a["max_err"]}
 
 
+# --- phase 22: the autopilot and the invariant checker ------------------------
+
+
+def round_keys(kernel_mod):
+    """The shape buckets the round program has dispatched at in this
+    process (ops/kernel.py `_COMPILED` keys of program "round"): the
+    port's counterpart of JAX's `_schedule_round._cache_size()`."""
+    return frozenset(k for k in kernel_mod._COMPILED if k[0] == "round")
+
+
+def skewed_world(api, store_mod, Scheduler, device):
+    """tests/test_autopilot.py's skewed world on `device`: three 8-core
+    nodes at 6, 3 and 0 cores used, so the score planes tell the nodes
+    apart (margins of about 4 score units; on the density world the
+    integer scores tie across thousands of identical nodes and every
+    margin is 0), and a live profile `good`."""
+    store = store_mod.ObjectStore()
+    sched = Scheduler(store, wave_size=8, device=device)
+    for i in range(3):
+        store.create("nodes", api.Node(
+            metadata=api.ObjectMeta(name=f"sk-{i}",
+                                    labels={HOSTNAME: f"sk-{i}"}),
+            status=api.NodeStatus(
+                allocatable=api.resource_list(cpu="8", memory="32Gi",
+                                              pods=110),
+                conditions=[api.NodeCondition(api.NODE_READY,
+                                              api.COND_TRUE)])))
+    for node, n in (("sk-0", 6), ("sk-1", 3)):
+        for i in range(n):
+            p = batch_pod(api, f"{node}-pre-{i}", "skew", 1, None)
+            p.spec.node_name = node
+            store.create("pods", p)
+    store.create("weightprofiles", profile_obj(
+        api, "good", {"LeastRequested": 2.0, "PreferAvoid": 10000.0},
+        role="live"))
+    return store, sched
+
+
+def forced_regression(api, store_mod, ap, Scheduler, device):
+    """A candidate forced past the gates on the skewed world: near-zero
+    weights collapse the margins under the watch floor, the first
+    watched round breaches and the observer restores the live profile in
+    memory; a later step() reconciles the store's role. Returns what is
+    compared and printed."""
+    store, sched = skewed_world(api, store_mod, Scheduler, device)
+    prior = sched.weightbook.live_version()
+    ctl = ap.AutopilotController(sched, store=store, config=ap
+                                 .AutopilotConfig(min_shadow_pods=3,
+                                                  watch_rounds=2,
+                                                  watch_margin_floor=1.0))
+    ap.emit_candidate(store, "tiny", {"LeastRequested": 0.001})
+    states = [ctl.start("tiny", force=True), ctl.step()]
+    promoted = sched.weightbook.live_version()
+    store.create("pods", batch_pod(api, "breach", "skew", "100m", None))
+    t0 = time.monotonic()
+    placed = sched.schedule_pending()
+    restore_s = time.monotonic() - t0
+    restored = sched.weightbook.live_version()
+    role = [store.get("weightprofiles", "default", "tiny").spec.role]
+    states += [ctl.state, ctl.step()]
+    role.append(store.get("weightprofiles", "default", "tiny").spec.role)
+    m = sched.metrics.autopilot_promotions
+    out = {"states": states, "prior": prior, "promoted": promoted,
+           "restored": restored, "roles": role, "placed": placed,
+           "reason": ctl.history[-1].get("reason"),
+           "promotions": {o: m.value(outcome=o) for o in ap.OUTCOMES
+                          if m.value(outcome=o)},
+           "bindings": bindings(store)}
+    if (states != ["shadowing", "watching", "rolled_back", "rolled_back"]
+            or not promoted.startswith("tiny@") or restored != prior
+            or role != ["live", "candidate"] or placed != 1
+            or out["promotions"] != {"promoted": 1.0, "rolled_back": 1.0}
+            or "margin" not in (out["reason"] or "")):
+        fail(f"autopilot: the forced regression on {device} went {out}")
+    return out, restore_s
+
+
+def ap_ledger(mods, enc, bucket_size, tracing, weights_mod, stack, device,
+              path):
+    """Phase 14's traced drain in miniature on `device`, for part (c)'s
+    trainer: SMALL_NODES density nodes and AP_SMALL_PODS pods under a
+    live profile equal to the defaults with a bin-packing and a
+    spreading candidate, then the bin-packer promoted and AP_SMALL_EXTRA
+    more pods, then the rollback and AP_SMALL_EXTRA more. The recorder's
+    clock is a virtual one, so every record's wall_s (a term of the
+    round quality the trainer fits) is the same on the card and the
+    CPU. Returns the ledger's scored rounds."""
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    tracing.disable()
+    rec = tracing.enable(ledger_path=str(path), clock=VirtualClock())
+    try:
+        store, n_bound = build_store(api, store_mod, SMALL_NODES,
+                                     AP_SMALL_PODS, SEED)
+        caps = scheduler_caps(enc, bucket_size, SMALL_NODES,
+                              AP_SMALL_PODS + 2 * AP_SMALL_EXTRA, n_bound)
+        base = mods[4].default_profile(store).weights()
+        same = default_table(weights_mod, stack, base)
+        packer = dict(same, MostRequested=2.0)
+        packer.pop("LeastRequested")
+        for name, table, role in (
+                ("same", same, "live"), ("packer", packer, "candidate"),
+                ("spreader", dict(same, BalancedAllocation=3.0),
+                 "candidate")):
+            store.create("weightprofiles",
+                         profile_obj(api, name, table, role))
+        sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device)
+        sched.schedule_pending()
+        wp = store.get("weightprofiles", "default", "packer")
+        wp.spec.role = "live"
+        store.update("weightprofiles", wp)
+        add_singles(api, store, "swap", AP_SMALL_EXTRA, "100m", None)
+        sched.schedule_pending()
+        for name in ("packer", "same"):
+            store.delete("weightprofiles", "default", name)
+        add_singles(api, store, "rollback", AP_SMALL_EXTRA, "100m", None)
+        sched.schedule_pending()
+        return sum(1 for r in rec.ledger_rows() if "scores" in r)
+    finally:
+        tracing.disable()
+
+
+def pilot_run(mods, enc, bucket_size, kernel_mod, tp, ap, ladder, device,
+              n_nodes, table, slo_scale, probe=None):
+    """The promotion pipeline on `device` under the active recorder: a
+    live scheduler on the density world (n_nodes nodes, waves of WAVE),
+    the trained `table` emitted as a candidate, start(), a shadow window
+    of AP_SHADOW_ROUNDS rounds of WAVE density pods, step() (the shadow
+    gate, then the replay CI: two replays at n_nodes nodes and waves of
+    WAVE on the live scheduler's device), the promotion, and a watch of
+    AP_WATCH_ROUNDS rounds to `completed`. probe(sched, ctl), where
+    given, runs on the live scheduler at the end. Returns what is
+    compared and printed."""
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    store, n_bound = build_store(api, store_mod, n_nodes, 0, SEED)
+    caps = scheduler_caps(enc, bucket_size, n_nodes,
+                          (AP_SHADOW_ROUNDS + AP_WATCH_ROUNDS) * WAVE,
+                          n_bound)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device)
+    ctl = ap.AutopilotController(sched, store=store, config=ap
+                                 .AutopilotConfig(
+                                     min_shadow_pods=AP_SHADOW_ROUNDS * WAVE,
+                                     watch_rounds=AP_WATCH_ROUNDS,
+                                     replay_nodes=n_nodes, replay_wave=WAVE,
+                                     replay_slo_scale=slo_scale))
+    ap.emit_candidate(store, "trained", table)
+    made = len(ladder.made)
+    t_start = time.monotonic()
+    states = [ctl.start("trained")]
+    for k in range(AP_SHADOW_ROUNDS):
+        add_singles(api, store, f"shadow{k}", WAVE, "100m", None)
+        if sched.schedule_pending() != WAVE:
+            fail(f"autopilot: a shadow round on {device} placed too few")
+    keys = (round_keys(kernel_mod), len(kernel_mod._COMPILED))
+    launches = tp.taint_ports_masks.launches
+    t0 = time.monotonic()
+    if device == "cuda":
+        import torch
+
+        state, syncs = count_syncs(torch, ctl.step)
+    else:
+        state, syncs = ctl.step(), {}
+    step_s = time.monotonic() - t0
+    promote_s = time.monotonic() - t_start
+    ci_launches = tp.taint_ports_masks.launches - launches
+    states.append(state)
+    replays = [s for s in ladder.made[made:] if s is not sched]
+    waves = sum(int(s.metrics.waves_total.value(path="device"))
+                for s in replays)
+    paths = sorted({(s.device.type, s.wave_path()) for s in replays})
+    versions = [sched.weightbook.live_version()]
+    for k in range(AP_WATCH_ROUNDS):
+        add_singles(api, store, f"watch{k}", WAVE, "100m", None)
+        if sched.schedule_pending() != WAVE:
+            fail(f"autopilot: a watch round on {device} placed too few")
+    states.append(ctl.state)
+    versions.append(sched.weightbook.live_version())
+    new_keys = (round_keys(kernel_mod) - keys[0],
+                len(kernel_mod._COMPILED) - keys[1])
+    rep = ctl.reports.get("replay", {})
+    m = sched.metrics.autopilot_promotions
+    out = {"states": states, "outcome": ctl.outcome, "versions": versions,
+           "shadow": ctl.reports.get("shadow"),
+           "replays": [{k: r[k] for k in ("name", "version", "placed",
+                                          "total", "util", "frag",
+                                          "margin_rel", "objective",
+                                          "passed")}
+                       for r in (rep.get("baseline"), rep.get("candidate"))
+                       if r],
+           "promotions": {o: m.value(outcome=o) for o in ap.OUTCOMES
+                          if m.value(outcome=o)},
+           "bindings": bindings(store)}
+    seen = {"out": out, "step_s": step_s, "promote_s": promote_s,
+            "syncs": syncs, "waves": waves, "paths": paths,
+            "ci_launches": ci_launches, "new_keys": new_keys,
+            "replay_wall": [(r["name"], r["wall_s"])
+                            for r in (rep.get("baseline"),
+                                      rep.get("candidate")) if r]}
+    if states != ["shadowing", "watching", "completed"] or \
+            ctl.outcome != "promoted" or not versions[0].startswith(
+                "trained@") or versions[1] != versions[0]:
+        fail(f"autopilot: the pipeline on {device} went {states}, outcome "
+             f"{ctl.outcome}, versions {versions}, reports {ctl.reports}")
+    if len(out["replays"]) != 2 or paths != [(
+            device, "cuda" if device == "cuda" else "torch-cpu")]:
+        fail(f"autopilot: the replay CI on {device} ran {out['replays']} on "
+             f"{paths}")
+    if probe is not None:
+        seen["probe"] = probe(sched, ctl)
+    return seen
+
+
+def checked_drain(mods, enc, bucket_size, device, n_nodes, n_pods,
+                  n_total):
+    """The density world of n_nodes nodes and n_pods pods (phase 14's
+    untraced world at FULL_NODES) drained on Scheduler(...,
+    invariants=True): a strict checker after every round, each check
+    timed. Returns (scheduler, store, placed, wall seconds, check
+    seconds)."""
+    api, Scheduler, store_mod = mods[0], mods[5], mods[-1]
+    store, n_bound = build_store(api, store_mod, n_nodes, n_pods, SEED)
+    caps = scheduler_caps(enc, bucket_size, n_nodes, n_total, n_bound)
+    sched = Scheduler(store, wave_size=WAVE, caps=caps, device=device,
+                      invariants=True)
+    chk = sched.invariants
+    times = []
+    check = chk.check
+
+    def timed(s):
+        t0 = time.monotonic()
+        try:
+            return check(s)
+        finally:
+            times.append(time.monotonic() - t0)
+    chk.check = timed
+    t0 = time.monotonic()
+    placed = sched.schedule_pending()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    if chk.violations or not chk.strict:
+        fail(f"autopilot: the checked drain on {device} found "
+             f"{[v.invariant for v in chk.violations]}")
+    return sched, store, placed, wall, times
+
+
+def plant_faults(api, sched, store, InvariantChecker):
+    """Two seeded bugs on a drained scheduler, each under a collecting
+    checker of its own: a pending pod dropped from every queue area
+    (conservation, at the second check: its hysteresis), then one host
+    row of the snapshot's usage plane corrupted (snapshot_usage at once;
+    a host-only write, read back by the checker from the host plane).
+    Returns the findings [(check, invariant, detail)]."""
+    found = []
+    chk = InvariantChecker(metrics=sched.metrics, strict=False)
+    lost = batch_pod(api, "planted-lost", "density", "100m", None)
+    store.create("pods", lost)
+    sched.queue.delete(lost)
+    for k in (1, 2):
+        with sched._mu:
+            found += [(k, v.invariant, v.detail, v.digest)
+                      for v in chk.check(sched)]
+    store.delete("pods", "default", "planted-lost")
+    chk = InvariantChecker(metrics=sched.metrics, strict=False)
+    row = sched.snapshot.node_index["node-1"]
+    sched.snapshot.requested[row, 0] += 4000.0
+    with sched._mu:
+        found += [(3, v.invariant, v.detail, v.digest)
+                  for v in chk.check(sched)]
+    sched.snapshot.requested[row, 0] -= 4000.0
+    got = [(k, inv) for k, inv, _, _ in found]
+    if got != [(2, "conservation"), (3, "snapshot_usage")] or \
+            len(found[0][3]["lost"]) != 1 or \
+            found[1][3]["diverged_rows"] != [str(row)]:
+        fail(f"autopilot: the planted faults found {found}")
+    return found
+
+
+def autopilot_phase(torch, mods, enc, bucket_size, filters, tracing,
+                    weights_mod, stack, ladder, traced):
+    """Phase 22: (a) the promotion pipeline at FULL_NODES on the card,
+    trained on phase 14's ledger, and a forced regression rolled back;
+    (b) phase 14's untraced density drain on a checked scheduler, then
+    two planted faults; (c) the pipeline, the forced regression and a
+    checked drain at SMALL_NODES on the card and on the CPU, equal.
+    Every scheduler of the phase, the replays' too, is built through the
+    ladder. Returns what it saw."""
+    import tempfile
+
+    from kubernetes_tpu_torch import autopilot as ap
+    from kubernetes_tpu_torch.autopilot.dataset import load_dataset
+    from kubernetes_tpu_torch.chaos import InvariantChecker
+    from kubernetes_tpu_torch.cli.kube_scheduler import HealthServer
+
+    api, tp, pre, kernel_mod, sched_mod, Scheduler, PodBackoff, store_mod = mods
+    t_phase = time.monotonic()
+    seen = {}
+    saved = (sched_mod.Scheduler, kernel_mod.taint_ports_masks,
+             filters.taint_ports_masks)
+    # the replay CI builds its scheduler from sched/scheduler.py: through
+    # the ladder, so that each replay is held like the phase's others
+    sched_mod.Scheduler = Scheduler
+    kernel_mod.taint_ports_masks = capturing(saved[1], seen)
+    filters.taint_ports_masks = capturing(saved[2], seen)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    base = sched_mod.default_profile(None).weights()
+    try:
+        # (a) the promotion pipeline at full width
+        t0 = time.monotonic()
+        ds = load_dataset(str(traced["ledger"]))
+        table = ap.RidgeTrainer(base).fit(ds)
+        train_s = time.monotonic() - t0
+        log(f"[autopilot] (a) trained on phase 14's ledger ({len(ds)} scored "
+            f"rounds, {ds.skipped} skipped, versions "
+            f"{sorted(set(ds.versions))}) in {train_s:.4f} s: {table}")
+        tracing.disable()
+        rec = tracing.enable()
+        status = {}
+
+        def debug(sched, ctl):
+            hs = HealthServer(lambda: sched)
+            try:
+                code, body = http_get(hs.port, "/debug/autopilot")
+            finally:
+                hs.stop()
+            status.update(code=code, body=json.loads(body),
+                          want=json.loads(json.dumps(ctl.status())))
+        a = pilot_run(mods, enc, bucket_size, kernel_mod, tp, ap, ladder,
+                      "cuda", FULL_NODES, table, 1.0, probe=debug)
+        forced, restore_s = forced_regression(api, store_mod, ap, Scheduler,
+                                              "cuda")
+        trail = [r["state"] for r in rec.ledger_rows()
+                 if r.get("kind") == "autopilot"]
+        tracing.disable()
+        want = ["shadowing", "replaying", "promoted", "watching",
+                "completed", "shadowing", "promoted", "watching",
+                "rolled_back"]
+        if trail != want:
+            fail(f"autopilot: the ledger's transition trail is {trail}")
+        if status.get("code") != 200 or status["body"] != status["want"]:
+            fail(f"autopilot: /debug/autopilot answered {status}")
+        if a["new_keys"][0] or a["ci_launches"] < 1:
+            fail(f"autopilot: new round buckets {a['new_keys'][0]}, replay "
+                 f"CI launches {a['ci_launches']}")
+        out = a["out"]
+        sh = out["shadow"]
+        log(f"[autopilot] (a) {FULL_NODES} nodes: shadow window "
+            f"{AP_SHADOW_ROUNDS} rounds of {WAVE}: {sh['pods']} pods, flip "
+            f"rate {sh['flip_rate']}, margin delta {sh['margin_delta_mean']}")
+        for r, (name, wall) in zip(out["replays"], a["replay_wall"]):
+            log(f"[autopilot] (a) replay {name} ({r['version']}) at "
+                f"{FULL_NODES} nodes, waves of {WAVE}: {wall:.3f} s, placed "
+                f"{r['placed']}/{r['total']}, objective {r['objective']}, "
+                f"util {r['util']}, frag {r['frag']}, passed {r['passed']}")
+        n_sync = sum(a["syncs"].values())
+        log(f"[autopilot] (a) step() {a['step_s']:.3f} s (the two replays "
+            f"on {a['paths']}, {a['waves']} per-wave dispatches, "
+            f"{a['ci_launches']} taint/port launches); start to promoted "
+            f"{a['promote_s']:.3f} s; implicit host syncs of the step "
+            f"{n_sync} = {n_sync / max(a['waves'], 1):.1f} a replay wave ("
+            + ", ".join(f"{k} x{v}" for k, v in
+                        sorted(a["syncs"].items())[:6]) + ")")
+        log(f"[autopilot] (a) {' -> '.join(out['states'])}, live "
+            f"{out['versions'][0]}, promotions {out['promotions']}; new "
+            f"round buckets across step, promotion and watch: "
+            f"{len(a['new_keys'][0])} (all programs: {a['new_keys'][1]}, the "
+            "replays' own shape); /debug/autopilot 200 == status()")
+        log(f"[autopilot] (a) forced regression (skewed 3-node world): "
+            f"{' -> '.join(forced['states'])}, {forced['promoted']} -> "
+            f"{forced['restored']} {restore_s:.4f} s from the breaching "
+            f"round's start ({forced['reason']}); store role "
+            f"{forced['roles'][0]} until step(), then {forced['roles'][1]}; "
+            f"promotions {forced['promotions']}; trail {' -> '.join(trail)}")
+        Path(traced["ledger"]).unlink()
+        Path(traced["ledger"]).parent.rmdir()
+
+        # (b) phase 14's untraced drain, checked
+        n_total = TRACED_PODS + 2 * TRACED_EXTRA
+        sched, store, placed, wall, times = checked_drain(
+            mods, enc, bucket_size, "cuda", FULL_NODES, TRACED_PODS, n_total)
+        if bindings(store) != traced["untraced"]:
+            a_, b_ = traced["untraced"], bindings(store)
+            diff = [k for k in a_ if a_[k] != b_.get(k)]
+            fail(f"autopilot: the checked drain's bindings differ from phase "
+                 f"14's untraced run for {len(diff)} pods, e.g. {diff[:5]}")
+        bound = sum(1 for p in store.list("pods") if p.spec.node_name)
+        log(f"[autopilot] (b) checked drain, {FULL_NODES} nodes, "
+            f"{TRACED_PODS} pods: placed {placed} in {wall:.3f} s = "
+            f"{placed / wall:.1f} pods/s (phase 14 unchecked "
+            f"{traced['untraced_pods_s']:.1f}), bindings equal phase 14's; "
+            f"{sched.invariants.checks} checks, 0 violations, a check "
+            f"{1e3 * statistics.mean(times):.1f} ms mean, "
+            f"{1e3 * max(times):.1f} ms max at {bound} bound pods")
+        # the syncs of one wave with the checker on and off: WAVE new
+        # density pods a wave, after one warm wave
+        syncs = {}
+        chk = sched.invariants
+        for k, checked in enumerate((True, True, False)):
+            add_singles(api, store, f"probe{k}", WAVE, "100m", None)
+            sched.invariants = chk if checked else None
+            if k == 0:
+                n = sched.run_once()
+            else:
+                n, syncs[checked] = count_syncs(torch, sched.run_once)
+            if n != WAVE:
+                fail(f"autopilot: a probe wave placed {n}")
+        sched.invariants = chk
+        sc, su = (sum(syncs[f].values()) for f in (True, False))
+        log(f"[autopilot] (b) implicit host syncs of one {WAVE}-pod wave: "
+            f"checked {sc}, unchecked {su}")
+        if sc > su:
+            fail(f"autopilot: a checked wave synced {sc} times, an unchecked "
+                 f"one {su}")
+        found = plant_faults(api, sched, store, InvariantChecker)
+        for k, inv, detail, _ in found:
+            log(f"[autopilot] (b) planted fault, check {k}: {inv}: {detail}")
+        del sched, store
+        torch.cuda.empty_cache()
+        t_ab = time.monotonic() - t_phase
+
+        # (c) card == CPU at SMALL_NODES
+        got = {}
+        ldir = Path(tempfile.mkdtemp(prefix="chip_smoke_ap_"))
+        for device in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            path = ldir / f"{device}.jsonl"
+            scored = ap_ledger(mods, enc, bucket_size, tracing, weights_mod,
+                               stack, device, path)
+            ctable = ap.RidgeTrainer(base).fit(load_dataset(str(path)))
+            tracing.enable(clock=VirtualClock())
+            try:
+                c = pilot_run(mods, enc, bucket_size, kernel_mod, tp, ap,
+                              ladder, device, SMALL_NODES, ctable, 4.0)
+                cforced, _ = forced_regression(api, store_mod, ap, Scheduler,
+                                               device)
+                ctrail = [strip_uids({k: v for k, v in r.items() if k != "ts"})
+                          for r in tracing.active().ledger_rows()
+                          if r.get("kind") == "autopilot"]
+            finally:
+                tracing.disable()
+            csched, cstore, cplaced, _, _ = checked_drain(
+                mods, enc, bucket_size, device, SMALL_NODES, SMALL_PODS,
+                SMALL_PODS)
+            got[device] = {
+                "table": sorted((k, float(v).hex()) for k, v in
+                                ctable.items()),
+                "scored": scored, "pipeline": c["out"], "forced": cforced,
+                "trail": ctrail, "checked": bindings(cstore),
+                "checks": csched.invariants.checks}
+            log(f"[autopilot] (c) {device}: {scored} scored rounds, pipeline "
+                f"{' -> '.join(c['out']['states'])}, replays "
+                + ", ".join(f"{r['name']} {r['objective']}"
+                            for r in c["out"]["replays"])
+                + f", checked drain placed {cplaced} in "
+                f"{csched.invariants.checks} checks; "
+                f"{time.monotonic() - t0:.3f} s")
+            del csched, cstore
+        for path in ldir.iterdir():
+            path.unlink()
+        ldir.rmdir()
+        for key in got["cpu"]:
+            if got["cuda"][key] != got["cpu"][key]:
+                fail(f"autopilot: (c) card and CPU {key} differ: "
+                     f"{got['cuda'][key]} / {got['cpu'][key]}")
+        log(f"[autopilot] (c) {SMALL_NODES} nodes: card == CPU trained "
+            "table (bit for bit), transition trail, replays (placed, total, "
+            "util, frag, margin_rel, objective), forced regression, checked "
+            "drain's bindings and checks")
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        sched_mod.Scheduler = saved[0]
+        kernel_mod.taint_ports_masks = saved[1]
+        filters.taint_ports_masks = saved[2]
+        tracing.disable()
+    err = check_captured(torch, tp, "autopilot", seen)
+    log(f"[autopilot] taint/port launches {launches}, what-if "
+        f"{whatif_launches}; (a)+(b) {t_ab:.1f} s, phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                max_err=err)
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -6418,11 +6947,12 @@ def main() -> None:
     del w
 
     # 4. the density drain at full size
-    store, n_bound = build_store(api, store_mod, FULL_NODES, FULL_PODS, SEED)
-    caps = scheduler_caps(enc, bucket_size, FULL_NODES, FULL_PODS, n_bound)
+    store, n_bound = build_store(api, store_mod, FULL_NODES, DENSITY_PODS,
+                                 SEED)
+    caps = scheduler_caps(enc, bucket_size, FULL_NODES, DENSITY_PODS, n_bound)
     dens = drain(torch, mods, "density", store, caps, n_bound)
-    if dens["placed"] < FULL_PODS // 2:
-        fail(f"density: only {dens['placed']} of {FULL_PODS} pods placed")
+    if dens["placed"] < DENSITY_PODS // 2:
+        fail(f"density: only {dens['placed']} of {DENSITY_PODS} pods placed")
     ladder.check("density")
     del store
 
@@ -6690,6 +7220,8 @@ def main() -> None:
     traced = traced_phase(torch, phase_mods, enc, bucket_size, filters, tele,
                           tracing, weights_mod, SCORE_STACK)
     max_err = max(max_err, traced.pop("max_err"))
+    ledgered = {k: traced.pop(k)
+                for k in ("ledger", "untraced", "untraced_pods_s")}
     ladder.check("traced")
     t_traced = time.monotonic() - t0
 
@@ -6734,13 +7266,22 @@ def main() -> None:
     deployed = deployed_phase(torch, phase_mods, filters, tracing, ladder)
     max_err = max(max_err, deployed.pop("max_err"))
     t_deployed = time.monotonic() - t0
+
+    # 22. the autopilot and the invariant checker
+    t0 = time.monotonic()
+    autopilot = autopilot_phase(torch, phase_mods, enc, bucket_size, filters,
+                                tracing, weights_mod, SCORE_STACK, ladder,
+                                ledgered)
+    max_err = max(max_err, autopilot.pop("max_err"))
+    ladder.check("autopilot")
+    t_autopilot = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
               "faults": faults, "memory": memory,
               "store_outage": store_out, "extender": extender,
-              "deployed": deployed}
+              "deployed": deployed, "autopilot": autopilot}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -6752,7 +7293,7 @@ def main() -> None:
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
         f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
         f"{t_store:.1f} s; extender {t_ext:.1f} s; deployed "
-        f"{t_deployed:.1f} s; total "
+        f"{t_deployed:.1f} s; autopilot {t_autopilot:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

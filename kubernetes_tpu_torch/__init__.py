@@ -31,7 +31,13 @@ Layout (each module sits under the same path as its counterpart):
   server/   -- the API server (HTTP REST and watch over the object
                store, admission, authentication and RBAC)
   cli/      -- the kube-scheduler binary (the scheduling loop, leader
-               election, the HealthServer's /metrics and /debug/*)
+               election, the HealthServer's /metrics and /debug/*) and
+               the autopilot's train and replay commands
+  autopilot/ -- the scheduler autopilot: the round-ledger dataset, the
+               ridge trainer, the replay CI and the promotion controller
+               (shadow gate, replay, promote, regression watch)
+  chaos/    -- the cluster-invariant checker the scheduler runs after
+               each round when armed
   cloud/    -- node groups and the fake cloud the autoscaler sizes
   controllers/ -- the node-lifecycle controller (zone tally on the
                device) and the cluster autoscaler (what-ifs through the

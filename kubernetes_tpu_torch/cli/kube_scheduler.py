@@ -17,8 +17,9 @@ flag:
 
   * `--mesh-devices` above 1 raises NotImplementedError (the mesh is not
     ported: ROADMAP.md queue 1 item 3); 0, 1 and -1 mean the one card,
-    as the JAX resolution does on one device. `--invariants` raises
-    NotImplementedError (the invariant checker: queue 1 item 2);
+    as the JAX resolution does on one device. `--invariants` builds a
+    checked scheduler (a strict chaos/invariants.py checker after every
+    round), as in JAX;
   * under `--leader-elect` the scheduling loop runs in a thread of its
     own, which takes over the calling thread's torch modes (inference
     mode, current CUDA device and stream: both are per thread in torch);

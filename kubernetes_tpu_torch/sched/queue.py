@@ -86,7 +86,7 @@ import heapq
 import itertools
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
 from ..utils import faultpoints
@@ -309,6 +309,25 @@ class SchedulingQueue:
                 for pod in waiting.values():
                     counts[pod_class(api.pod_priority(pod))] += 1
         return counts
+
+    def area_uids(self) -> Dict[str, Tuple[str, ...]]:
+        """One atomic snapshot of every queue area's pod uids under a
+        single lock hold — the invariant checker's view (a per-area
+        accessor sequence could see one pod in two areas mid-move and
+        report a phantom conservation violation). Keys: active, backoff,
+        unschedulable, shed, quarantine, gang_waiting
+        (kubernetes_tpu/sched/queue.py:326)."""
+        with self._lock:
+            return {
+                "active": tuple(self._items),
+                "backoff": tuple(self._backoff),
+                "unschedulable": tuple(self._unschedulable),
+                "shed": tuple(self._shed),
+                "quarantine": tuple(self._quarantine),
+                "gang_waiting": tuple(
+                    uid for waiting in self._gang_waiting.values()
+                    for uid in waiting),
+            }
 
     # -- poison-work quarantine ------------------------------------------------
 

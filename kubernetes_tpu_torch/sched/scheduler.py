@@ -234,7 +234,17 @@ a 404 as deleted. `metrics` may be a registry shared with the
 reflectors; `racecheck` wraps `_mu` and the queue's lock in the
 lock-order watcher (utils/racecheck.py) under the JAX names;
 `mesh_min_devices` is kept for the configuration (one device on one
-card); `invariants=True` raises NotImplementedError.
+card).
+
+The autopilot and the invariant checker (kubernetes_tpu/sched/
+scheduler.py:496-519) are the JAX scheduler's: an
+autopilot/controller.py AutopilotController registers itself as
+`autopilot` (served at /debug/autopilot), and `invariants=True` arms a
+strict chaos/invariants.py InvariantChecker that `_check_invariants`
+runs under `_mu` after each pipeline pass, at the end of
+`schedule_pending` and after each `run_once` wave. It reads host state
+only. `_journal_replay_enabled` is JAX's broken-build hook: False
+stops the spool drain in housekeeping and the journal replay.
 
 HTTP extenders (sched/extender.py; kubernetes_tpu/sched/scheduler.py
 sites listed at each use) are the JAX scheduler's: a profile or Policy
@@ -249,8 +259,8 @@ the wave, or the gang) with backoff under
 breaker, never moves a wave to the twin and never runs on the CPU.
 
 Left out with no stand-in: the mesh and its reform (the mesh gauge reads
-one device, the reform series stay at zero in `metrics`), the
-invariant checker, and the autopilot (`autopilot` stays None).
+one device, the reform series stay at zero in `metrics`, `meshfaults`
+is None).
 """
 
 from __future__ import annotations
@@ -444,11 +454,6 @@ class Scheduler:
                  racecheck: bool = False,
                  mesh_min_devices: int = 1,
                  invariants: bool = False):
-        if invariants:
-            raise NotImplementedError(
-                "invariants=True: the chaos invariant checker "
-                "(kubernetes_tpu/chaos/invariants.py) is not ported yet "
-                "(ROADMAP.md queue 1 item 2)")
         self.device = enc.resolve_device(device)
         self.store = store
         self.profile = profile or default_profile(store)
@@ -633,6 +638,9 @@ class Scheduler:
         # the JAX scheduler's does without a mesh
         self.mesh_min_devices = max(int(mesh_min_devices), 1)
         self.metrics.mesh_devices.set(1)
+        # no mesh fault manager: the JAX value without a mesh, which the
+        # invariant checker's state_machine check reads
+        self.meshfaults = None
         # the bind pool (kubernetes_tpu/sched/scheduler.py:465-480): the
         # bind POST runs from these threads outside _mu, so the next
         # wave's featurize and dispatch overlap this wave's binds. Only
@@ -648,9 +656,26 @@ class Scheduler:
         self._inflight_mu = threading.Lock()
         self._inflight: set = set()
         self.bind_overlap_hwm = 0  # high-water mark of concurrent binds
-        # no autopilot controller is ported yet: /debug/autopilot answers
-        # 404 as the JAX HealthServer does with none attached
+        # the autopilot controller (autopilot/controller.py) registers
+        # itself here; the HealthServer serves it at /debug/autopilot
+        # (404 while none is attached)
         self.autopilot = None
+        # continuously-checked cluster invariants (chaos/invariants.py,
+        # kubernetes_tpu/sched/scheduler.py:499-507): opt-in post-round
+        # observer; None costs one attribute check per round. A checker
+        # can also be attached externally (strict=False for end-of-run
+        # gating).
+        self.invariants = None
+        if invariants:
+            from ..chaos.invariants import InvariantChecker
+
+            self.invariants = InvariantChecker(metrics=self.metrics)
+        # crash-journal replay test hook (kubernetes_tpu/sched/
+        # scheduler.py:519): a broken-build acceptance flips this False
+        # to prove that a build which neither drains the spool nor
+        # replays the journal is caught by the conservation invariant's
+        # spool-outlived-the-outage rule. NEVER disable outside a test.
+        self._journal_replay_enabled = True
         # both kernels are built now, before any dispatch runs under the
         # watchdog: a first build inside a guarded dispatch would read as
         # a hang. A failed build raises KernelBuildError here.
@@ -1411,6 +1436,7 @@ class Scheduler:
                 pre = self.pipeline_preemptions
                 pre_poison = self.poison_convictions
                 n = self._schedule_pipelined()
+                self._check_invariants()
                 placed += n
                 if (n > 0 or self.pipeline_preemptions > pre
                         or self.poison_convictions > pre_poison):
@@ -1427,6 +1453,7 @@ class Scheduler:
             placed += self.run_once()
         self.wait_for_binds()
         self.export_queue_gauges()
+        self._check_invariants()
         return placed
 
     def _housekeep(self) -> None:
@@ -1442,8 +1469,9 @@ class Scheduler:
         # the bind spool: drain it once the store answers again (the
         # breaker flagged the reconnect), or let its head intent be the
         # half-open probe once the jittered cooldown has passed (allow()
-        # admits exactly one)
-        if (self._spool
+        # admits exactly one). Gated on the replay hook so a broken-build
+        # acceptance can model a build that never drains.
+        if (self._journal_replay_enabled and self._spool
                 and (self.storehealth.state != STORE_DISCONNECTED
                      or self.storehealth.allow())):
             self._drain_spool()
@@ -1476,7 +1504,22 @@ class Scheduler:
         if not pods:
             return 0
         with self._mu:
-            return self._run_wave(pods)
+            n = self._run_wave(pods)
+        self._check_invariants()
+        return n
+
+    def _check_invariants(self) -> None:
+        """Post-round invariant check (chaos/invariants.py,
+        kubernetes_tpu/sched/scheduler.py:1387) — runs at every round
+        boundary when a checker is armed (--invariants /
+        Scheduler(invariants=True)); one attribute check when off.
+        Holds _mu so informer delivery and the check see a consistent
+        cache and snapshot, exactly like a wave."""
+        chk = self.invariants
+        if chk is None:
+            return
+        with self._mu:
+            chk.check(self)
 
     def _schedule_pipelined(self) -> int:
         """One pipeline pass over the whole backlog: gangs first, one
@@ -3972,7 +4015,7 @@ class Scheduler:
         recover_leadership()."""
         stats = {"adopted": 0, "respooled": 0, "requeued": 0, "gone": 0,
                  "unreachable": 0}
-        if self.journal is None:
+        if self.journal is None or not self._journal_replay_enabled:
             return stats
 
         class _PodRef:

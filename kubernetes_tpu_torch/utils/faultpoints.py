@@ -12,9 +12,10 @@ dispatch (an error, a hang, an out-of-memory), a pod spec that poisons
 the batched pass, the quarantine admission, the incremental snapshot
 writes that keep the device mirror honest, the compaction sweep, the
 queue's shed decision, the bind POST and truth GET of the store path,
-the bind journal's append — are wired with a named fault point (the
-etcd `gofail` pattern): a test activates a point by name and the code path fails
-exactly there, deterministically.
+the bind journal's append, the autopilot's fit and promotion — are
+wired with a named fault point (the etcd `gofail` pattern): a test
+activates a point by name and the code path fails exactly there,
+deterministically.
 
 Wired points (grep for `faultpoints.fire`):
 
@@ -88,6 +89,16 @@ Wired points (grep for `faultpoints.fire`):
                    forces the per-zone health reduction onto the exact
                    host fallback (and feeds the circuit breaker when
                    one is wired)
+  autopilot.train  autopilot/trainer.py Trainer.fit entry (payload: the
+                   LedgerDataset) — a `raise` fails a training job
+                   cleanly before any candidate is emitted; `latency`
+                   models a slow fit on a big ledger
+  autopilot.promote  autopilot/controller.py _promote, BEFORE the
+                   role=live write (payload: candidate name) — a
+                   `raise` aborts the pipeline at the most dangerous
+                   instant; the chaos assert is that nothing was
+                   promoted, the gating flag is dropped, and the
+                   outcome ledgered as `aborted`
   bind.post        sched/scheduler.py _bind_attempt, before each bind
                    POST attempt (the bind reconciler retries through
                    it; payload: the pod)

@@ -194,8 +194,11 @@ def test_scheduler_takes_the_jax_keywords():
     assert s.metrics is shared and s.mesh_min_devices == 4
     assert s._bind_pool is None  # the in-process store binds inline
     assert shared.mesh_devices.value == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        TorchScheduler(TorchStore(), device="cpu", invariants=True)
+    checked = TorchScheduler(TorchStore(), device="cpu", invariants=True)
+    assert checked.invariants is not None and checked.invariants.strict
+    assert checked.invariants.metrics is checked.metrics
+    cfg = tcfg.KubeSchedulerConfiguration(invariants=True)
+    assert tks.build_scheduler(cfg, TorchStore(), device="cpu").invariants
     cfg = tcfg.KubeSchedulerConfiguration(mesh_devices=2)
     with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tks.build_scheduler(cfg, TorchStore(), device="cpu")

@@ -215,7 +215,13 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "kubernetes_tpu_torch.ops.telemetry",
                 "kubernetes_tpu_torch.utils.tracing",
                 "kubernetes_tpu_torch.utils.trace",
-                "kubernetes_tpu_torch.utils.profiling"} <= set(sys.modules)
+                "kubernetes_tpu_torch.utils.profiling",
+                "kubernetes_tpu_torch.autopilot.dataset",
+                "kubernetes_tpu_torch.autopilot.trainer",
+                "kubernetes_tpu_torch.autopilot.replay",
+                "kubernetes_tpu_torch.autopilot.controller",
+                "kubernetes_tpu_torch.cli.autopilot",
+                "kubernetes_tpu_torch.chaos.invariants"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
