@@ -20,7 +20,7 @@ Phases (any failure exits non-zero and prints no result line):
                on the dense edge world (see phase 9);
   4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
-               20 000-pod backlog (cut from 30 000 for the script's
+               17 408-pod backlog (cut from 30 000 for the script's
                time); the store's bindings must respect every
                resource, taint, host-port and nodeSelector constraint, and
                the kernel must have launched during the run, on the live
@@ -38,7 +38,7 @@ Phases (any failure exits non-zero and prints no result line):
                shape (100 nodes, 48 gangs of 8, 32 high pods) on a virtual
                clock: identical bindings and victim sets; then the
                multi-key world: the reduced density world with anchor pods
-               bound first, drained, then 2 pods and a gang of 2 whose
+               bound first, drained, then 1 pod and a gang of 2 whose
                required pod affinity spans the zone and the host key (the
                exact host path, plugins/golden.py): identical bindings,
                every multi-key pod bound where both terms hold (read back
@@ -86,9 +86,9 @@ Phases (any failure exits non-zero and prints no result line):
                seconds by phase, each kernel's launches; the what-if
                timed on the drain's chunk (P = 16) as in phase 9;
   9. preempt — bench.py's preempt shape at 5 000 nodes, P = 128: 10 000
-               priority-1 hogs of 8 cores (two a node), then 1 250
+               priority-1 hogs of 8 cores (two a node), then 384
                priority-100 vips of 8 cores, each placing only by
-               evicting a hog. 1 250 placed, 1 250 evicted, every
+               evicting a hog. 384 placed, 384 evicted, every
                preemption done by the pipeline. Printed: vip pods/s,
                what-if chunks and launches, host validation seconds; on
                the largest chunk, the what-if by CUDA events as a whole
@@ -121,8 +121,8 @@ Phases (any failure exits non-zero and prints no result line):
                unbound WaitForFirstConsumer claim of 5-10 Gi against 320
                free PVs of 10, 20 and 50 Gi in three zones;
                VolumeScheduling on, the equivalence cache off. The host
-               mask of 8 of the pods projects the phase; past 40 s the
-               StatefulSet pods are halved (to 128). Every pod placed
+               mask of 8 of the pods projects the phase; past 30 s the
+               StatefulSet pods are halved (to 64). Every pod placed
                (check_bindings), every pod in its PV's zone, every claim
                bound to its own PV, no node over 16 GCE PDs, the kernel
                == plain on the per-wave dispatches' inputs. Printed:
@@ -138,9 +138,9 @@ Phases (any failure exits non-zero and prints no result line):
                a ledger file, a `live` WeightProfile equal to the default
                weights, a bin-packing and a spreading candidate,
                shadow_exact_interval=1): identical bindings; then the
-               bin-packer promoted to live and 256 more pods, then the
+               bin-packer promoted to live and 128 more pods, then the
                rollback (both live profiles deleted: the static table) and
-               256 more. Checks: every decision's chosen parts re-add by
+               128 more. Checks: every decision's chosen parts re-add by
                `_f32_totals` to its total, every top list in lax.top_k
                order, every ledger line v2 with weights_version (same@ ->
                packer@ -> static), scores, an exact shadow sample and
@@ -162,11 +162,11 @@ Phases (any failure exits non-zero and prints no result line):
                on the scheduler's card: 5 000 nodes (no instance-type
                label) each with four bound replicated pods of 3.5 cores,
                a FakeCloud with std-16, std-32 and a tainted himem-64
-               group, and 64 pending pods of 20 cores, half tolerating
+               group, and 32 pending pods of 20 cores, half tolerating
                himem's taint; preemption off, as bench.py
                run_autoscale_config runs it. Scale-up passes (run_once, the virtual
                clock past the cooldown, a drain) until nothing is
-               pending; then each himem node keeps one pod and 4
+               pending; then each himem node keeps one pod and 2
                scale-down passes run, the drained residents re-created
                and drained after each. Every pod bound, none without the
                toleration on himem, a node removed after a refit
@@ -184,12 +184,12 @@ Phases (any failure exits non-zero and prints no result line):
                scheduler's store: 5 000 nodes with heartbeats, four pods
                each with the 300 s default tolerations; zone A stops
                every heartbeat, 60% of zone B and 20 nodes of zone C
-               stop; monitor passes at 0, 41, 342, 442 and 542 s (past
+               stop; monitor passes at 0, 41, 342 and 442 s (past
                the 40 s grace, then the 300 s tolerations).
                Zone A FullDisruption with no eviction, B
                PartialDisruption, C Normal, the unreachable taint on
                exactly the stopped nodes, each zone's evictions equal to
-               its token bucket's allowance; 512 density pods placed,
+               its token bucket's allowance; 256 density pods placed,
                none on a tainted node; after the heartbeats resume every
                zone Normal and no taint left; the card's tally equal to
                np.bincount on every pass, no tally off the device.
@@ -235,7 +235,7 @@ Phases (any failure exits non-zero and prints no result line):
   18. memory — the memory plane and load shedding (state/scrubber.py,
                Snapshot._compact, the capacity-fault ladder, the queue's
                shed area) at 5 000 nodes, waves of 128: (a) device.oom
-               once in the density world's first round (1 024 pods):
+               once in the density world's first round (512 pods):
                strike 1 compacts and retries, capacity_faults 1, the
                breaker CLOSED, no conviction, the bindings equal a
                fault-free run's; three times in a row (512 pods): strikes
@@ -255,7 +255,7 @@ Phases (any failure exits non-zero and prints no result line):
                seconds and the upload bytes; the label-value vocabulary
                the same after every compaction, the first upload after
                each a full one and the next a row delta; a 500-node copy
-               (3 000 bound pods, 2 pods a Job) with compaction on and off
+               (1 500 bound pods, 2 pods a Job) with compaction on and off
                on the card and on the CPU: the same bindings in all four;
                (c) a budget just above the settled footprint and a wave of
                128 pods with 16 new label keys: the grow demands a
@@ -265,7 +265,7 @@ Phases (any failure exits non-zero and prints no result line):
                30 000 bound pods (seconds printed) reports exactly those
                rows and repairs them, the next upload is row deltas; on
                500 nodes the drain after the repair equals a clean
-               run's; (e) tests/test_storm.py's burst at 5 000 nodes: 2 560
+               run's; (e) tests/test_storm.py's burst at 5 000 nodes: 1 280
                priority-0 pods in bursts of 640 a tick with a pod at
                HIGH_PRIORITY_BAND after every 20, one wave a tick until
                nothing is pending, with shed_watermark 1 024 (shed_age_s 60 on the
@@ -321,7 +321,7 @@ Phases (any failure exits non-zero and prints no result line):
                calls (the pods halved when the first wave projects the
                phase past 90 s); (b) the same backlog at 500 nodes:
                card == CPU bindings and request logs byte for byte; (c)
-               500 nodes full of priority-1 hogs and 8 priority-100
+               500 nodes full of priority-1 hogs and 4 priority-100
                vips (not 64: with an extender the POSTs grow with the
                square of the vips, and extender_vips.py times this world
                at 16, 32 and 64 vips): card == CPU, no victim from a
@@ -336,7 +336,7 @@ Phases (any failure exits non-zero and prints no result line):
                reflectors and RemoteStore, the bind pool) on the card
                against the port's own APIServer (server/apiserver.py) on
                127.0.0.1 in this process, the nodes written into the
-               server's store first: (a) 1 024 density pods (no host
+               server's store first: (a) 512 density pods (no host
                port, see deploy_world) created over REST at 5 000 nodes,
                one main([--server, --config cfg.json, --once,
                --tracing]): every pod bound once over REST (read back and
@@ -399,6 +399,41 @@ Phases (any failure exits non-zero and prints no result line):
                500 nodes, the forced regression and a checked drain:
                the same table bit for bit, transition trail, replays'
                deterministic fields and bindings.
+  23. chaos  — the chaos campaign (chaos/campaign.py) and the kubemark
+               hollow cluster (kubemark/, with kubelet/, proxy/ and
+               volume/): (a) run_campaign(seed=7) over 8 schedules (bench.py
+               run_chaoscampaign_config samples 50; cut for the script's
+               time) on the card and on the CPU: no finding, faults
+               injected, each schedule's env string, violation,
+               placements, checks and hits equal, the seconds of each
+               replay printed; (b) the broken builds, the gang rollback off
+               with snapshot.write=corrupt x 4 and the journal replay off
+               with store.outage=raise x 6 at seed 7: caught (conservation
+               or gang_atomic; conservation, "outlived the outage"),
+               shrunk to snapshot.write=corrupt::1 and
+               store.outage=raise::4, re-triggered from the env string;
+               the healthy build tolerates both; card == CPU replay by
+               replay; (c) a HollowCluster of 5 000 nodes (3 zones, 8
+               racks, 3 generations) on a virtual clock, every kubelet
+               registered, a strict checker on the scheduler (waves of
+               128, caps pre-sized), 16 ticks of the campaign's loop (the
+               clock 1 s on, the 500 nodes whose index is the tick mod 10
+               heartbeat, 128 pods of the campaign's mix, two run_once),
+               a gang of 8 x 4 000m at tick 2 and one of 3 x 20 000m that
+               no node holds at tick 3, kernel.hang=latency:0.02:2,
+               heartbeat.deliver=drop::3, watch.deliver=latency:0.005:3
+               and bind.post=raise::2 armed at tick 2, then ticks until
+               only the big gang is pending: no violation, every armed
+               point hit, check_bindings, the small gang whole, no breaker
+               or store trip; printed: the seconds to build and register
+               the nodes, a tick's heartbeats and the next upload's bytes,
+               pods/s from the first arrival to the last bind, the checks
+               (count, mean and max ms), per-wave dispatches and
+               launches, the syncs of one checked wave; the same loop at
+               500 nodes with 4 ticks of arrivals on the card and on the
+               CPU: the same bindings, hits and checks. The kubelets are
+               registered and heartbeat; none runs sync_once (its pod
+               scan walks every pod for each node).
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
@@ -406,7 +441,9 @@ or strike (a healthy phase that leaned on a ladder fails), no store
 trip and no spooled bind; phase 17's schedulers are held to no capacity
 fault and phases 17-18's to no store trip and no spooled bind; phase
 19's to the device checks of phases 4-16, phases 20's, 21's and 22's
-(the replays' too) to both.
+(the replays' too) and phase 23's hollow clusters to both (phase 23's
+campaign replays arm faults on purpose and are held by the campaign's
+own checker).
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -423,6 +460,7 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -436,8 +474,9 @@ SEED = 20261017
 FULL_NODES, FULL_PODS = 5000, 30000
 # phase 4's backlog: the first round keeps its 16 384 pods (128 waves of
 # 128, the kernel's timed shape), the second is cut (from 30 000 pods in
-# all) to make room for phase 22
-DENSITY_PODS = 20000
+# all) to make room for phase 22 (20 000), then to 1 024 pods for phase
+# 23
+DENSITY_PODS = 17408
 # phases 7, 9, 11, 13 and 18 (b) run at half their earlier depth (the
 # same shapes, fewer pods, vips or cycles): the whole script with them
 # at full depth took 1 441.8 s on an H100, past the 1 200 s limit
@@ -452,18 +491,18 @@ SMALL_NODES, SMALL_PODS = 500, 1000
 GANGS, GANG_SIZE, GANG_HIGH, GANG_CPU = 1200, 8, 1600, 8
 GANG_P = 16
 # phase 9 (bench.py preempt at 5 000 nodes): two 8-core hogs a node, then
-# an eighth as many 8-core vips (cut for the script's time from 10 000,
-# one a hog, to 2 500, then to 1 250)
-PREEMPT_VIPS = 1250
+# 384 8-core vips (cut for the script's time from 10 000, one a hog, to
+# 2 500, then to 1 250, then to 384 for phase 23: three what-if chunks)
+PREEMPT_VIPS = 384
 # phase 5's reduced preempt and gangstorm worlds (bench.py's own sizes)
 SMALL_PREEMPT_NODES, SMALL_VIPS = 50, 100
 SMALL_GANG_NODES, SMALL_GANGS, SMALL_HIGH = 100, 48, 32
 # phase 5's multi-key pods: single pods and one gang, each pod with
 # required pod affinity over the zone and the host (2 single pods and a
-# gang of 2, cut from 16, then 8, then 4 single pods and a gang of 4 for
-# the script's time: each host-path pass scans every bound pod for every
-# node)
-MULTIKEY_PODS, MULTIKEY_GANG = 2, 2
+# gang of 2, cut from 16, then 8, then 4 single pods and a gang of 4, then
+# to 1 single pod for phase 23, for the script's time: each host-path
+# pass scans every bound pod for every node)
+MULTIKEY_PODS, MULTIKEY_GANG = 1, 2
 # phases 10 and 11 (bench.py trickle and paced; DRIVER_SUITE runs
 # trickle at 500 nodes, paced at 5 000); trickle cut from 2 048 pods (32
 # chunks) to 1 024 to make room for phase 21 and to 512 for phase 22,
@@ -479,14 +518,16 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # SS_PHASE_BUDGET_S: the host mask timed on SS_PROBE_PODS of them, for
 # every StatefulSet pod and the wave the pipeline's bail-out masks again,
 # plus a per-wave dispatch a wave at the density drain's ms a pod.
-# SS_DENSITY cut from 2 048 to make room for phase 22
+# SS_DENSITY cut from 2 048 to make room for phase 22; SS_MIN_PODS (from
+# 128) and SS_PHASE_BUDGET_S (from 40 s) cut to make room for phase 23
 SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 1024, 320
-SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 128, 40.0, 8
+SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 64, 30.0, 8
 # phase 14: the density world's backlog drained untraced and traced (16
 # waves, one round; cut from 4 096 pods and 32 waves to make room for
 # phase 21), then twice more traced after a promotion and after the
-# rollback (TRACED_EXTRA cut from 512 to make room for phase 22)
-TRACED_PODS, TRACED_EXTRA = 2048, 256
+# rollback (TRACED_EXTRA cut from 512 to make room for phase 22, and to
+# 128 for phase 23)
+TRACED_PODS, TRACED_EXTRA = 2048, 128
 # phase 22 (the autopilot and the invariant checker): the promotion
 # pipeline's shadow window and watch take AP_SHADOW_ROUNDS and
 # AP_WATCH_ROUNDS rounds of WAVE density pods; part (c)'s ledger comes
@@ -502,13 +543,14 @@ AP_SMALL_PODS, AP_SMALL_EXTRA = 512, 128
 # defaults; at most AUTOSCALE_UP_PASSES scale-up passes, then
 # AUTOSCALE_DOWN_PASSES scale-down passes; card == CPU on a reduced copy.
 # The backlog (cut from 128) and the scale-down passes (cut from 8) are
-# halved to make room for phase 22
+# halved to make room for phase 22, and both again (from 64 and 4) for
+# phase 23
 AUTOSCALE_RESIDENTS, AUTOSCALE_RESIDENT_CPU = 4, "3500m"
-AUTOSCALE_BACKLOG, AUTOSCALE_POD_CPU = 64, 20
+AUTOSCALE_BACKLOG, AUTOSCALE_POD_CPU = 32, 20
 AUTOSCALE_GROUPS = (("std-16", 16, 1.0, False, 16),
                     ("std-32", 32, 2.0, False, 96),
                     ("himem-64", 64, 4.5, True, 32))
-AUTOSCALE_UP_PASSES, AUTOSCALE_DOWN_PASSES = 16, 4
+AUTOSCALE_UP_PASSES, AUTOSCALE_DOWN_PASSES = 16, 2
 AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG = 500, 32
 # phase 16 (the node-lifecycle controller at its defaults: grace 40 s,
 # the pods' 300 s default tolerations): zone A stops every heartbeat,
@@ -519,10 +561,11 @@ AUTOSCALE_SMALL_NODES, AUTOSCALE_SMALL_BACKLOG = 500, 32
 # for the script's time from 13 passes (every 100 s to the due time,
 # then every 25 s): a pass walks 5.3 s of host time at 5 000 nodes once
 # evictions are queued (PERF.md section 5), so the passes between the
-# taint and the due time, which change nothing, are left out
-OUTAGE_B_FRACTION, OUTAGE_C_NODES, OUTAGE_DENSITY = 0.6, 20, 512
+# taint and the due time, which change nothing, are left out; for phase
+# 23 the last pass (542 s) and half the density pods (512) are cut too
+OUTAGE_B_FRACTION, OUTAGE_C_NODES, OUTAGE_DENSITY = 0.6, 20, 256
 OUTAGE_GRACE = 41.0
-OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0, 542.0)
+OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0)
 # phase 17 (the device-fault ladder): (b) and (d) drain FAULT_PODS density
 # pods (halved, to no fewer than FAULT_MIN_PODS, when the phase projects
 # past FAULT_BUDGET_S), (b) then FAULT_LATE more after the breaker's
@@ -606,14 +649,16 @@ INT32_LANES_PER_SM = 64
 # HIGH_PRIORITY_BAND pod after every STORM_EVERY (STORM_HIGH, cut from
 # 1 000), the watermark STORM_WATERMARK (cut from 4 096 with the burst)
 # and shed_age_s STORM_AGE_S on the virtual clock; after the burst one
-# wave a tick (at most STORM_DRAIN_TICKS) until nothing is pending
-MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 1024, 512, 256
+# wave a tick (at most STORM_DRAIN_TICKS) until nothing is pending. Cut
+# for phase 23: MEM_OOM_PODS (from 1 024), MEM_SMALL_RESIDENT (from
+# 3 000), STORM_LOW (from 2 560) and STORM_HIGH (from 128) halved
+MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 512, 512, 256
 MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 6, 32, 8
 MEM_COMPACT_S, MEM_COMPACT_EVERY = 60.0, 3
-MEM_SMALL_NODES, MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS = 500, 3000, 2
+MEM_SMALL_NODES, MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS = 500, 1500, 2
 MEM_GOV_SLACK, MEM_GOV_KEYS = 4096, 16
 MEM_CORRUPT, MEM_SCRUB_PODS = 8, 512
-STORM_LOW, STORM_HIGH, STORM_EVERY = 2560, 128, 20
+STORM_LOW, STORM_HIGH, STORM_EVERY = 1280, 64, 20
 STORM_BURST, STORM_WATERMARK, STORM_AGE_S = 5 * WAVE, 1024, 60.0
 STORM_DRAIN_TICKS = 200
 # phase 19 (the store plane): STORE_PODS density pods drained with the
@@ -640,10 +685,10 @@ STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 # this world at other counts), (d) EXT_DOWN_PODS pods (one wave) with the
 # extender down. EXT_PODS cut from 512 to 256 to make room for phase 21
 # and to 128 (one wave) for phase 22, EXT_VIPS from 16 to 8 for phase 22
-# (the halving rule above still applies)
+# and to 4 for phase 23 (the halving rule above still applies)
 EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 128, 7, 1, 10, 2
 EXT_TIMEOUT_S, EXT_BUDGET_S, EXT_REST_S = 30.0, 90.0, 40.0
-EXT_VIPS, EXT_DOWN_PODS = 8, 128
+EXT_VIPS, EXT_DOWN_PODS = 4, 128
 # phase 21 (the deployed kube-scheduler against the port's APIServer):
 # (a) DEPLOY_PODS density pods at FULL_NODES nodes, created over REST;
 # (c) FAILOVER_PODS pods drained by two --leader-elect schedulers with
@@ -651,8 +696,9 @@ EXT_VIPS, EXT_DOWN_PODS = 8, 128
 # FAILOVER_RETRY s), each wait bounded by FAILOVER_WAIT_S; (d) card ==
 # CPU at SMALL_NODES nodes and DEPLOY_SMALL_PODS pods. DEPLOY_PODS (cut
 # from 2 048), FAILOVER_PODS (cut from 1 024) and DEPLOY_SMALL_PODS
-# (cut from 512) are halved to make room for phase 22
-DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 1024, 512, 256
+# (cut from 512) are halved to make room for phase 22, DEPLOY_PODS again
+# (from 1 024) for phase 23
+DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 512, 512, 256
 FAILOVER_LEASE, FAILOVER_RENEW, FAILOVER_RETRY = 1.5, 1.0, 0.2
 FAILOVER_WAIT_S = 120.0
 # the /metrics families phase 21 (d) leaves out of card == CPU: the
@@ -672,6 +718,35 @@ DEPLOY_TIMED = ("binding_latency", "e2e_scheduling_latency",
 DEPLOY_UNTIMED = ("scheduler_queue_class_pods", "snapshot_upload_bytes_total",
                   "device_jit_cache_events_total",
                   "device_jit_compile_seconds")
+# phase 23 (the chaos campaign and the kubemark hollow cluster): (a)
+# run_campaign(seed=CHAOS_SEED) over CHAOS_SCHEDULES schedules (bench.py
+# run_chaoscampaign_config samples 50 at seed 7; cut for the script's
+# time) on the card and on the CPU; (b) the two broken builds of
+# tests/test_campaign.py and tests/test_outage.py at seed CHAOS_SEED:
+# (hook, schedule (point, mode, times), the invariants that may catch it,
+# the minimal schedule); (c) a HollowCluster of FULL_NODES nodes (and of
+# SMALL_NODES on the card and on the CPU) for HOLLOW_TICKS ticks of the
+# campaign's loop: the nodes whose index is the tick mod
+# HOLLOW_HB_EVERY heartbeat, HOLLOW_ARRIVALS pods of the campaign's mix
+# arrive, two run_once; a gang that fits (members, milli-CPU) at tick 2,
+# one no 16-CPU node can hold at tick 3; HOLLOW_ARMED armed at tick 2;
+# then at most HOLLOW_DRAIN_TICKS ticks until only the gang that cannot
+# fit is pending. The SMALL_NODES copy runs HOLLOW_SMALL_TICKS ticks of
+# arrivals (its CPU run is the slower half: a per-wave dispatch of WAVE
+# rows walks every row in a loop of small ops)
+CHAOS_SEED, CHAOS_SCHEDULES = 7, 8
+CHAOS_BROKEN = (
+    ("_gang_rollback_enabled", ("snapshot.write", "corrupt", 4),
+     ("conservation", "gang_atomic"), "snapshot.write=corrupt::1"),
+    ("_journal_replay_enabled", ("store.outage", "raise", 6),
+     ("conservation",), "store.outage=raise::4"))
+HOLLOW_TICKS, HOLLOW_ARRIVALS, HOLLOW_HB_EVERY = 16, 128, 10
+HOLLOW_SMALL_TICKS = 4
+HOLLOW_FIT, HOLLOW_BIG, HOLLOW_DRAIN_TICKS = (8, 4000), (3, 20000), 40
+HOLLOW_ARMED = ("kernel.hang=latency:0.02:2,heartbeat.deliver=drop::3,"
+                "watch.deliver=latency:0.005:3,bind.post=raise::2")
+# a pod uid as the store mints it, from a process-wide counter
+POD_UID = re.compile(r"uid-\d+")
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
 KERNEL_POD_FIELDS = ("tol_key", "tol_val", "tol_op", "tol_effect", "ports")
 
@@ -6799,6 +6874,379 @@ def autopilot_phase(torch, mods, enc, bucket_size, filters, tracing,
                 max_err=err)
 
 
+def outcome_view(o) -> dict:
+    """A ReplayOutcome less its pod uids (a process-wide counter: the
+    card's run and the CPU's mint different ones)."""
+    def strip(x):
+        if isinstance(x, str):
+            return POD_UID.sub("uid-*", x)
+        if isinstance(x, dict):
+            return {strip(k): strip(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [strip(v) for v in x]
+        return x
+    return {"violation": o.violation, "detail": strip(o.detail),
+            "digest": strip(o.digest), "injected": dict(o.injected),
+            "placed": o.placed, "checks": o.checks}
+
+
+def recorded_replays(campaign, run):
+    """run() with the campaign's replay (which run_campaign and shrink
+    call by its module name) recorded: (run()'s result, [(outcome view,
+    seconds)] in call order)."""
+    real = campaign.replay
+    seen = []
+
+    def replay(*a, **kw):
+        t0 = time.monotonic()
+        out = real(*a, **kw)
+        seen.append((outcome_view(out), time.monotonic() - t0))
+        return out
+    campaign.replay = replay
+    try:
+        return run(), seen
+    finally:
+        campaign.replay = real
+
+
+def campaign_run(campaign, device):
+    """(a) run_campaign(CHAOS_SEED, CHAOS_SCHEDULES) on `device`: the
+    schedules' env strings, each replay's outcome and seconds, the
+    result."""
+    lines = []
+    res, seen = recorded_replays(campaign, lambda: campaign.run_campaign(
+        CHAOS_SEED, CHAOS_SCHEDULES, device=device, log=lines.append))
+    envs = [ln.split("] ", 1)[1].rsplit(" -> ", 1)[0] for ln in lines
+            if ln.startswith("[")]
+    if not res.ok or res.schedules != CHAOS_SCHEDULES or \
+            not res.injected_total or len(seen) != CHAOS_SCHEDULES:
+        fail(f"chaos: (a) the campaign on {device}: {res.schedules} "
+             f"schedules, {res.injected_total} hits, findings "
+             f"{[(f.env, f.outcome.violation) for f in res.findings]}")
+    return {"envs": envs, "outcomes": [o for o, _ in seen],
+            "seconds": [s for _, s in seen],
+            "totals": (res.checks_total, res.injected_total)}
+
+
+def broken_run(campaign, device, hook, spec, names, minimal):
+    """(b) one broken build on `device`: its schedule caught, shrunk and
+    re-triggered from the env string; the healthy build tolerates the
+    same schedule."""
+    point, mode, times = spec
+    schedule = [campaign.FaultSpec(point, mode, times=times)]
+
+    def configure(sched):
+        setattr(sched, hook, False)
+
+    def run():
+        broken = campaign.replay(schedule, CHAOS_SEED, configure=configure,
+                                 device=device)
+        small, _ = campaign.shrink(schedule, CHAOS_SEED, configure=configure,
+                                   device=device)
+        env = campaign.env_string(small)
+        again = campaign.replay((), CHAOS_SEED, env_spec=env,
+                                configure=configure, device=device)
+        healthy = campaign.replay(schedule, CHAOS_SEED, device=device)
+        return broken, env, again, healthy
+
+    (broken, env, again, healthy), seen = recorded_replays(campaign, run)
+    if broken.violation not in names or not broken.digest or \
+            env != minimal or not again.violated or healthy.violated or \
+            not healthy.injected.get(point) or (
+                hook == "_journal_replay_enabled"
+                and "outlived the outage" not in broken.detail):
+        fail(f"chaos: (b) {hook} off on {device}: caught "
+             f"{broken.violation} ({broken.detail}), shrunk to {env!r}, "
+             f"re-triggered {again.violation}, healthy {healthy.violation}")
+    return {"outcomes": [o for o, _ in seen], "minimal": env,
+            "seconds": sum(s for _, s in seen), "replays": len(seen)}
+
+
+def hollow_run(torch, mods, enc, bucket_size, faultpoints, device, n_nodes,
+               ticks, probe=False):
+    """(c) the campaign's loop on a HollowCluster of n_nodes nodes on
+    `device`, `ticks` ticks of arrivals, with HOLLOW_ARMED armed at tick
+    2 (see HOLLOW_TICKS). Every
+    placement is checked (check_bindings), the fitting gang whole, the
+    other unbound, every armed point hit, no violation, breaker or store
+    trip. probe: time the registration, the heartbeat ticks, the checks,
+    the drain and its host phases, and count the syncs of one checked
+    wave and the gang dispatches. Returns what is compared and
+    printed."""
+    import random
+
+    from kubernetes_tpu_torch.chaos import InvariantChecker, campaign
+    from kubernetes_tpu_torch.chaos import InvariantViolation
+    from kubernetes_tpu_torch.kubemark import HollowCluster
+
+    api, tp, sched_mod, Scheduler, store_mod = (mods[0], mods[1], mods[4],
+                                                mods[5], mods[-1])
+    rng = random.Random(SEED)
+    arrivals = {t: [campaign._mk_pod(f"load-{t}-{i}",
+                                     cpu=rng.choice((100, 250)),
+                                     priority=rng.choice((0, 1500)))
+                    for i in range(HOLLOW_ARRIVALS)]
+                for t in range(ticks)}
+    for t, name, (members, cpu) in ((2, "gfit", HOLLOW_FIT),
+                                    (3, "gbig", HOLLOW_BIG)):
+        arrivals[t] += [campaign._mk_pod(f"{name}-{i}", cpu=cpu, gang=name,
+                                         min_member=members)
+                        for i in range(members)]
+    n_pods = sum(len(v) for v in arrivals.values())
+    faultpoints.reset()
+    store = store_mod.ObjectStore()
+    vclock = VirtualClock()
+    sched = Scheduler(store, wave_size=WAVE, device=device, clock=vclock,
+                      caps=enc.Caps(M=bucket_size(2 * n_pods + 64), P=WAVE,
+                                    LV=bucket_size(n_nodes + 256, 64)))
+    chk = InvariantChecker(metrics=sched.metrics, strict=True)
+    sched.invariants = chk
+    check_s = []
+    check = chk.check
+
+    def timed(s):
+        t0 = time.monotonic()
+        try:
+            return check(s)
+        finally:
+            check_s.append(time.monotonic() - t0)
+    chk.check = timed
+    seen = {}
+    clock = PhaseClock()
+    saved = {name: getattr(sched_mod, name)
+             for name in ("schedule_wave", "schedule_gang", "preempt")}
+    gangs = [0]
+    if probe:
+        sync = torch.cuda.synchronize if device == "cuda" else None
+
+        def gang(*a, **kw):
+            gangs[0] += 1
+            return saved["schedule_gang"](*a, **kw)
+        sched_mod.schedule_wave = clock.wrap(
+            "wave_dispatch", saved["schedule_wave"], sync)
+        sched_mod.schedule_gang = clock.wrap("gang_dispatch", gang, sync)
+        # the per-wave path's host preemption of a failed pod or gang
+        # (sched/preemption.py preempt over the numpy what-if)
+        sched_mod.preempt = clock.wrap("host_preempt", saved["preempt"])
+        sched.featurizer.featurize = clock.wrap("featurize",
+                                                sched.featurizer.featurize)
+        sched.snapshot.to_device = clock.wrap("upload",
+                                              sched.snapshot.to_device, sync)
+        sched._commit = clock.wrap("commit", sched._commit)
+        sched._commit_gang = clock.wrap("commit", sched._commit_gang)
+        store.create = clock.wrap("arrivals", store.create)
+    t0 = time.monotonic()
+    hc = HollowCluster(store, n_nodes, zones=3, racks=8, generations=3,
+                       clock=vclock)
+    seen["build_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    for node in hc.nodes:
+        node.kubelet.register_node()
+    seen["register_s"] = time.monotonic() - t0
+    beat_s, uploads, placed, last_bind = [], [], 0, None
+    waves0 = int(sched.metrics.waves_total.value(path="device"))
+    launches0 = tp.taint_ports_masks.launches
+    clock.seconds.clear()
+    t_first = time.monotonic()
+    run_once = clock.wrap("run_once", sched.run_once)
+
+    def wave():
+        nonlocal placed, last_bind
+        n = run_once(timeout=0)
+        placed += n
+        if n:
+            last_bind = time.monotonic()
+        return n
+
+    try:
+        for t in range(ticks + HOLLOW_DRAIN_TICKS):
+            if t == 2:
+                faultpoints.activate_spec(HOLLOW_ARMED)
+            vclock.t += 1.0
+            t0 = time.monotonic()
+            for node in hc.nodes[t % HOLLOW_HB_EVERY::HOLLOW_HB_EVERY]:
+                node.kubelet.heartbeat()
+            beat_s.append(time.monotonic() - t0)
+            for pod in arrivals.get(t, ()):
+                store.create("pods", pod)
+            up = sched.snapshot.upload_bytes_total
+            if probe and device == "cuda" and t == 1:
+                _, seen["syncs"] = count_syncs(torch, wave)
+            else:
+                wave()
+            uploads.append(sched.snapshot.upload_bytes_total - up)
+            wave()
+            if t >= ticks and sorted(
+                    p.metadata.name for p in store.list("pods")
+                    if not p.spec.node_name) == \
+                    [f"gbig-{i}" for i in range(HOLLOW_BIG[0])]:
+                break
+    except InvariantViolation as v:
+        fail(f"chaos: (c) {n_nodes} nodes on {device}: {v.invariant}: "
+             f"{v.detail}")
+    finally:
+        hits = {name: faultpoints.hits(name)
+                for name, *_ in faultpoints.parse(HOLLOW_ARMED)}
+        faultpoints.reset()
+        hc.stop()
+        for name, fn in saved.items():
+            setattr(sched_mod, name, fn)
+    sched.wait_for_binds()
+    b = bindings(store)
+    pending = sorted(k for k, v in b.items() if not v)
+    check_bindings(api, store)
+    if pending != [f"gbig-{i}" for i in range(HOLLOW_BIG[0])] or \
+            not all(b[f"gfit-{i}"] for i in range(HOLLOW_FIT[0])) or \
+            not all(hits.values()) or chk.violations or \
+            sched.breaker.trips or sched.storehealth.trips:
+        fail(f"chaos: (c) {n_nodes} nodes on {device}: pending {pending[:8]}"
+             f" ({len(pending)}), hits {hits}, violations "
+             f"{[v.invariant for v in chk.violations]}, breaker trips "
+             f"{sched.breaker.trips}, store trips {sched.storehealth.trips}")
+    seen.update(
+        bindings=b, hits=hits, checks=chk.checks, placed=placed,
+        ticks=t + 1, n_pods=n_pods, beat_s=beat_s, uploads=uploads,
+        check_s=check_s, waves=int(sched.metrics.waves_total.value(
+            path="device")) - waves0, gangs=gangs[0],
+        launches=tp.taint_ports_masks.launches - launches0,
+        phases=dict(clock.seconds), checks_s=sum(check_s),
+        drain_s=(last_bind or t_first) - t_first, path=sched.wave_path())
+    sched.close()
+    return seen
+
+
+def chaos_phase(torch, mods, enc, bucket_size, filters, faultpoints):
+    """Phase 23: (a) the seeded campaign and (b) the two broken builds on
+    the card, each held to the CPU's run, replay by replay; (c) a
+    fault-armed HollowCluster at FULL_NODES on the card, and the same
+    loop at SMALL_NODES on the card and on the CPU, equal. Returns what
+    it saw."""
+    from kubernetes_tpu_torch.chaos import campaign
+
+    api, tp, pre, kernel_mod = mods[:4]
+    t_phase = time.monotonic()
+    seen = {}
+    saved = (kernel_mod.taint_ports_masks, filters.taint_ports_masks)
+    kernel_mod.taint_ports_masks = capturing(saved[0], seen)
+    filters.taint_ports_masks = capturing(saved[1], seen)
+    tp.taint_ports_masks.launches = 0
+    pre.preempt_whatif.launches = 0
+    try:
+        # (a) the campaign
+        got = {d: campaign_run(campaign, d) for d in ("cuda", "cpu")}
+        for k, (env, a, b) in enumerate(zip(got["cuda"]["envs"],
+                                            got["cuda"]["outcomes"],
+                                            got["cpu"]["outcomes"])):
+            if a != b or env != got["cpu"]["envs"][k]:
+                fail(f"chaos: (a) schedule {k} {env}: card {a}, CPU {b}")
+            log(f"[chaos] (a) {k + 1}/{CHAOS_SCHEDULES} {env}: "
+                f"{a['violation'] or 'clean'}, placed {a['placed']}, "
+                f"{a['checks']} checks, hits {a['injected']}; card "
+                f"{got['cuda']['seconds'][k]:.3f} s, CPU "
+                f"{got['cpu']['seconds'][k]:.3f} s: card == CPU")
+        sec = {d: got[d]["seconds"] for d in got}
+        log(f"[chaos] (a) run_campaign(seed={CHAOS_SEED}, schedules="
+            f"{CHAOS_SCHEDULES}): no finding, checks and hits "
+            f"{got['cuda']['totals']}; a replay on the card "
+            f"{statistics.mean(sec['cuda']):.3f} s mean "
+            f"({sum(sec['cuda']):.3f} s), on the CPU "
+            f"{statistics.mean(sec['cpu']):.3f} s mean "
+            f"({sum(sec['cpu']):.3f} s)")
+        t_a = time.monotonic() - t_phase
+
+        # (b) the broken builds
+        t0 = time.monotonic()
+        for hook, spec, names, minimal in CHAOS_BROKEN:
+            got = {d: broken_run(campaign, d, hook, spec, names, minimal)
+                   for d in ("cuda", "cpu")}
+            if got["cuda"]["outcomes"] != got["cpu"]["outcomes"]:
+                fail(f"chaos: (b) {hook} off: card {got['cuda']} / CPU "
+                     f"{got['cpu']}")
+            first = got["cuda"]["outcomes"][0]
+            log(f"[chaos] (b) {hook} = False, {spec[0]}={spec[1]}::"
+                f"{spec[2]}: caught as {first['violation']} "
+                f"({first['detail'][:80]}), shrunk to "
+                f"{got['cuda']['minimal']!r} and re-triggered from it; the "
+                f"healthy build clean; {got['cuda']['replays']} replays, "
+                f"card {got['cuda']['seconds']:.3f} s, CPU "
+                f"{got['cpu']['seconds']:.3f} s: card == CPU, replay by "
+                "replay")
+        t_b = time.monotonic() - t0
+
+        # (c) the hollow cluster with faults armed
+        t0 = time.monotonic()
+        h = hollow_run(torch, mods, enc, bucket_size, faultpoints, "cuda",
+                       FULL_NODES, HOLLOW_TICKS, probe=True)
+        cs = h["check_s"]
+        ph = h["phases"]
+        inner = sum(v for k, v in ph.items()
+                    if k not in ("run_once", "arrivals"))
+        ph["other (queue, host mask, failed gangs, binds)"] = (
+            ph.get("run_once", 0.0) - inner - h["checks_s"])
+        ph["checks"] = h["checks_s"]
+        ph["heartbeats"] = sum(h["beat_s"])
+        beats = h["beat_s"][1:HOLLOW_TICKS]
+        n_sync = sum(h["syncs"].values())
+        log(f"[chaos] (c) HollowCluster of {FULL_NODES} nodes: built and "
+            f"registered in {h['build_s']:.3f} s (every kubelet's "
+            f"register_node() again: {h['register_s']:.3f} s); a tick's "
+            f"{FULL_NODES // HOLLOW_HB_EVERY} heartbeats "
+            f"{statistics.mean(beats):.3f} s mean, {max(beats):.3f} s max; "
+            f"the uploads after them {sorted(set(h['uploads'][1:]))} B "
+            f"(the first, full: {h['uploads'][0]} B)")
+        log(f"[chaos] (c) {h['placed']} of {h['n_pods']} pods placed in "
+            f"{h['ticks']} ticks, {h['drain_s']:.3f} s from the first "
+            f"arrival to the last bind = {h['placed'] / h['drain_s']:.1f} "
+            f"pods/s; {h['waves']} per-wave dispatches on {h['path']}, "
+            f"{h['gangs']} gang dispatches, {h['launches']} taint/port "
+            f"launches; {h['checks']} checks, "
+            f"{1e3 * statistics.mean(cs):.1f} ms mean, "
+            f"{1e3 * max(cs):.1f} ms max; hits {h['hits']}; the gang of "
+            f"{HOLLOW_FIT[0]} whole, the gang of {HOLLOW_BIG[0]} x "
+            f"{HOLLOW_BIG[1]}m pending; no violation, breaker or store "
+            f"trip; implicit host syncs of one checked wave {n_sync} ("
+            + ", ".join(f"{k} x{v}" for k, v in
+                        sorted(h["syncs"].items())[:6]) + ")")
+        log("[chaos] (c) host seconds of the drain: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(ph.items(),
+                                               key=lambda kv: -kv[1])))
+        del h
+        torch.cuda.empty_cache()
+        t_c = time.monotonic() - t0
+        got = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            h = hollow_run(torch, mods, enc, bucket_size, faultpoints,
+                           device, SMALL_NODES, HOLLOW_SMALL_TICKS)
+            got[device] = {k: h[k] for k in ("bindings", "hits", "checks",
+                                             "placed")}
+            log(f"[chaos] (c) {SMALL_NODES} nodes on {device}: placed "
+                f"{h['placed']} in {h['ticks']} ticks, {h['checks']} "
+                f"checks, hits {h['hits']}; {time.monotonic() - t0:.3f} s")
+        if got["cuda"] != got["cpu"]:
+            a, b = got["cuda"], got["cpu"]
+            diff = [k for k in a["bindings"]
+                    if a["bindings"][k] != b["bindings"].get(k)]
+            fail(f"chaos: (c) card and CPU differ at {SMALL_NODES} nodes: "
+                 f"hits {a['hits']} / {b['hits']}, checks {a['checks']} / "
+                 f"{b['checks']}, bindings of {diff[:5]}")
+        log(f"[chaos] (c) {SMALL_NODES} nodes, {HOLLOW_SMALL_TICKS} ticks of "
+            "arrivals: card == CPU bindings, hits and checks")
+        launches = tp.taint_ports_masks.launches
+        whatif_launches = pre.preempt_whatif.launches
+    finally:
+        kernel_mod.taint_ports_masks = saved[0]
+        filters.taint_ports_masks = saved[1]
+        faultpoints.reset()
+    err = check_captured(torch, tp, "chaos", seen)
+    log(f"[chaos] taint/port launches {launches}, what-if "
+        f"{whatif_launches}; (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) at "
+        f"{FULL_NODES} nodes {t_c:.1f} s, phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                max_err=err)
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -7275,13 +7723,21 @@ def main() -> None:
     max_err = max(max_err, autopilot.pop("max_err"))
     ladder.check("autopilot")
     t_autopilot = time.monotonic() - t0
+
+    # 23. the chaos campaign and the kubemark hollow cluster
+    t0 = time.monotonic()
+    chaos = chaos_phase(torch, phase_mods, enc, bucket_size, filters,
+                        faultpoints)
+    max_err = max(max_err, chaos.pop("max_err"))
+    ladder.check("chaos")
+    t_chaos = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
               "faults": faults, "memory": memory,
               "store_outage": store_out, "extender": extender,
-              "deployed": deployed, "autopilot": autopilot}
+              "deployed": deployed, "autopilot": autopilot, "chaos": chaos}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -7293,7 +7749,8 @@ def main() -> None:
         f"traced {t_traced:.1f} s; autoscale and zone_outage {t_ctl:.1f} s; "
         f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
         f"{t_store:.1f} s; extender {t_ext:.1f} s; deployed "
-        f"{t_deployed:.1f} s; autopilot {t_autopilot:.1f} s; total "
+        f"{t_deployed:.1f} s; autopilot {t_autopilot:.1f} s; chaos "
+        f"{t_chaos:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

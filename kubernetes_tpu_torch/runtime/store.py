@@ -23,6 +23,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
+from ..utils import faultpoints
 
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
@@ -74,6 +75,12 @@ class ObjectStore:
         return f"{meta.namespace}/{meta.name}"
 
     def _notify(self, ev: Event):
+        # chaos seam (kubernetes_tpu/runtime/store.py:84): a `drop`-mode
+        # fault loses this event for EVERY watcher — the lost-watch-
+        # delivery scenario reflector relists (and, for the scheduler's
+        # tensor mirror, the snapshot scrubber) exist to recover from
+        if faultpoints.fire("watch.deliver", payload=ev):
+            return
         for kind, fn in list(self._watchers):
             if kind is None or kind == ev.kind:
                 fn(ev)

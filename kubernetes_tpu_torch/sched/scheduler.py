@@ -243,8 +243,10 @@ autopilot/controller.py AutopilotController registers itself as
 strict chaos/invariants.py InvariantChecker that `_check_invariants`
 runs under `_mu` after each pipeline pass, at the end of
 `schedule_pending` and after each `run_once` wave. It reads host state
-only. `_journal_replay_enabled` is JAX's broken-build hook: False
-stops the spool drain in housekeeping and the journal replay.
+only. `_journal_replay_enabled` and `_gang_rollback_enabled` are JAX's
+broken-build hooks: the first False stops the spool drain in
+housekeeping and the journal replay, the second leaves a failed gang
+commit's assumed members in place.
 
 HTTP extenders (sched/extender.py; kubernetes_tpu/sched/scheduler.py
 sites listed at each use) are the JAX scheduler's: a profile or Policy
@@ -670,6 +672,12 @@ class Scheduler:
             from ..chaos.invariants import InvariantChecker
 
             self.invariants = InvariantChecker(metrics=self.metrics)
+        # gang-commit rollback test hook (kubernetes_tpu/sched/
+        # scheduler.py:513): the chaos campaign's broken-build acceptance
+        # flips this False to prove that a partial gang commit without
+        # rollback is caught by the conservation / gang_atomic
+        # invariants. NEVER disable outside a test.
+        self._gang_rollback_enabled = True
         # crash-journal replay test hook (kubernetes_tpu/sched/
         # scheduler.py:519): a broken-build acceptance flips this False
         # to prove that a build which neither drains the spool nor
@@ -3518,6 +3526,12 @@ class Scheduler:
             assumed.append((pod, self._assume(pod, node_name), node_name,
                             vol_rollback))
         if not ok:
+            if not self._gang_rollback_enabled:
+                # test hook (see __init__): leave the partial commit in
+                # place — the invariant checker must catch the orphaned
+                # assumed members (conservation) and the split gang
+                # (gang_atomic)
+                return False
             for pod, bound, node_name, vol_rollback in reversed(assumed):
                 self._forget(bound, node_name)
                 if vol_rollback is not None:

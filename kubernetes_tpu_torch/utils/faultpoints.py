@@ -12,7 +12,8 @@ dispatch (an error, a hang, an out-of-memory), a pod spec that poisons
 the batched pass, the quarantine admission, the incremental snapshot
 writes that keep the device mirror honest, the compaction sweep, the
 queue's shed decision, the bind POST and truth GET of the store path,
-the bind journal's append, the autopilot's fit and promotion — are
+the bind journal's append, the autopilot's fit and promotion, a
+store event's fan-out to its watchers and a kubelet's heartbeat — are
 wired with a named fault point (the etcd `gofail` pattern): a test
 activates a point by name and the code path fails exactly there,
 deterministically.
@@ -80,6 +81,10 @@ Wired points (grep for `faultpoints.fire`):
                    delete_nodes, BEFORE any mutation (payload: (op,
                    group, arg)) — a `raise` models a rejected cloud API
                    call; the autoscaler backs the group off
+  heartbeat.deliver  kubelet/kubelet.py heartbeat entry (payload: node
+                   name) — `drop` models the node status update never
+                   reaching the apiserver (a partitioned node); the
+                   nodelifecycle controller then sees a stale heartbeat
   nodelifecycle.evict  controllers/nodelifecycle.py, AFTER the zone
                    rate limiter admitted an eviction but BEFORE the pod
                    delete (payload: (pod key, node)) — `drop` models a
@@ -102,6 +107,7 @@ Wired points (grep for `faultpoints.fire`):
   bind.post        sched/scheduler.py _bind_attempt, before each bind
                    POST attempt (the bind reconciler retries through
                    it; payload: the pod)
+  watch.deliver    runtime/store.py _notify, before fan-out
   store.outage     the store-path outage seam, fired once per
                    control-plane round trip the scheduler depends on:
                    sched/scheduler.py _bind_attempt (before each bind

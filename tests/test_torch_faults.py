@@ -108,7 +108,7 @@ class TestFaultPoints:
         assert faultpoints._active["kernel.hang"].arg == 0.5
         assert faultpoints._active["queue.quarantine"].times == 3
         faultpoints.reset()
-        for bad in ("=bad", "watch.deliver=raise", "kernel.wave=explode",
+        for bad in ("=bad", "mesh.reform=raise", "kernel.wave=explode",
                     "kernel.wave=raise:x", "kernel.wave=raise:1:-2",
                     "kernel.wave=raise:1:2:3"):
             with pytest.raises(ValueError):

@@ -39,7 +39,10 @@ def test_the_invariant_names_and_exports_are_the_jax_ones():
     assert t.INVARIANTS == j.INVARIANTS
     assert t._DIGEST_CAP == j._DIGEST_CAP
     chaos = mod("kubernetes_tpu_torch", "chaos")
-    assert chaos.__all__ == ["InvariantChecker", "InvariantViolation"]
+    assert chaos.__all__ == [
+        "InvariantChecker", "InvariantViolation", "SAMPLABLE", "NASTY_PAIRS",
+        "FaultSpec", "ReplayOutcome", "Finding", "CampaignResult",
+        "env_string", "sample_schedule", "replay", "shrink", "run_campaign"]
     assert issubclass(chaos.InvariantViolation, AssertionError)
     decl = mod("kubernetes_tpu_torch", "utils.metrics").Metrics() \
         .invariant_violations.decl

@@ -578,11 +578,23 @@ def test_a_lost_bind_response_over_rest_is_confirmed_once_as_in_jax():
             truth_via.append(a)
             return real_get(*a)
 
+        echoed = threading.Event()
+
+        def on_pod(ev, echoed=echoed):
+            if ev.obj.metadata.name == "p0" and ev.obj.spec.node_name:
+                echoed.set()
+
+        # registered after the scheduler's watcher: the RemoteStore runs
+        # its watchers in order on the reflector's thread, so once this
+        # one has seen the bind's echo the scheduler has handled it (the
+        # CONFIRMED pod leaves the assumed set then)
+        rs.watch("pods", on_pod)
         lost = _lost_response(rs)
         rs.get = mirror_get
         try:
             assert sched.schedule_pending() == 1
             sched.close()
+            assert echoed.wait(20.0), f"{side}: the bind's echo never came"
             pods, _ = m.rest.RESTClient(srv.url).list("pods")
             met = sched.metrics
             got[side] = dict(

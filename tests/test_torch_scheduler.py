@@ -221,7 +221,17 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "kubernetes_tpu_torch.autopilot.replay",
                 "kubernetes_tpu_torch.autopilot.controller",
                 "kubernetes_tpu_torch.cli.autopilot",
-                "kubernetes_tpu_torch.chaos.invariants"} <= set(sys.modules)
+                "kubernetes_tpu_torch.chaos.invariants",
+                "kubernetes_tpu_torch.chaos.campaign",
+                "kubernetes_tpu_torch.chaos.__main__",
+                "kubernetes_tpu_torch.kubemark.hollow",
+                "kubernetes_tpu_torch.kubelet.kubelet",
+                "kubernetes_tpu_torch.kubelet.server",
+                "kubernetes_tpu_torch.proxy.proxier",
+                "kubernetes_tpu_torch.proxy.userspace",
+                "kubernetes_tpu_torch.volume.csi",
+                "kubernetes_tpu_torch.volume.manager",
+                "kubernetes_tpu_torch.controllers.expand"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
