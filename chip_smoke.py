@@ -20,7 +20,7 @@ Phases (any failure exits non-zero and prints no result line):
                on the dense edge world (see phase 9);
   4. density — the main path at full size: Scheduler(store,
                device="cuda").schedule_pending() over 5 000 nodes and a
-               17 408-pod backlog (cut from 30 000 for the script's
+               16 640-pod backlog (cut from 30 000 for the script's
                time); the store's bindings must respect every
                resource, taint, host-port and nodeSelector constraint, and
                the kernel must have launched during the run, on the live
@@ -115,7 +115,7 @@ Phases (any failure exits non-zero and prints no result line):
                virtual clock: every vip placed, 100 evictions, all hogs, no
                what-if launch; the same run with device="cpu" gives the
                same bindings and victims.
-  13. statefulset — 5 000 nodes, 1 024 density pods, then 8 StatefulSets
+  13. statefulset — 5 000 nodes, 512 density pods, then 8 StatefulSets
                of 64 pods, each pod with its own claim: even replicas on
                a claim pre-bound to a zoned GCE PD PV, odd ones on an
                unbound WaitForFirstConsumer claim of 5-10 Gi against 320
@@ -231,21 +231,21 @@ Phases (any failure exits non-zero and prints no result line):
                what-if on backend="host" (no kernel launch) equal to the
                device branch's (chosen, feasible; refit too). (b) and
                (d) halve their pods (to no fewer than 256) when they
-               project past 25 s.
+               project past 15 s.
   18. memory — the memory plane and load shedding (state/scrubber.py,
                Snapshot._compact, the capacity-fault ladder, the queue's
                shed area) at 5 000 nodes, waves of 128: (a) device.oom
-               once in the density world's first round (512 pods):
+               once in the density world's first round (256 pods):
                strike 1 compacts and retries, capacity_faults 1, the
                breaker CLOSED, no conviction, the bindings equal a
-               fault-free run's; three times in a row (512 pods): strikes
+               fault-free run's; three times in a row (256 pods): strikes
                2 and 3 halve the wave cap, strike 3 salvages the round
                through the twin, the bindings equal a per-wave drain on
                the card;
                once at the first what-if chunk of the preempt world (5 000
                nodes full of bound hogs, 256 vips): the chunk salvaged on
                the twin, the drain complete; (b) 30 000 bound density
-               pods, 6 cycles (cut from 12 for the script's time limit)
+               pods, 4 cycles (cut from 12 for the script's time limit)
                of 32 Jobs x 8 pods (their own
                controller-uid and job-name values) bound and deleted, the
                compaction cadence crossed every 3 cycles on the virtual
@@ -401,7 +401,7 @@ Phases (any failure exits non-zero and prints no result line):
                deterministic fields and bindings.
   23. chaos  — the chaos campaign (chaos/campaign.py) and the kubemark
                hollow cluster (kubemark/, with kubelet/, proxy/ and
-               volume/): (a) run_campaign(seed=7) over 8 schedules (bench.py
+               volume/): (a) run_campaign(seed=7) over 4 schedules (bench.py
                run_chaoscampaign_config samples 50; cut for the script's
                time) on the card and on the CPU: no finding, faults
                injected, each schedule's env string, violation,
@@ -416,7 +416,7 @@ Phases (any failure exits non-zero and prints no result line):
                replay; (c) a HollowCluster of 5 000 nodes (3 zones, 8
                racks, 3 generations) on a virtual clock, every kubelet
                registered, a strict checker on the scheduler (waves of
-               128, caps pre-sized), 16 ticks of the campaign's loop (the
+               128, caps pre-sized), 4 ticks of the campaign's loop (the
                clock 1 s on, the 500 nodes whose index is the tick mod 10
                heartbeat, 128 pods of the campaign's mix, two run_once),
                a gang of 8 x 4 000m at tick 2 and one of 3 x 20 000m that
@@ -434,6 +434,33 @@ Phases (any failure exits non-zero and prints no result line):
                CPU: the same bindings, hits and checks. The kubelets are
                registered and heartbeat; none runs sync_once (its pod
                scan walks every pod for each node).
+  24. kubeadm — kubeadm on the in-memory store (cli/kubeadm.py, its
+               controller roster and the server's reconciler,
+               service-account tokens and bootstrap tokens): (a)
+               main(["init", "--once", "--secure"]) on the card, the
+               torch preflight, seconds from the Cluster to ready; (b) a
+               secure Cluster on the card, 4 998 hollow nodes in 3 zones
+               (registered; a heartbeat thread beats each every 80 s
+               when the process keeps up, the monitor grace 120 s;
+               none runs) and 2 nodes joined over CSR and mTLS
+               (join_with_csr, a HollowNode on a RemoteStore), a
+               Deployment of 1 024 pods of 100m and 64Mi POSTed with the
+               admin token, made by the deployment and ReplicaSet
+               controllers and placed by the Cluster's scheduler thread
+               over REST binds, upgrade_cluster to v1.12-tpu.0 live, then
+               1 536 replicas: every pod bound within its node
+               (check_bindings), the kernel launched and held to its plain
+               version on the inputs it was given, the objects of before
+               the upgrade served by the new API server, no store trip,
+               the zone tally on the card; printed: seconds to ready and
+               to settle, each join, pods/s from the POST and from the
+               scale to the last bind, the restart and the seconds until
+               the scheduler's streams are back, per-wave dispatches and
+               launches; (c) the same at 500 nodes, 256 then 384 pods,
+               driven in the script's thread (sync_all, then run_once
+               once the scheduler's mirror holds what the store holds),
+               on the card and on the CPU: the node of every pod, in
+               creation order, equal.
 After each of phases 4-16 every Scheduler the phase built is checked:
 breaker CLOSED, no trip, no device failure (so no twin wave), no
 watchdog abandonment, no quarantined pod, no capacity fault, compaction
@@ -441,9 +468,9 @@ or strike (a healthy phase that leaned on a ladder fails), no store
 trip and no spooled bind; phase 17's schedulers are held to no capacity
 fault and phases 17-18's to no store trip and no spooled bind; phase
 19's to the device checks of phases 4-16, phases 20's, 21's and 22's
-(the replays' too) and phase 23's hollow clusters to both (phase 23's
-campaign replays arm faults on purpose and are held by the campaign's
-own checker).
+(the replays' too), phase 23's hollow clusters and phase 24's clusters
+to both (phase 23's campaign replays arm faults on purpose and are held
+by the campaign's own checker).
 Phases 8, 9, 12 and 13 run with PodBackoff(initial=0.001), as bench.py
 run_preempt_config does. In each, one what-if input of each pod-row
 count is captured and the kernel held equal to the plain version on a
@@ -457,9 +484,12 @@ It needs the kubernetes_tpu_torch package beside it, and a CUDA card.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import io
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -475,8 +505,8 @@ FULL_NODES, FULL_PODS = 5000, 30000
 # phase 4's backlog: the first round keeps its 16 384 pods (128 waves of
 # 128, the kernel's timed shape), the second is cut (from 30 000 pods in
 # all) to make room for phase 22 (20 000), then to 1 024 pods for phase
-# 23
-DENSITY_PODS = 17408
+# 23, then to 256 for phase 24
+DENSITY_PODS = 16640
 # phases 7, 9, 11, 13 and 18 (b) run at half their earlier depth (the
 # same shapes, fewer pods, vips or cycles): the whole script with them
 # at full depth took 1 441.8 s on an H100, past the 1 200 s limit
@@ -519,8 +549,9 @@ HOST_PREEMPT_NODES, HOST_PREEMPT_VIPS, HOST_PREEMPT_WAVE = 50, 100, 16
 # every StatefulSet pod and the wave the pipeline's bail-out masks again,
 # plus a per-wave dispatch a wave at the density drain's ms a pod.
 # SS_DENSITY cut from 2 048 to make room for phase 22; SS_MIN_PODS (from
-# 128) and SS_PHASE_BUDGET_S (from 40 s) cut to make room for phase 23
-SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 1024, 320
+# 128) and SS_PHASE_BUDGET_S (from 40 s) cut to make room for phase 23,
+# SS_DENSITY (from 1 024) for phase 24
+SS_SETS, SS_REPLICAS, SS_DENSITY, SS_FREE_PVS = 8, 64, 512, 320
 SS_MIN_PODS, SS_PHASE_BUDGET_S, SS_PROBE_PODS = 64, 30.0, 8
 # phase 14: the density world's backlog drained untraced and traced (16
 # waves, one round; cut from 4 096 pods and 32 waves to make room for
@@ -574,9 +605,10 @@ OUTAGE_PASSES = (0.0, 41.0, 342.0, 442.0)
 # NaN-spec pods (at these places of 2 048 pods, scaled to the pod count)
 # and its crash-kind pod (inside the first wave, where the attribution
 # replay reproduces the crash at once). FAULT_MIN_PODS (from 512) and
-# FAULT_BUDGET_S (from 45 s) are cut to make room for phase 22: a host
-# that projects (b) and (d) past 25 s runs them at 256 pods
-FAULT_PODS, FAULT_LATE, FAULT_MIN_PODS, FAULT_BUDGET_S = 2048, 512, 256, 25.0
+# FAULT_BUDGET_S (from 45 s) are cut to make room for phase 22, and
+# FAULT_BUDGET_S (from 25 s) again for phase 24: a host that projects (b)
+# and (d) past 15 s runs them at 256 pods
+FAULT_PODS, FAULT_LATE, FAULT_MIN_PODS, FAULT_BUDGET_S = 2048, 512, 256, 15.0
 FAULT_GANG, FAULT_WATCH, FAULT_DEADLINE_X = 16, 256, 3.0
 FAULT_NAN, FAULT_CRASH = (100, 700, 1300, 1900), 40
 
@@ -651,9 +683,11 @@ INT32_LANES_PER_SM = 64
 # and shed_age_s STORM_AGE_S on the virtual clock; after the burst one
 # wave a tick (at most STORM_DRAIN_TICKS) until nothing is pending. Cut
 # for phase 23: MEM_OOM_PODS (from 1 024), MEM_SMALL_RESIDENT (from
-# 3 000), STORM_LOW (from 2 560) and STORM_HIGH (from 128) halved
-MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 512, 512, 256
-MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 6, 32, 8
+# 3 000), STORM_LOW (from 2 560) and STORM_HIGH (from 128) halved; for
+# phase 24 MEM_CYCLES (from 6) to 4, one compaction and the two uploads
+# after it, and MEM_OOM_PODS and MEM_STRIKE_PODS (from 512) to 256
+MEM_OOM_PODS, MEM_STRIKE_PODS, MEM_VIPS = 256, 256, 256
+MEM_RESIDENT, MEM_CYCLES, MEM_JOBS, MEM_JOB_PODS = 30000, 4, 32, 8
 MEM_COMPACT_S, MEM_COMPACT_EVERY = 60.0, 3
 MEM_SMALL_NODES, MEM_SMALL_RESIDENT, MEM_SMALL_JOB_PODS = 500, 1500, 2
 MEM_GOV_SLACK, MEM_GOV_KEYS = 4096, 16
@@ -685,8 +719,9 @@ STORE_WATERMARK, STORE_HELD, STORE_HIGH = 256, 128, 8
 # this world at other counts), (d) EXT_DOWN_PODS pods (one wave) with the
 # extender down. EXT_PODS cut from 512 to 256 to make room for phase 21
 # and to 128 (one wave) for phase 22, EXT_VIPS from 16 to 8 for phase 22
-# and to 4 for phase 23 (the halving rule above still applies)
-EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 128, 7, 1, 10, 2
+# and to 4 for phase 23 (the halving rule above still applies), EXT_PODS
+# to 64 for phase 24
+EXT_PODS, EXT_BAN_MOD, EXT_ZONE, EXT_SCORE, EXT_WEIGHT = 64, 7, 1, 10, 2
 EXT_TIMEOUT_S, EXT_BUDGET_S, EXT_REST_S = 30.0, 90.0, 40.0
 EXT_VIPS, EXT_DOWN_PODS = 4, 128
 # phase 21 (the deployed kube-scheduler against the port's APIServer):
@@ -697,8 +732,10 @@ EXT_VIPS, EXT_DOWN_PODS = 4, 128
 # CPU at SMALL_NODES nodes and DEPLOY_SMALL_PODS pods. DEPLOY_PODS (cut
 # from 2 048), FAILOVER_PODS (cut from 1 024) and DEPLOY_SMALL_PODS
 # (cut from 512) are halved to make room for phase 22, DEPLOY_PODS again
-# (from 1 024) for phase 23
-DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 512, 512, 256
+# (from 1 024) for phase 23, and DEPLOY_PODS (from 512) again for phase
+# 24 (FAILOVER_PODS stays: at 256 the leader bound every pod before its
+# elector stopped, and the standby had none to bind)
+DEPLOY_PODS, FAILOVER_PODS, DEPLOY_SMALL_PODS = 256, 512, 256
 FAILOVER_LEASE, FAILOVER_RENEW, FAILOVER_RETRY = 1.5, 1.0, 0.2
 FAILOVER_WAIT_S = 120.0
 # the /metrics families phase 21 (d) leaves out of card == CPU: the
@@ -721,12 +758,12 @@ DEPLOY_UNTIMED = ("scheduler_queue_class_pods", "snapshot_upload_bytes_total",
 # phase 23 (the chaos campaign and the kubemark hollow cluster): (a)
 # run_campaign(seed=CHAOS_SEED) over CHAOS_SCHEDULES schedules (bench.py
 # run_chaoscampaign_config samples 50 at seed 7; cut for the script's
-# time) on the card and on the CPU; (b) the two broken builds of
+# time, to 8 and then to 4 for phase 24) on the card and on the CPU; (b) the two broken builds of
 # tests/test_campaign.py and tests/test_outage.py at seed CHAOS_SEED:
 # (hook, schedule (point, mode, times), the invariants that may catch it,
 # the minimal schedule); (c) a HollowCluster of FULL_NODES nodes (and of
-# SMALL_NODES on the card and on the CPU) for HOLLOW_TICKS ticks of the
-# campaign's loop: the nodes whose index is the tick mod
+# SMALL_NODES on the card and on the CPU) for HOLLOW_TICKS ticks (16, then
+# 4 for phase 24) of the campaign's loop: the nodes whose index is the tick mod
 # HOLLOW_HB_EVERY heartbeat, HOLLOW_ARRIVALS pods of the campaign's mix
 # arrive, two run_once; a gang that fits (members, milli-CPU) at tick 2,
 # one no 16-CPU node can hold at tick 3; HOLLOW_ARMED armed at tick 2;
@@ -734,17 +771,41 @@ DEPLOY_UNTIMED = ("scheduler_queue_class_pods", "snapshot_upload_bytes_total",
 # fit is pending. The SMALL_NODES copy runs HOLLOW_SMALL_TICKS ticks of
 # arrivals (its CPU run is the slower half: a per-wave dispatch of WAVE
 # rows walks every row in a loop of small ops)
-CHAOS_SEED, CHAOS_SCHEDULES = 7, 8
+CHAOS_SEED, CHAOS_SCHEDULES = 7, 4
 CHAOS_BROKEN = (
     ("_gang_rollback_enabled", ("snapshot.write", "corrupt", 4),
      ("conservation", "gang_atomic"), "snapshot.write=corrupt::1"),
     ("_journal_replay_enabled", ("store.outage", "raise", 6),
      ("conservation",), "store.outage=raise::4"))
-HOLLOW_TICKS, HOLLOW_ARRIVALS, HOLLOW_HB_EVERY = 16, 128, 10
+HOLLOW_TICKS, HOLLOW_ARRIVALS, HOLLOW_HB_EVERY = 4, 128, 10
 HOLLOW_SMALL_TICKS = 4
 HOLLOW_FIT, HOLLOW_BIG, HOLLOW_DRAIN_TICKS = (8, 4000), (3, 20000), 40
 HOLLOW_ARMED = ("kernel.hang=latency:0.02:2,heartbeat.deliver=drop::3,"
                 "watch.deliver=latency:0.005:3,bind.post=raise::2")
+# phase 24 (kubeadm on the in-memory store): (b) a secure Cluster of
+# FULL_NODES nodes, FULL_NODES - KUBEADM_JOINS hollow (their kubelets
+# never run, a kubelet's sync lists every pod; they heartbeat from a
+# thread of the script, KUBEADM_HB_SLICES slices a KUBEADM_HB_PERIOD)
+# and KUBEADM_JOINS joined over CSR and mTLS (the TTL controller's
+# 5 000-node bucket holds them all, so the joins re-annotate no node), a
+# Deployment of KUBEADM_PODS pods of 100m and 64Mi, a live upgrade to
+# KUBEADM_VERSION, then KUBEADM_SCALE replicas; (c) the same at
+# SMALL_NODES with KUBEADM_SMALL_PODS, then KUBEADM_SMALL_SCALE, driven
+# in the script's thread on the card and on the CPU. A wait that does not
+# end within KUBEADM_WAIT_S fails the phase. (b)'s node-lifecycle
+# controller runs with a monitor grace of KUBEADM_GRACE_S (the
+# kube-controller-manager's --node-monitor-grace-period, 40 s by
+# default), and the nodes beat once in KUBEADM_HB_PERIOD: this one
+# process carries the API server, 28 controller loops, the scheduler and
+# every kubelet's heartbeat, and each heartbeat goes through 27 informers
+# and three watch streams. With a 40 s grace and a 20 s round (250
+# writes a second) the scheduler's node stream fell about 28 000 events
+# behind the store and a live node was tainted unreachable (an H100
+# host running the whole script; PERF.md section 6)
+KUBEADM_PODS, KUBEADM_SCALE, KUBEADM_JOINS = 1024, 1536, 2
+KUBEADM_SMALL_PODS, KUBEADM_SMALL_SCALE = 256, 384
+KUBEADM_VERSION, KUBEADM_WAIT_S = "v1.12-tpu.0", 120.0
+KUBEADM_HB_SLICES, KUBEADM_HB_PERIOD, KUBEADM_GRACE_S = 80, 80.0, 120.0
 # a pod uid as the store mints it, from a process-wide counter
 POD_UID = re.compile(r"uid-\d+")
 KERNEL_NODE_FIELDS = ("taint_key", "taint_val", "taint_effect", "ports")
@@ -7247,6 +7308,520 @@ def chaos_phase(torch, mods, enc, bucket_size, filters, faultpoints):
                 max_err=err)
 
 
+# --- phase 24: kubeadm ------------------------------------------------------------
+
+
+class BindClock:
+    """A watcher on a store that keeps the names of the bound web pods
+    and the time of the last bind. The store calls it under its lock on
+    the writing thread, so it only records."""
+
+    def __init__(self, MODIFIED):
+        self.MODIFIED = MODIFIED
+        self.bound = set()
+        self.last = None
+
+    def __call__(self, ev):
+        pod = ev.obj
+        if ev.type == self.MODIFIED and pod.spec.node_name and \
+                (pod.metadata.labels or {}).get("app") == "web" and \
+                pod.metadata.name not in self.bound:
+            self.bound.add(pod.metadata.name)
+            self.last = time.monotonic()
+
+
+def web_deployment(api, lbl, replicas):
+    """The kubeadm phase's Deployment: `replicas` pods of 100m and 64Mi."""
+    return api.Deployment(
+        metadata=api.ObjectMeta(name="web"),
+        spec=api.DeploymentSpec(
+            replicas=replicas,
+            selector=lbl.LabelSelector(match_labels={"app": "web"}),
+            template=api.PodTemplateSpec(
+                metadata=api.ObjectMeta(labels={"app": "web"}),
+                spec=api.PodSpec(containers=[api.Container(
+                    name="c", resources=api.ResourceRequirements(
+                        requests=api.resource_list(cpu="100m",
+                                                   memory="64Mi")))]))))
+
+
+def web_pods(store):
+    """The web pods in the store's order, which is their creation order."""
+    return [p for p in store.list("pods")
+            if (p.metadata.labels or {}).get("app") == "web"]
+
+
+def end_watches(srv):
+    """Ends the server's watch streams, as the exit of its process would:
+    APIServer.stop() leaves them open until their timeout (10 s). After a
+    restart the old server's are ended once the new one serves, so that
+    the reflectors relist at once and find it up (ended before, each
+    relist would fail against the restart and trip the store breaker)."""
+    for w in list(srv.broadcaster._watchers):
+        w.stop()
+
+
+def stop_cluster(cluster):
+    """Stops the scheduler's reflectors, then ends the server's watch
+    streams (they exit instead of relisting against a server about to
+    stop, which would trip the store breaker), then the Cluster."""
+    cluster._sched_store.stop()
+    end_watches(cluster.apiserver)
+    cluster.stop()
+
+
+def kubeadm_wait(cond, what, state=None):
+    """Polls cond() until it holds; fails past KUBEADM_WAIT_S, with what
+    state() reports."""
+    deadline = time.monotonic() + KUBEADM_WAIT_S
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"kubeadm: {what} not reached within {KUBEADM_WAIT_S} s"
+                 + (f"; {state()}" if state is not None else ""))
+        time.sleep(0.02)
+
+
+def drive_state(cluster, binds):
+    """What a stalled drive of (b) looks like: the web pods bound, in
+    the store and in the scheduler's mirror, its queue, its streams."""
+    remote = cluster._sched_store
+    pods = web_pods(cluster.store)
+    mirrored = [p for p in remote._mirrors.get("pods", {}).values()
+                if (p.metadata.labels or {}).get("app") == "web"]
+    return (f"{len(binds.bound)} bound of {len(pods)} web pods in the "
+            f"store, {len(mirrored)} in the scheduler's mirror; queue "
+            f"{cluster.scheduler.queue.pending_count()}; store breaker "
+            f"{cluster.scheduler.storehealth.state}; streams " + ", ".join(
+                f"{k} {r.relists}/{r.last_sync_rv}"
+                for k, r in remote._reflectors.items())
+            + f" (store at {cluster.store._rv}); scheduler thread alive "
+            f"{cluster._sched_thread.is_alive()}")
+
+
+class Heartbeats:
+    """The script's heartbeat loop for hollow kubelets that do not run:
+    on a thread of its own, KUBEADM_HB_SLICES slices a KUBEADM_HB_PERIOD,
+    back to back while it is behind, so that every node beats once a
+    period when the process can carry it. Keeps the seconds of each
+    slice."""
+
+    def __init__(self, hc):
+        self.hc = hc
+        self.seconds = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="heartbeats")
+
+    def _run(self):
+        k, due = 0, time.monotonic()
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            for node in self.hc.nodes[k % KUBEADM_HB_SLICES::
+                                      KUBEADM_HB_SLICES]:
+                node.kubelet.heartbeat()
+            self.seconds.append(time.monotonic() - t0)
+            k += 1
+            due += KUBEADM_HB_PERIOD / KUBEADM_HB_SLICES
+            self._stop.wait(max(0.0, due - time.monotonic()))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=KUBEADM_WAIT_S)
+
+
+def kubeadm_settled(cluster, n_nodes):
+    """A condition: the TTL controller has annotated all n_nodes nodes and
+    the scheduler's node mirror has seen every write the store held when
+    they were."""
+    ttl = cluster.manager["ttl"]
+    key = "node.alpha.kubernetes.io/ttl"
+    mark = []
+
+    def settled():
+        if not mark:
+            nodes = cluster.store.list("nodes")
+            if len(nodes) < n_nodes or len(ttl.queue) or any(
+                    key not in n.metadata.annotations for n in nodes):
+                return False
+            mark.append(cluster.store._rv)
+        return cluster._sched_store._reflectors["nodes"].last_sync_rv >= \
+            mark[0]
+    return settled
+
+
+def kubeadm_cli(kubeadm):
+    """(a) `main(["init", "--once", "--secure"])` in this process, on the
+    card: the torch preflight, the control plane up, ready, stopped.
+    Returns the seconds from the Cluster's construction to ready and the
+    printed ready line."""
+    seen = {}
+    real = kubeadm.Cluster
+
+    class Timed(real):
+        def __init__(self, *a, **kw):
+            seen["t0"] = time.monotonic()
+            super().__init__(*a, **kw)
+            seen["device"] = str(self.device)
+
+        def wait_ready(self, timeout=10.0):
+            ok = real.wait_ready(self, timeout)
+            seen["ready_s"] = time.monotonic() - seen["t0"]
+            return ok
+
+    preflight = kubeadm.phase_preflight()
+    if preflight:
+        fail(f"kubeadm: (a) preflight on the card: {preflight}")
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    kubeadm.Cluster = Timed
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = kubeadm.main(["init", "--once", "--secure"])
+    finally:
+        kubeadm.Cluster = real
+    out = buf.getvalue()
+    ready = [ln for ln in out.splitlines() if "control plane ready" in ln]
+    if rc != 0 or not ready or "https://" not in ready[0] or \
+            seen.get("device") != "cuda":
+        fail(f"kubeadm: (a) init --once --secure: rc {rc}, device "
+             f"{seen.get('device')}, output {out[:300]!r}")
+    seen["seconds"] = time.monotonic() - t0
+    seen["line"] = ready[0]
+    return seen
+
+
+def kubeadm_secure_b(torch, mods, lbl, kubeadm, filters):
+    """(b) a secure Cluster on the card at FULL_NODES nodes: two joins
+    over mTLS, a Deployment of KUBEADM_PODS POSTed with the admin token
+    and placed by the Cluster's scheduler thread over REST binds, a live
+    upgrade_cluster, then the Deployment scaled to KUBEADM_SCALE. Logs
+    each step as it ends; returns what is checked after."""
+    from kubernetes_tpu_torch.client.reflector import RemoteStore
+    from kubernetes_tpu_torch.client.rest import RESTClient
+    from kubernetes_tpu_torch.kubemark import HollowCluster, HollowNode
+    from kubernetes_tpu_torch.ops import zonehealth
+
+    api, tp, kernel_mod, store_mod = mods[0], mods[1], mods[3], mods[-1]
+    seen, out = {}, {}
+    saved = (kernel_mod.taint_ports_masks, filters.taint_ports_masks)
+    t0 = time.monotonic()
+    cluster = kubeadm.Cluster(secure=True, hollow_nodes=0)
+    cluster.manager["nodelifecycle"].grace_period = KUBEADM_GRACE_S
+    kubeadm.ensure_bootstrap_objects(cluster.store)
+    kubeadm.phase_upload_config(cluster.store)
+    hc = HollowCluster(cluster.store, FULL_NODES - KUBEADM_JOINS, zones=3)
+    build_s = time.monotonic() - t0
+    binds = BindClock(store_mod.MODIFIED)
+    cluster.store.watch("pods", binds)
+    joined, remotes = [], []
+    beats = Heartbeats(hc)
+    try:
+        with beats:
+            t0 = time.monotonic()
+            cluster.start()
+            if not cluster.wait_ready(timeout=KUBEADM_WAIT_S):
+                fail("kubeadm: (b) the control plane never became ready")
+            ready_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            kubeadm_wait(kubeadm_settled(cluster,
+                                         FULL_NODES - KUBEADM_JOINS),
+                         "the TTL annotations and the scheduler's mirror")
+            log(f"[kubeadm] (b) secure Cluster: {FULL_NODES - KUBEADM_JOINS}"
+                f" hollow nodes in 3 zones built and registered in "
+                f"{build_s:.3f} s, ready in {ready_s:.3f} s, settled (TTL "
+                "annotations, the scheduler's mirror) in "
+                f"{time.monotonic() - t0:.3f} s")
+            sched = cluster.scheduler
+            nlc = cluster.manager["nodelifecycle"]
+            if str(sched.device) != "cuda" or str(nlc.device) != "cuda":
+                fail(f"kubeadm: (b) scheduler on {sched.device}, node "
+                     f"lifecycle on {nlc.device}, not the card")
+            ca_pem = cluster.ca.ca_cert_pem
+            join_s = []
+            for i in range(KUBEADM_JOINS):
+                name = f"joined-{i}"
+                t0 = time.monotonic()
+                key, cert, got_ca = kubeadm.join_with_csr(
+                    cluster.url, name, cluster.bootstrap_token,
+                    timeout=KUBEADM_WAIT_S)
+                if got_ca != ca_pem:
+                    fail(f"kubeadm: (b) {name} discovered another CA")
+                remote = RemoteStore(RESTClient(
+                    cluster.url, client_cert_pem=cert, client_key_pem=key,
+                    ca_cert_pem=got_ca))
+                remotes.append(remote)
+                for kind in ("pods", "nodes"):
+                    remote.mirror(kind)
+                remote.wait_for_sync(timeout=KUBEADM_WAIT_S)
+                joined.append(HollowNode(remote, name).run(period=1.0))
+                kubeadm_wait(lambda: any(n.metadata.name == name for n in
+                                         cluster.store.list("nodes")),
+                             f"{name} registered")
+                join_s.append(time.monotonic() - t0)
+            t0 = time.monotonic()
+            kubeadm_wait(kubeadm_settled(cluster, FULL_NODES),
+                         "the joined nodes' TTL annotations")
+            csrs = cluster.store.list("certificatesigningrequests")
+            if len(csrs) != KUBEADM_JOINS or not all(
+                    c.approved and c.status.certificate for c in csrs):
+                fail(f"kubeadm: (b) CSRs not all approved and signed: "
+                     f"{[(c.metadata.name, c.approved) for c in csrs]}")
+            log(f"[kubeadm] (b) {KUBEADM_JOINS} joins over CSR and mTLS, "
+                "each CSR approved and signed by the certificates "
+                "controllers: " + ", ".join(f"{s:.3f}" for s in join_s)
+                + f" s; settled again in {time.monotonic() - t0:.3f} s")
+            admin = RESTClient(cluster.url, token=cluster.admin_token,
+                               ca_cert_pem=ca_pem)
+            kernel_mod.taint_ports_masks = capturing(saved[0], seen)
+            filters.taint_ports_masks = capturing(saved[1], seen)
+            tp.taint_ports_masks.launches = 0
+            waves0 = int(sched.metrics.waves_total.value(path="device"))
+            tally0 = dict(zonehealth.TALLY_COUNTS)
+            t_post = time.monotonic()
+            admin.create("deployments",
+                         web_deployment(api, lbl, KUBEADM_PODS))
+            kubeadm_wait(lambda: len(binds.bound) >= KUBEADM_PODS,
+                         f"{KUBEADM_PODS} web pods bound",
+                         lambda: drive_state(cluster, binds))
+            drain_s = binds.last - t_post
+            log(f"[kubeadm] (b) {KUBEADM_PODS} pods from the POST to the "
+                f"last bind in {drain_s:.3f} s = "
+                f"{KUBEADM_PODS / drain_s:.1f} pods/s, "
+                f"{int(sched.metrics.waves_total.value(path='device')) - waves0}"
+                " per-wave dispatches so far")
+            before = {p.metadata.name: p.spec.node_name
+                      for p in web_pods(cluster.store)}
+            nodes_refl = cluster._sched_store._reflectors["nodes"]
+            old = cluster.apiserver
+            t0 = time.monotonic()
+            kubeadm.upgrade_cluster(cluster, KUBEADM_VERSION)
+            restart_s = time.monotonic() - t0
+            # the scheduler's streams re-open on the new server (a watch
+            # from the last version seen, or a relist where that is out
+            # of its window); heartbeats keep writing nodes, so its node
+            # mirror passing the store's version now shows they did
+            t0 = time.monotonic()
+            mark = cluster.store._rv
+            end_watches(old)
+            kubeadm_wait(lambda: nodes_refl.last_sync_rv > mark,
+                         "the scheduler's streams on the new server")
+            relist_s = time.monotonic() - t0
+            served = {p.metadata.name: p.spec.node_name
+                      for p in admin.list("pods", "default")[0]
+                      if (p.metadata.labels or {}).get("app") == "web"}
+            cm = admin.get("configmaps", "kube-system",
+                           kubeadm.CLUSTER_CONFIG_NAME)
+            if served != before or \
+                    admin.get("deployments", "default",
+                              "web").spec.replicas != KUBEADM_PODS or \
+                    len(admin.list("nodes")[0]) != FULL_NODES or \
+                    cm.data["clusterVersion"] != KUBEADM_VERSION:
+                fail(f"kubeadm: (b) the new API server serves other "
+                     f"objects: {len(served)} of {len(before)} web pods as "
+                     f"before, version {cm.data}")
+            log(f"[kubeadm] (b) upgrade to {KUBEADM_VERSION}: restart "
+                f"{restart_s:.3f} s, the scheduler's streams back "
+                f"{relist_s:.3f} s after; the new API server serves the {len(before)} web pods "
+                f"where they were bound, the Deployment, {FULL_NODES} "
+                "nodes and the new version")
+            t_scale = time.monotonic()
+            admin.update_scale("deployments", "default", "web",
+                               KUBEADM_SCALE)
+            kubeadm_wait(lambda: len(binds.bound) >= KUBEADM_SCALE,
+                         f"{KUBEADM_SCALE} web pods bound",
+                         lambda: drive_state(cluster, binds))
+            scale_s = binds.last - t_scale
+            out["launches"] = tp.taint_ports_masks.launches
+            out["waves"] = int(sched.metrics.waves_total.value(
+                path="device")) - waves0
+            out["tally"] = {k: v - tally0[k]
+                            for k, v in zonehealth.TALLY_COUNTS.items()}
+            out["path"] = sched.wave_path()
+            out["store_trips"] = sched.storehealth.trips
+            log(f"[kubeadm] (b) scaled to {KUBEADM_SCALE}: "
+                f"{KUBEADM_SCALE - KUBEADM_PODS} pods from the scale to the "
+                f"last bind in {scale_s:.3f} s = "
+                f"{(KUBEADM_SCALE - KUBEADM_PODS) / scale_s:.1f} pods/s")
+            out["bound"] = check_bindings(api, cluster.store)
+            pods = web_pods(cluster.store)
+            if len(pods) != KUBEADM_SCALE or not all(p.spec.node_name
+                                                     for p in pods):
+                fail(f"kubeadm: (b) {len(pods)} web pods, "
+                     f"{sum(1 for p in pods if not p.spec.node_name)} "
+                     "unbound")
+            zone_of = {n.metadata.name:
+                       (n.metadata.labels or {}).get(ZONE, "")
+                       for n in cluster.store.list("nodes")}
+            zones = {}
+            for p in pods:
+                z = zone_of[p.spec.node_name]
+                zones[z] = zones.get(z, 0) + 1
+            out["zones"] = sorted(zones.items())
+    finally:
+        kernel_mod.taint_ports_masks = saved[0]
+        filters.taint_ports_masks = saved[1]
+        cluster.store.unwatch(binds)
+        for node in joined:
+            node.stop()
+        for remote in remotes:
+            remote.stop()
+        stop_cluster(cluster)
+        hc.stop()
+    out["beats"] = beats.seconds
+    out["captured"] = seen
+    if not out["launches"] or out["store_trips"] or \
+            out["tally"]["device_failures"] or not out["tally"]["device"]:
+        fail(f"kubeadm: (b) launches {out['launches']}, store trips "
+             f"{out['store_trips']}, zone tallies {out['tally']}")
+    return out
+
+
+def kubeadm_sync_run(mods, lbl, kubeadm, device):
+    """(c) the Cluster of (b) at SMALL_NODES nodes on `device`, driven in
+    this thread: its API server serves, and in turn the controller
+    manager's sync_all and, once the scheduler's mirror holds what the
+    store holds, one run_once and its binds; KUBEADM_SMALL_PODS web pods,
+    a live upgrade, then KUBEADM_SMALL_SCALE. Returns the node of each web
+    pod in creation order (the ReplicaSet names pods from a process-wide
+    counter)."""
+    from kubernetes_tpu_torch.client.rest import RESTClient
+    from kubernetes_tpu_torch.kubemark import HollowCluster
+
+    api = mods[0]
+    cluster = kubeadm.Cluster(secure=True, hollow_nodes=0, device=device)
+    kubeadm.ensure_bootstrap_objects(cluster.store)
+    kubeadm.phase_upload_config(cluster.store)
+    hc = HollowCluster(cluster.store, SMALL_NODES, zones=3)
+    remote = cluster._sched_store
+
+    def caught_up():
+        for kind in ("pods", "nodes"):
+            mine = {k: o.metadata.resource_version
+                    for k, o in remote._mirrors.get(kind, {}).items()}
+            theirs = {f"{o.metadata.namespace}/{o.metadata.name}":
+                      o.metadata.resource_version
+                      for o in cluster.store.list(kind)}
+            if mine != theirs:
+                return False
+        return True
+
+    def settle(want):
+        sched = cluster.scheduler
+        for _ in range(4 * want // WAVE + 16):
+            cluster.manager.sync_all(rounds=1)
+            kubeadm_wait(caught_up, f"(c) {device}: the mirror")
+            if sum(1 for p in web_pods(cluster.store)
+                   if p.spec.node_name) >= want:
+                return
+            sched.run_once(timeout=0)
+            sched.wait_for_binds()
+            kubeadm_wait(caught_up, f"(c) {device}: the mirror")
+        fail(f"kubeadm: (c) {device}: {want} web pods never bound")
+
+    try:
+        cluster.apiserver.start()
+        admin = RESTClient(cluster.url, token=cluster.admin_token,
+                           ca_cert_pem=cluster.ca.ca_cert_pem)
+        admin.create("deployments",
+                     web_deployment(api, lbl, KUBEADM_SMALL_PODS))
+        settle(KUBEADM_SMALL_PODS)
+        old = cluster.apiserver
+        kubeadm.upgrade_cluster(cluster, KUBEADM_VERSION)
+        end_watches(old)
+        admin.update_scale("deployments", "default", "web",
+                           KUBEADM_SMALL_SCALE)
+        settle(KUBEADM_SMALL_SCALE)
+        check_bindings(api, cluster.store)
+        return [p.spec.node_name for p in web_pods(cluster.store)]
+    finally:
+        stop_cluster(cluster)
+        hc.stop()
+
+
+def kubeadm_phase(torch, mods, lbl, filters, ladder):
+    """Phase 24: kubeadm (cli/kubeadm.py) on the in-memory store, its
+    scheduler and controllers on the card: (a) the CLI, (b) a secure
+    cluster at FULL_NODES hollow nodes with two joins and a live upgrade,
+    (c) card == CPU at SMALL_NODES, driven synchronously."""
+    from kubernetes_tpu_torch.cli import kubeadm
+
+    tp, pre = mods[1], mods[2]
+    t_phase = time.monotonic()
+    pre.preempt_whatif.launches = 0
+    real = kubeadm.Scheduler
+    kubeadm.Scheduler = ladder
+    # every stop and restart of an API server fails the open list+watch
+    # cycles of its reflectors, each logged with its traceback; they
+    # relist, and (b) times that
+    quiet = logging.getLogger("kubernetes_tpu_torch.client.reflector")
+    level = quiet.level
+    quiet.setLevel(logging.CRITICAL)
+    # the phases before leave their objects on the heap, and every full
+    # collection walks them: phase 24 ran 2.5x slower after them than
+    # alone on a like H100 host (PERF.md section 6). Frozen, they are
+    # left out of every collection until the phase ends.
+    t0 = time.monotonic()
+    gc.collect()
+    gc.freeze()
+    log(f"[kubeadm] {gc.get_freeze_count()} objects frozen in "
+        f"{time.monotonic() - t0:.3f} s; {threading.active_count()} threads "
+        "alive")
+    try:
+        a = kubeadm_cli(kubeadm)
+        ladder.check("kubeadm (a)")
+        log(f"[kubeadm] (a) init --once --secure on {a['device']}: torch "
+            f"preflight passed; {a['ready_s']:.3f} s from the Cluster's "
+            f"construction to ready, {a['seconds']:.3f} s in all; "
+            f"{a['line'].strip()!r}")
+        t0 = time.monotonic()
+        with GcWatch() as gcw:
+            b = kubeadm_secure_b(torch, mods, lbl, kubeadm, filters)
+        ladder.check("kubeadm (b)")
+        t_b = time.monotonic() - t0
+        beats = b["beats"]
+        log(f"[kubeadm] (b) {b['bound']} pods bound within their nodes, "
+            f"web pods by zone {b['zones']}; {b['waves']} per-wave "
+            f"dispatches on {b['path']}, {b['launches']} taint/port "
+            f"launches; zone tallies {b['tally']}; no store trip; "
+            f"{len(beats)} heartbeat slices of about "
+            f"{FULL_NODES // KUBEADM_HB_SLICES} nodes, "
+            f"{statistics.mean(beats):.3f} s mean, {max(beats):.3f} s max "
+            f"(every node once in {KUBEADM_HB_PERIOD:.0f} s when they keep "
+            f"up; monitor grace {KUBEADM_GRACE_S:.0f} s); {gcw.count} full "
+            f"collections, {gcw.seconds:.3f} s; phase (b) {t_b:.1f} s")
+        err = check_captured(torch, tp, "kubeadm", b.pop("captured"))
+        got = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.monotonic()
+            got[device] = kubeadm_sync_run(mods, lbl, kubeadm, device)
+            log(f"[kubeadm] (c) {SMALL_NODES} nodes on {device}: "
+                f"{len(got[device])} web pods bound in "
+                f"{time.monotonic() - t0:.3f} s")
+        ladder.check("kubeadm (c)")
+        if got["cuda"] != got["cpu"]:
+            diff = [i for i, (x, y) in enumerate(zip(got["cuda"],
+                                                    got["cpu"])) if x != y]
+            fail(f"kubeadm: (c) card and CPU bind {len(diff)} pods apart, "
+                 f"e.g. creation index {diff[:5]}")
+        log(f"[kubeadm] (c) {KUBEADM_SMALL_PODS} + "
+            f"{KUBEADM_SMALL_SCALE - KUBEADM_SMALL_PODS} web pods, a live "
+            "upgrade between: card == CPU pod by pod in creation order")
+    finally:
+        kubeadm.Scheduler = real
+        quiet.setLevel(level)
+        gc.unfreeze()
+    launches = b["launches"]
+    whatif_launches = pre.preempt_whatif.launches
+    log(f"[kubeadm] taint/port launches {launches}, what-if "
+        f"{whatif_launches}; phase {time.monotonic() - t_phase:.1f} s")
+    return dict(launches=launches, whatif_launches=whatif_launches,
+                max_err=err)
+
+
 def main() -> None:
     if not (REPO / "kubernetes_tpu_torch" / "__init__.py").is_file():
         fail("the kubernetes_tpu_torch package is not beside chip_smoke.py")
@@ -7731,13 +8306,20 @@ def main() -> None:
     max_err = max(max_err, chaos.pop("max_err"))
     ladder.check("chaos")
     t_chaos = time.monotonic() - t0
+
+    # 24. kubeadm on the in-memory store
+    t0 = time.monotonic()
+    kubeadm_out = kubeadm_phase(torch, phase_mods, lbl, filters, ladder)
+    max_err = max(max_err, kubeadm_out.pop("max_err"))
+    t_kubeadm = time.monotonic() - t0
     drains = {"density": dens, "mixed": mixed, "spread": spread,
               "gang": gang, "preempt": prem, "trickle": trickle,
               "paced": paced, "preempt_host": phost, "statefulset": ss,
               "traced": traced, "autoscale": auto, "zone_outage": outage,
               "faults": faults, "memory": memory,
               "store_outage": store_out, "extender": extender,
-              "deployed": deployed, "autopilot": autopilot, "chaos": chaos}
+              "deployed": deployed, "autopilot": autopilot, "chaos": chaos,
+              "kubeadm": kubeadm_out}
     launches = sum(d["launches"] for d in drains.values())
     whatif_launches = sum(d["whatif_launches"] for d in drains.values())
     log("[smoke] taint/port kernel launches: " + ", ".join(
@@ -7750,7 +8332,7 @@ def main() -> None:
         f"faults {t_faults:.1f} s; memory {t_memory:.1f} s; store_outage "
         f"{t_store:.1f} s; extender {t_ext:.1f} s; deployed "
         f"{t_deployed:.1f} s; autopilot {t_autopilot:.1f} s; chaos "
-        f"{t_chaos:.1f} s; total "
+        f"{t_chaos:.1f} s; kubeadm {t_kubeadm:.1f} s; total "
         f"{time.monotonic() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -1,13 +1,16 @@
-"""Cloud provider: the node groups the cluster autoscaler sizes.
+"""Cloud provider interface + fake implementation.
 
-The part of kubernetes_tpu/cloud/provider.py that the autoscaler and its
-tests use: the NodeGroup and its template node, the NodeGroups sizing
-interface, the CloudProvider accessor for it, and the in-memory
-FakeCloud (pkg/cloudprovider/providers/fake/fake.go) with its `joiner`
-seam, through which a booted instance registers as a Node, and the
-`cloud.resize` fault point before either resize mutates anything. The load
-balancer, instance, zone and route interfaces of the reference's
-cloud.go are not ported: no ported controller calls them.
+A copy of kubernetes_tpu/cloud/provider.py; its relative imports
+resolve in this package.
+
+Reference: pkg/cloudprovider/cloud.go — the Interface every provider
+(aws/azure/gce/...) implements, consumed by the service LB, route and
+cloud-node controllers. The reference ships 55k LoC of per-cloud
+implementations; here the surface is the interface plus the fake
+(pkg/cloudprovider/providers/fake/fake.go), which is what every
+reference controller test runs against too. Real TPU-pod deployments
+sit behind the same seam: a provider whose Instances are TPU VM workers
+and whose Routes program the pod network is a drop-in.
 """
 
 from __future__ import annotations
@@ -27,9 +30,79 @@ LABEL_HOSTNAME = "kubernetes.io/hostname"
 
 
 @dataclass
+class Route:
+    """One pod-network route (cloud.go Route): traffic for dest_cidr goes
+    to target_node."""
+
+    name: str
+    target_node: str
+    dest_cidr: str
+
+
+@dataclass
 class Zone:
     failure_domain: str = ""
     region: str = ""
+
+
+class LoadBalancer:
+    """cloud.go LoadBalancer interface."""
+
+    def get_load_balancer(self, cluster: str, service: api.Service
+                          ) -> Tuple[Optional[api.LoadBalancerStatus], bool]:
+        raise NotImplementedError
+
+    def ensure_load_balancer(self, cluster: str, service: api.Service,
+                             nodes: List[api.Node]) -> api.LoadBalancerStatus:
+        raise NotImplementedError
+
+    def update_load_balancer(self, cluster: str, service: api.Service,
+                             nodes: List[api.Node]) -> None:
+        raise NotImplementedError
+
+    def ensure_load_balancer_deleted(self, cluster: str,
+                                     service: api.Service) -> None:
+        raise NotImplementedError
+
+
+class Instances:
+    """cloud.go Instances interface."""
+
+    def node_addresses(self, name: str) -> List[api.NodeAddress]:
+        raise NotImplementedError
+
+    def instance_id(self, name: str) -> str:
+        raise NotImplementedError
+
+    def instance_type(self, name: str) -> str:
+        raise NotImplementedError
+
+    def instance_exists_by_provider_id(self, provider_id: str) -> bool:
+        raise NotImplementedError
+
+
+class Zones:
+    def get_zone_by_node_name(self, name: str) -> Zone:
+        raise NotImplementedError
+
+    def get_zone(self) -> Zone:
+        """The zone the caller's resources land in by default
+        (cloud.go Zones.GetZone — consumed by the PersistentVolumeLabel
+        admission plugin)."""
+        raise NotImplementedError
+
+
+class Routes:
+    """cloud.go Routes interface."""
+
+    def list_routes(self, cluster: str) -> List[Route]:
+        raise NotImplementedError
+
+    def create_route(self, cluster: str, name_hint: str, route: Route) -> None:
+        raise NotImplementedError
+
+    def delete_route(self, cluster: str, route: Route) -> None:
+        raise NotImplementedError
 
 
 @dataclass
@@ -79,17 +152,40 @@ class NodeGroups:
     def groups(self) -> List[NodeGroup]:
         raise NotImplementedError
 
+    def group(self, name: str) -> Optional[NodeGroup]:
+        return next((g for g in self.groups() if g.name == name), None)
+
     def increase_size(self, name: str, delta: int) -> List[str]:
         raise NotImplementedError
 
     def delete_nodes(self, name: str, node_names: List[str]) -> None:
         raise NotImplementedError
 
+    def template_node(self, name: str) -> api.Node:
+        g = self.group(name)
+        if g is None:
+            raise KeyError(f"node group {name} not found")
+        return g.template
+
 
 class CloudProvider:
-    """cloud.go Interface, reduced to the node-group accessor: None when
-    the cloud does not support autoscaling (the Go (iface, bool)
+    """cloud.go Interface: each accessor returns the sub-interface or None
+    when the cloud doesn't support that capability (the Go (iface, bool)
     pair)."""
+
+    provider_name = ""
+
+    def load_balancer(self) -> Optional[LoadBalancer]:
+        return None
+
+    def instances(self) -> Optional[Instances]:
+        return None
+
+    def zones(self) -> Optional[Zones]:
+        return None
+
+    def routes(self) -> Optional[Routes]:
+        return None
 
     def node_groups(self) -> Optional[NodeGroups]:
         return None
@@ -106,15 +202,21 @@ class FakeInstance:
     zone: Zone = field(default_factory=Zone)
 
 
-class FakeCloud(CloudProvider, NodeGroups):
+class FakeCloud(CloudProvider, LoadBalancer, Instances, Zones, Routes,
+                NodeGroups):
     """In-memory provider recording every mutation (fake.go FakeCloud),
-    used by the autoscaler's tests and the smoke run."""
+    used by controller tests and the kubemark-style local stack."""
+
+    provider_name = "fake"
 
     def __init__(self):
         self._lock = threading.Lock()
         self.default_zone = Zone(failure_domain="z0", region="r0")
         self.instances_by_name: Dict[str, FakeInstance] = {}
+        self.balancers: Dict[str, Tuple[api.LoadBalancerStatus, List[str]]] = {}
+        self.route_table: Dict[str, Route] = {}
         self.calls: List[str] = []
+        self.next_ip = 1
         # monotonic auto-IP counter: `10.1.0.{len+1}` collided with a
         # live instance's address after any delete-then-add sequence
         # (len shrinks back over an issued suffix)
@@ -151,6 +253,87 @@ class FakeCloud(CloudProvider, NodeGroups):
         if err is not None:
             raise err
 
+    # CloudProvider
+    def load_balancer(self):
+        return self
+
+    def instances(self):
+        return self
+
+    def zones(self):
+        return self
+
+    def routes(self):
+        return self
+
+    # LoadBalancer
+    @staticmethod
+    def _lb_name(service: api.Service) -> str:
+        return f"{service.metadata.namespace}/{service.metadata.name}"
+
+    def get_load_balancer(self, cluster, service):
+        with self._lock:
+            self._record("get-load-balancer")
+            hit = self.balancers.get(self._lb_name(service))
+            return (hit[0], True) if hit else (None, False)
+
+    def ensure_load_balancer(self, cluster, service, nodes):
+        with self._lock:
+            self._record("ensure-load-balancer")
+            name = self._lb_name(service)
+            if name in self.balancers:
+                status = self.balancers[name][0]
+            else:
+                ip = service.spec.load_balancer_ip or f"203.0.113.{self.next_ip}"
+                self.next_ip += 1
+                status = api.LoadBalancerStatus(
+                    ingress=[api.LoadBalancerIngress(ip=ip)])
+            self.balancers[name] = (status, sorted(n.name for n in nodes))
+            return status
+
+    def update_load_balancer(self, cluster, service, nodes):
+        with self._lock:
+            self._record("update-load-balancer")
+            name = self._lb_name(service)
+            if name in self.balancers:
+                self.balancers[name] = (self.balancers[name][0],
+                                        sorted(n.name for n in nodes))
+
+    def ensure_load_balancer_deleted(self, cluster, service):
+        with self._lock:
+            self._record("ensure-load-balancer-deleted")
+            self.balancers.pop(self._lb_name(service), None)
+
+    # Instances
+    def node_addresses(self, name):
+        self._record("node-addresses")
+        inst = self.instances_by_name.get(name)
+        if inst is None:
+            raise KeyError(f"instance {name} not found")
+        return list(inst.addresses)
+
+    def instance_id(self, name):
+        self._record("instance-id")
+        return self.instances_by_name[name].instance_id
+
+    def instance_type(self, name):
+        self._record("instance-type")
+        return self.instances_by_name[name].instance_type
+
+    def instance_exists_by_provider_id(self, provider_id):
+        self._record("instance-exists")
+        return any(i.instance_id == provider_id
+                   for i in self.instances_by_name.values())
+
+    # Zones
+    def get_zone_by_node_name(self, name):
+        self._record("get-zone")
+        return self.instances_by_name[name].zone
+
+    def get_zone(self):
+        self._record("get-zone")
+        return self.default_zone
+
     # NodeGroups
     def node_groups(self):
         return self if self.groups_by_name else None
@@ -174,9 +357,9 @@ class FakeCloud(CloudProvider, NodeGroups):
             return list(self.groups_by_name.values())
 
     def increase_size(self, name: str, delta: int) -> List[str]:
-        """Boot `delta` new instances of the group's shape. A call that
-        raises (a `fail_next` entry, a bad delta) mutates nothing:
-        target size and instances are untouched."""
+        """Boot `delta` new instances of the group's shape. The chaos
+        seam fires BEFORE any mutation so a `cloud.resize` raise models
+        a rejected API call: target size and instances are untouched."""
         new: List[Tuple[NodeGroup, str]] = []
         with self._lock:
             self._record("increase-size")
@@ -211,7 +394,7 @@ class FakeCloud(CloudProvider, NodeGroups):
     def delete_nodes(self, name: str, node_names: List[str]) -> None:
         """Tear down specific members (autoscaler DeleteNodes). Refuses
         to shrink below min_size or to touch an instance of another
-        group; a call that raises mutates nothing."""
+        group; the chaos seam fires before any mutation."""
         with self._lock:
             self._record("delete-nodes")
             faultpoints.fire("cloud.resize",
@@ -235,3 +418,19 @@ class FakeCloud(CloudProvider, NodeGroups):
                 self.instances_by_name.pop(n, None)
                 self._instance_group.pop(n, None)
             g.target_size -= len(node_names)
+
+    # Routes
+    def list_routes(self, cluster):
+        with self._lock:
+            self._record("list-routes")
+            return list(self.route_table.values())
+
+    def create_route(self, cluster, name_hint, route):
+        with self._lock:
+            self._record("create-route")
+            self.route_table[f"{route.target_node}:{route.dest_cidr}"] = route
+
+    def delete_route(self, cluster, route):
+        with self._lock:
+            self._record("delete-route")
+            self.route_table.pop(f"{route.target_node}:{route.dest_cidr}", None)

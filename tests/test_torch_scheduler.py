@@ -7,6 +7,7 @@ and tests/test_torch_gang.py hold the two packages equal with
 preemption on.
 """
 
+import ast
 import importlib
 import subprocess
 import sys
@@ -231,9 +232,118 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "kubernetes_tpu_torch.proxy.userspace",
                 "kubernetes_tpu_torch.volume.csi",
                 "kubernetes_tpu_torch.volume.manager",
-                "kubernetes_tpu_torch.controllers.expand"} <= set(sys.modules)
+                "kubernetes_tpu_torch.controllers.expand",
+                "kubernetes_tpu_torch.controllers.manager",
+                "kubernetes_tpu_torch.controllers.bootstrap",
+                "kubernetes_tpu_torch.server.aggregator",
+                "kubernetes_tpu_torch.server.reconciler",
+                "kubernetes_tpu_torch.server.serviceaccount",
+                "kubernetes_tpu_torch.cli.kubeadm",
+                "kubernetes_tpu_torch.cli.kubeconfig"} <= set(sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def _module_file(root, name):
+    """The file of a module under root by dotted name, or None."""
+    path = root.joinpath(*name.split("."))
+    for f in (path / "__init__.py", path.with_suffix(".py")):
+        if f.is_file():
+            return f
+    return None
+
+
+def _top_level_names(path):
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {a.asname or a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return names
+
+
+def port_import_faults(root):
+    """Every import statement of the port's modules, those inside
+    functions too, that names jax or the JAX package, or a module of the
+    port that does not exist (a relative import, or one spelled
+    kubernetes_tpu_torch...). A name imported from a package must be a
+    module of it or defined at the top of its __init__.py."""
+    pkg = "kubernetes_tpu_torch"
+    faults = []
+    for path in sorted((root / pkg).rglob("*.py")):
+        here = list(path.relative_to(root).with_suffix("").parts[:-1])
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                targets = [(a.name, ()) for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:
+                    base = here[:len(here) - node.level + 1]
+                    name = ".".join(base + ([node.module] if node.module
+                                            else []))
+                else:
+                    name = node.module
+                targets = [(name, [a.name for a in node.names])]
+            else:
+                continue
+            for name, names in targets:
+                top = name.split(".")[0]
+                where = f"{path.relative_to(root)}:{node.lineno}"
+                if top in ("jax", "kubernetes_tpu"):
+                    faults.append(f"{where} imports {name}")
+                    continue
+                if top != pkg:
+                    continue
+                target = _module_file(root, name)
+                if target is None:
+                    faults.append(f"{where}: no module {name}")
+                    continue
+                if target.name != "__init__.py":
+                    continue
+                defined = _top_level_names(target)
+                faults += [f"{where}: no {name}.{n}" for n in names
+                           if n != "*" and n not in defined
+                           and _module_file(root, f"{name}.{n}") is None]
+    return faults
+
+
+def test_every_port_import_resolves_to_a_port_module():
+    """A static pass over the port, imports inside functions included:
+    the import guard above imports module tops only, and so never saw
+    the three lazy imports of server/apiserver.py and server/auth.py
+    that named modules the port did not have."""
+    assert port_import_faults(REPO) == []
+
+
+def test_the_static_pass_finds_a_dangling_lazy_import(tmp_path):
+    pkg = tmp_path / "kubernetes_tpu_torch"
+    (pkg / "server").mkdir(parents=True)
+    (pkg / "__init__.py").write_text("")
+    (pkg / "server" / "__init__.py").write_text("X = 1\n")
+    (pkg / "server" / "auth.py").write_text(textwrap.dedent("""
+        from . import X
+        def f():
+            from . import serviceaccount as sat
+            from ..controllers.bootstrap import lookup_token
+            import jax
+            from kubernetes_tpu.api import types
+            from . import Y
+    """))
+    assert port_import_faults(tmp_path) == [
+        "kubernetes_tpu_torch/server/auth.py:4: no "
+        "kubernetes_tpu_torch.server.serviceaccount",
+        "kubernetes_tpu_torch/server/auth.py:5: no module "
+        "kubernetes_tpu_torch.controllers.bootstrap",
+        "kubernetes_tpu_torch/server/auth.py:6 imports jax",
+        "kubernetes_tpu_torch/server/auth.py:7 imports kubernetes_tpu.api",
+        "kubernetes_tpu_torch/server/auth.py:8: no "
+        "kubernetes_tpu_torch.server.Y"]

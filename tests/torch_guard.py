@@ -36,7 +36,12 @@ tests on the worker left running against servers they stopped: each
 retry of theirs fires `store.outage`, `reflector.relist` and
 `rest.request` in a registry the test may arm and count (the JAX-side
 test_proxy.py leak of ROADMAP queue 3 met the port's store-plane tests
-so).
+so). It stops the leader electors (either package's
+client/leaderelection.py) that earlier tests left running the same
+way: each acquire or renew attempt fires `lease.renew`, and the
+elector of a failed tests/test_apiserver.py lease test, left retrying
+against its stopped server, took `lease.renew` hits from the JAX side of
+the campaign lockstep (ROADMAP.md queue 3).
 """
 
 import threading
@@ -73,9 +78,19 @@ def _stop_leaked_reflectors():
             refl.stop()
 
 
+def _stop_leaked_electors():
+    for t in threading.enumerate():
+        elector = getattr(getattr(t, "_target", None), "__self__", None)
+        if t.name.startswith("leaderelection-") and \
+                hasattr(elector, "renew_deadline"):
+            elector.stop()
+            t.join(timeout=5.0)
+
+
 @pytest.fixture(autouse=True)
 def faults_off():
     _stop_leaked_reflectors()
+    _stop_leaked_electors()
     yield
     jax_faultpoints.reset()
     torch_faultpoints.reset()
